@@ -1,0 +1,299 @@
+"""Layer configuration beans.
+
+Mirror of reference nn/conf/layers/*.java — one bean per layer type, all 15
+JSON subtypes from the reference registry (nn/conf/layers/Layer.java:43-56):
+AutoEncoder, ConvolutionLayer, ImageLSTM, GravesLSTM, GravesBidirectionalLSTM,
+GRU, OutputLayer, RnnOutputLayer, RBM, DenseLayer, RecursiveAutoEncoder,
+SubsamplingLayer, LocalResponseNormalization, EmbeddingLayer,
+BatchNormalization.
+
+Hierarchy mirrors the reference (FeedForwardLayer <- BasePretrainNetwork /
+BaseOutputLayer / BaseRecurrentLayer). Every hyperparameter field defaulting
+to ``None`` inherits the global value from :class:`NeuralNetConfiguration`
+(the reference's layer-over-global override semantics,
+nn/conf/NeuralNetConfiguration.java:286-628).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional, Sequence
+
+from deeplearning4j_tpu_torch.nn.conf.enums import (
+    GradientNormalization,
+    Updater,
+    WeightInit,
+)
+from deeplearning4j_tpu_torch.nn.conf.distribution import (
+    BinomialDistribution,
+    NormalDistribution,
+    UniformDistribution,
+)
+from deeplearning4j_tpu_torch.nn.conf.serde import register_bean
+from deeplearning4j_tpu_torch.ops.losses import LossFunction
+
+Distribution = NormalDistribution | UniformDistribution | BinomialDistribution
+
+
+@dataclasses.dataclass
+class Layer:
+    """Abstract layer bean (reference nn/conf/layers/Layer.java:60).
+
+    ``None`` means "inherit from the enclosing NeuralNetConfiguration".
+    """
+
+    activation: Optional[str] = None
+    weight_init: Optional[WeightInit] = None
+    dist: Optional[Distribution] = None
+    bias_init: Optional[float] = None
+    dropout: Optional[float] = None
+    learning_rate: Optional[float] = None
+    momentum: Optional[float] = None
+    l1: Optional[float] = None
+    l2: Optional[float] = None
+    updater: Optional[Updater] = None
+    rho: Optional[float] = None
+    rms_decay: Optional[float] = None
+    adam_mean_decay: Optional[float] = None
+    adam_var_decay: Optional[float] = None
+    gradient_normalization: Optional[GradientNormalization] = None
+    gradient_normalization_threshold: Optional[float] = None
+
+    def num_params(self) -> str:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class FeedForwardLayer(Layer):
+    """Reference nn/conf/layers/FeedForwardLayer.java:11."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+
+@register_bean("DenseLayer")
+@dataclasses.dataclass
+class DenseLayer(FeedForwardLayer):
+    pass
+
+
+@dataclasses.dataclass
+class BasePretrainNetwork(FeedForwardLayer):
+    """Reference nn/conf/layers/BasePretrainNetwork.java."""
+
+    loss_function: LossFunction = LossFunction.RECONSTRUCTION_CROSSENTROPY
+    visible_bias_init: float = 0.0
+
+
+@register_bean("AutoEncoder")
+@dataclasses.dataclass
+class AutoEncoder(BasePretrainNetwork):
+    corruption_level: float = 0.3
+    sparsity: float = 0.0
+
+
+@register_bean("RecursiveAutoEncoder")
+@dataclasses.dataclass
+class RecursiveAutoEncoder(BasePretrainNetwork):
+    pass
+
+
+class HiddenUnit(str, enum.Enum):
+    BINARY = "binary"
+    GAUSSIAN = "gaussian"
+    RECTIFIED = "rectified"
+    SOFTMAX = "softmax"
+
+
+class VisibleUnit(str, enum.Enum):
+    BINARY = "binary"
+    GAUSSIAN = "gaussian"
+    LINEAR = "linear"
+    SOFTMAX = "softmax"
+
+
+@register_bean("RBM")
+@dataclasses.dataclass
+class RBM(BasePretrainNetwork):
+    """Restricted Boltzmann machine (reference nn/conf/layers/RBM.java;
+    runtime nn/layers/feedforward/rbm/RBM.java:110 CD-k)."""
+
+    hidden_unit: HiddenUnit = HiddenUnit.BINARY
+    visible_unit: VisibleUnit = VisibleUnit.BINARY
+    k: int = 1
+    sparsity: float = 0.0
+
+
+@dataclasses.dataclass
+class BaseOutputLayer(FeedForwardLayer):
+    """Reference nn/conf/layers/BaseOutputLayer.java."""
+
+    loss_function: LossFunction = LossFunction.NEGATIVELOGLIKELIHOOD
+
+
+@register_bean("OutputLayer")
+@dataclasses.dataclass
+class OutputLayer(BaseOutputLayer):
+    pass
+
+
+@register_bean("RnnOutputLayer")
+@dataclasses.dataclass
+class RnnOutputLayer(BaseOutputLayer):
+    """Per-timestep output layer for [N, C, T] activations
+    (reference nn/conf/layers/RnnOutputLayer.java)."""
+
+
+@dataclasses.dataclass
+class BaseRecurrentLayer(FeedForwardLayer):
+    """Reference nn/conf/layers/BaseRecurrentLayer.java.
+
+    ``ring_axis``: when set and the layer runs inside a
+    sequence-parallel ``shard_map`` over that mesh axis
+    (``ParallelTrainer(sp_axis=...)``), the time dimension is sharded:
+    attention cores run the ring/Ulysses schedule and scan recurrences
+    (LSTM/GRU) run as a distributed ``sp_scan`` whose carry hops
+    device-to-device — exact full BPTT with O(T/P) activation memory
+    per device (the reference's only long-sequence device was
+    TRUNCATED BPTT; SURVEY.md §5.7)."""
+
+    ring_axis: "str | None" = None
+
+
+@register_bean("GravesLSTM")
+@dataclasses.dataclass
+class GravesLSTM(BaseRecurrentLayer):
+    """LSTM with peepholes per Graves (2013) (reference
+    nn/conf/layers/GravesLSTM.java; runtime nn/layers/recurrent/
+    LSTMHelpers.java:147 — here a ``lax.scan`` over time)."""
+
+    forget_gate_bias_init: float = 1.0
+
+
+@register_bean("GravesBidirectionalLSTM")
+@dataclasses.dataclass
+class GravesBidirectionalLSTM(BaseRecurrentLayer):
+    forget_gate_bias_init: float = 1.0
+
+
+@register_bean("GRU")
+@dataclasses.dataclass
+class GRU(BaseRecurrentLayer):
+    pass
+
+
+@register_bean("ImageLSTM")
+@dataclasses.dataclass
+class ImageLSTM(BaseRecurrentLayer):
+    """Karpathy-style image-captioning LSTM (reference nn/conf/layers/
+    ImageLSTM.java + nn/layers/recurrent/ImageLSTM.java): time step 0 is
+    the image embedding, the remaining steps are word embeddings; the
+    decoder head drops the image step. ``n_hidden`` is the LSTM cell
+    width — the reference hard-codes 8 with a TODO to make it an
+    attribute (ImageLSTMParamInitializer.java:52); here it is one.
+    ``n_in`` is the embedding width, ``n_out`` the decoder (vocabulary)
+    width."""
+
+    n_hidden: int = 8
+
+
+@register_bean("EmbeddingLayer")
+@dataclasses.dataclass
+class EmbeddingLayer(FeedForwardLayer):
+    """Index -> dense row lookup (reference nn/conf/layers/EmbeddingLayer.java).
+    On TPU this is a one-hot matmul / ``take`` that XLA lowers to a gather."""
+
+
+@register_bean("ConvolutionLayer")
+@dataclasses.dataclass
+class ConvolutionLayer(FeedForwardLayer):
+    """2-D convolution (reference nn/conf/layers/ConvolutionLayer.java).
+
+    The reference computes conv as im2col + GEMM
+    (nn/layers/convolution/ConvolutionLayer.java:135); here the runtime uses
+    ``lax.conv_general_dilated`` which XLA tiles directly onto the MXU.
+    ``n_in``/``n_out`` are channel counts (set by shape inference).
+    """
+
+    kernel_size: Sequence[int] = (5, 5)
+    stride: Sequence[int] = (1, 1)
+    padding: Sequence[int] = (0, 0)
+
+
+class PoolingType(str, enum.Enum):
+    MAX = "max"
+    AVG = "avg"
+    SUM = "sum"
+
+
+@register_bean("SubsamplingLayer")
+@dataclasses.dataclass
+class SubsamplingLayer(Layer):
+    """Spatial pooling (reference nn/conf/layers/SubsamplingLayer.java;
+    runtime nn/layers/convolution/subsampling/SubsamplingLayer.java).
+    Parameter-free; runtime is ``lax.reduce_window``."""
+
+    pooling_type: PoolingType = PoolingType.MAX
+    kernel_size: Sequence[int] = (2, 2)
+    stride: Sequence[int] = (2, 2)
+    padding: Sequence[int] = (0, 0)
+
+
+@register_bean("LocalResponseNormalization")
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Across-channel LRN (reference nn/conf/layers/
+    LocalResponseNormalization.java)."""
+
+    n: float = 5.0
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+
+@register_bean("LayerNormalization")
+@dataclasses.dataclass
+class LayerNormalization(FeedForwardLayer):
+    """Per-example LayerNorm over the channel axis (TPU-native addition
+    — the reference's only normalizations are batch-level
+    BatchNormalization.java and LRN; transformer stacks need the
+    batch-independent variant). Works on [N, C] and [N, C, T]
+    activations; ``n_in == n_out`` (a pure normalizer). The standard
+    final-norm for pre-LN transformer stacks: without it the residual
+    stream reaches the output head at depth-growing magnitude (measured:
+    width-1024 x 8 init loss 9.1 vs ln V = 4.16 — BENCHMARKS.md
+    flagship section)."""
+
+    eps: float = 1e-5
+
+
+@register_bean("BatchNormalization")
+@dataclasses.dataclass
+class BatchNormalization(FeedForwardLayer):
+    """Batch normalization (reference nn/conf/layers/BatchNormalization.java;
+    runtime nn/layers/normalization/BatchNormalization.java). Running
+    mean/var live in the network's mutable-state pytree, threaded
+    functionally through apply()."""
+
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0
+    beta: float = 0.0
+    lock_gamma_beta: bool = False
+
+
+# Layer kinds that consume/produce [N, C, T] time series. Matching on the
+# base classes keeps extensions (e.g. MultiHeadSelfAttention) covered.
+RECURRENT_LAYER_TYPES = (
+    BaseRecurrentLayer,
+    RnnOutputLayer,
+)
+
+# Layer kinds that operate on [N, C, H, W] images.
+CONVOLUTIONAL_LAYER_TYPES = (ConvolutionLayer, SubsamplingLayer,
+                             LocalResponseNormalization)
+
+# Pretrainable layer kinds (greedy layer-wise pretraining, reference
+# MultiLayerNetwork.pretrain :150).
+PRETRAIN_LAYER_TYPES = (RBM, AutoEncoder, RecursiveAutoEncoder)

@@ -1,0 +1,117 @@
+"""The PyTorch port stands alone: importing ``deeplearning4j_tpu_torch``
+and every module in it pulls in neither ``jax`` nor the JAX package,
+``chip_smoke.py`` imports neither, and the entry points default to the
+card and refuse to run elsewhere when CUDA is absent."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import types
+
+import pytest
+import torch
+
+import deeplearning4j_tpu_torch
+from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.serving import DecodeEngine
+from deeplearning4j_tpu_torch.util.model_serializer import (
+    restore_model,
+    write_model,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def _port_modules():
+    pkg = deeplearning4j_tpu_torch
+    return sorted(
+        m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                              pkg.__name__ + "."))
+
+
+def test_port_modules_import_without_jax():
+    mods = _port_modules()
+    assert "deeplearning4j_tpu_torch.serving.engine" in mods
+    assert "deeplearning4j_tpu_torch.nn.layers.attention" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "port package"])
+def test_sources_never_import_jax(path):
+    if path == "port package":
+        base = os.path.dirname(deeplearning4j_tpu_torch.__file__)
+        files = [os.path.join(d, f) for d, _, fs in os.walk(base)
+                 for f in fs if f.endswith(".py")]
+    else:
+        files = [os.path.join(ROOT, path)]
+    for f in files:
+        bad = [m for m in _imports(f) if _forbidden(m)]
+        assert not bad, f"{f} imports {bad}"
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Without a card (or run from a directory holding only the
+    script), chip_smoke.py exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    for cwd, script in ((ROOT, "chip_smoke.py"), (tmp_path, str(lone))):
+        out = subprocess.run([sys.executable, script], cwd=cwd,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
+
+
+def _cpu_net():
+    conf = transformer_lm_flagship(vocab=8, width=16, n_layers=1,
+                                   n_heads=2)
+    return MultiLayerNetwork(conf, device="cpu").init()
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    conf = transformer_lm_flagship(vocab=8, width=16, n_layers=1,
+                                   n_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(conf)
+    path = str(tmp_path / "m.zip")
+    write_model(_cpu_net(), path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restore_model(path)
+    # the engine follows the net's device and checks it is usable
+    stub = types.SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DecodeEngine(stub)
+    assert restore_model(path, device="cpu").device.type == "cpu"
+    assert DecodeEngine(_cpu_net(), n_slots=1).device.type == "cpu"
