@@ -6,14 +6,31 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
 JAX or of the JAX package. Phases, each fatal on failure:
 
 1. device  — CUDA present; the card's name and power limit; TF32 off.
-2. build   — every kernel of the serving path built from ``csrc/``.
+2. build   — every kernel built from ``csrc/`` (one nvcc per source,
+   started together).
 3. kernels — each kernel held against its plain PyTorch version on the
-   card at the serving path's shapes, with its time, the plain
-   version's, a library call's and the least time the card could take.
-4. serving — the width-1024 transformer flagship served by the paged-KV
-   ``DecodeEngine`` (random weights from a seed): every request
-   finishes, the kernels' launch counters moved on this run, and the
+   card at its path's shapes, with its time, the plain version's, a
+   library call's and the least time the card could take: K2 (paged
+   attention) and K1 (flash attention, forward and dQ/dK/dV, at
+   training A's T=2048, at training B's T=32768 against a plain version
+   chunked over query rows, and at edge cases; planted faults must fail
+   its limits), plus the sweep behind K1's auto-dispatch threshold
+   ``FLASH_MIN_T``.
+4. training A — the width-1024 flagship (random weights from a seed) on
+   K1 and on dense attention from the same params, 4 ``fit`` steps each
+   at B=2, T=2048 on the Markov task, f32 and bf16: loss trajectories
+   agree (and at f32 the params), K1 launched 8 times per step forward
+   and backward.
+5. training B — bench.py's 32k long-context row (bf16, B=2, T=32768):
+   1 warm-up and 2 timed ``fit`` steps through K1 in auto mode; tokens/s,
+   s/step, peak memory, finite losses, K1's launches and its share of
+   the step.
+6. serving — the flagship served by the paged-KV ``DecodeEngine``: every
+   request finishes, K2's launch counter moved on this run, and the
    greedy ids agree with an engine on the plain gather program.
+
+Each path's kernel launch counts are set to 0 just before it runs and
+read just after (comparison launches do not count).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -35,10 +52,11 @@ if HERE not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
-# float32 FLOP/s outside the tensor cores (the kernel's arithmetic).
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s,
+# float32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 # the serving path's shapes: bench.py's serving configuration
 VOCAB, WIDTH, N_LAYERS, N_HEADS, WINDOW = 64, 1024, 8, 8, 2048
@@ -86,7 +104,7 @@ def build_phase() -> None:
     from deeplearning4j_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    secs = cuda_build.build_all(["paged_attention"])
+    secs = cuda_build.build_all(["paged_attention", "flash_attention"])
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.2f} s "
         "wall, nvcc sm_90a)")
 
@@ -270,6 +288,492 @@ def kernel_phase() -> list:
         **main)]
 
 
+# K1 (flash attention): the training path's shapes are B=2, H=8, dh=128
+# at phase A's T=2048 and at phase B's T=LONG_T; the kernels line
+# reports the LONG_T shape, the one its launches are counted at. Each
+# case is held against the plain version on the f32 upcast by three
+# measures, each with its limit: max |out - ref| ("out"); each grad's
+# max |g - r| / max |r| ("grad"); and the scale-free ||x - r|| / ||r||
+# of the output and of each grad ("norm"), which a fault confined to
+# late rows moves where the max measures may not. PERF.md gives the
+# sound readings and the planted-fault readings each limit sits between.
+FLASH_B, FLASH_H = 2, 8
+FLASH_TOL = {torch.float32: dict(out=1e-4, grad=1e-3, norm=1e-5),
+             torch.bfloat16: dict(out=2e-2, grad=1e-2, norm=6e-3)}
+FLASH_SWEEP_T = (512, 1024, 2048, 4096)
+# query rows per chunk of the chunked plain version: a [B, H, 512, T]
+# f32 score block at a time (1 GiB at T=32768)
+FLASH_REF_ROWS = 512
+# planted faults, each a drop(qpos, kpos) of keys a faulty kernel would
+# leave out, confined to the late half of the rows: the check must fail
+# each of them (K1's key tile is 64)
+FLASH_FAULTS = {
+    "diagonal key dropped in rows >= T/2":
+        lambda t: lambda qp, kp: (qp >= t // 2) & (kp == qp),
+    "first 64-key tile dropped in rows >= T/2":
+        lambda t: lambda qp, kp: (qp >= t // 2) & (kp < 64),
+}
+
+
+def _flash_case(gen, t, dh, dtype, dev):
+    """q/k/v/dO from a seeded generator; q's row 3 is zero in every
+    head."""
+    shape = (FLASH_B, FLASH_H, t, dh)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(4))
+    q[:, :, 3, :] = 0.0
+    return [a.to(dtype) for a in (q, k, v, do)]
+
+
+def _flash_flops(t, dh, causal):
+    """Executed forward flops (QKᵀ and P·V); causal counts half the
+    square. The backward does 2.5x the forward."""
+    f = 4.0 * FLASH_B * FLASH_H * t * t * dh
+    return f / 2 if causal else f
+
+
+def _flash_bound(t, dh, dtype, causal, backward):
+    """Least time: each operand read once and each output written once
+    (fwd: q, k, v -> o, lse; bwd: q, k, v, o, dO, lse -> dq, dk, dv)
+    over HBM bytes/s, or the flops over the dtype's peak."""
+    el = FLASH_B * FLASH_H * t * dh * (2 if dtype == torch.bfloat16 else 4)
+    rows = FLASH_B * FLASH_H * t * 4
+    nbytes = (8 * el + 2 * rows) if backward else (4 * el + rows)
+    flops = _flash_flops(t, dh, causal) * (2.5 if backward else 1.0)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _grad_fn(fn, q, k, v, do, causal):
+    """fwd+bwd of ``fn`` as one timed call, and the backward alone on a
+    graph kept alive (``retain_graph``)."""
+    qr, kr, vr = (a.detach().requires_grad_(True) for a in (q, k, v))
+
+    def both():
+        out = fn(qr, kr, vr, causal)
+        return torch.autograd.grad(out, (qr, kr, vr), do)
+
+    out = fn(qr, kr, vr, causal)
+
+    def back():
+        return torch.autograd.grad(out, (qr, kr, vr), do,
+                                   retain_graph=True)
+
+    return both, back
+
+
+def _sdpa(q, k, v, causal):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal)
+
+
+def _flash_reference_chunked(q, k, v, do, causal, drop=None,
+                             rows=FLASH_REF_ROWS):
+    """The function of ``flash_attention_reference`` (f32, the exact
+    ``dh ** -0.5``, causal by select) over query-row chunks, with dQ,
+    dK and dV by autograd chunk by chunk, so a long T never holds its
+    [T, T] scores at once. ``do=None`` gives the output alone;
+    ``drop(qpos, kpos)`` marks keys to leave out (a planted fault).
+    Returns f32 (out,) or (out, dq, dk, dv)."""
+    t, dh = q.shape[2], q.shape[3]
+    qf, kf, vf = (a.detach().float() for a in (q, k, v))
+    grads = do is not None
+    out = torch.empty_like(qf)
+    if grads:
+        dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    neg = torch.tensor(-1e30, device=q.device)
+    for s in range(0, t, rows):
+        e = min(s + rows, t)
+        n = e if causal else t
+        qpos = torch.arange(s, e, device=q.device)[:, None]
+        kpos = torch.arange(n, device=q.device)[None, :]
+        keep = torch.ones(e - s, n, dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= kpos <= qpos
+        if drop is not None:
+            keep &= ~drop(qpos, kpos)
+        qc, kc, vc = (a[:, :, lo:hi].detach().requires_grad_(grads)
+                      for a, lo, hi in ((qf, s, e), (kf, 0, n), (vf, 0, n)))
+        with torch.set_grad_enabled(grads):
+            sc = torch.einsum("bhqd,bhkd->bhqk", qc, kc) * dh ** -0.5
+            w = torch.softmax(torch.where(keep, sc, neg), dim=-1)
+            oc = torch.einsum("bhqk,bhkd->bhqd", w, vc)
+            if grads:
+                gq, gk, gv = torch.autograd.grad(oc, (qc, kc, vc),
+                                                 do[:, :, s:e].float())
+        out[:, :, s:e] = oc.detach()
+        if grads:
+            dq[:, :, s:e] = gq
+            dk[:, :, :n] += gk
+            dv[:, :, :n] += gv
+    return (out, dq, dk, dv) if grads else (out,)
+
+
+def _flash_errors(out, grads, ref, ref_grads) -> dict:
+    """The three measures of FLASH_TOL: ``out`` a number, ``grad`` one
+    per dq/dk/dv, ``norm`` one per out/dq/dk/dv."""
+    def rel_norm(x, r):
+        return float((x.float() - r).norm() / r.norm())
+
+    pairs = list(zip(grads, ref_grads))
+    return dict(
+        out=float((out.float() - ref).abs().max()),
+        grad=[float((g.float() - r).abs().max() / r.abs().max())
+              for g, r in pairs],
+        norm=[rel_norm(out, ref)] + [rel_norm(g, r) for g, r in pairs])
+
+
+def _flash_failed(errs, dtype) -> list:
+    """The measures over their limits at ``dtype``."""
+    tol = FLASH_TOL[dtype]
+    worst = dict(out=errs["out"], grad=max(errs["grad"]),
+                 norm=max(errs["norm"]))
+    return [m for m in tol if not worst[m] <= tol[m]]
+
+
+def _flash_log(name, errs, dtype) -> None:
+    tol = FLASH_TOL[dtype]
+    log(f"{name}: out max_abs_err {errs['out']:.3e} (tol {tol['out']}); "
+        f"dq/dk/dv max err / max|ref| {[f'{e:.3e}' for e in errs['grad']]}"
+        f" (tol {tol['grad']}); ||err|| / ||ref|| of out/dq/dk/dv "
+        f"{[f'{e:.3e}' for e in errs['norm']]} (tol {tol['norm']})")
+
+
+def _flash_hold(name, dtype, out, grads, ref, ref_grads) -> dict:
+    """Hold K1's output and grads against the plain version's; fatal on
+    a NaN or a measure over its limit. Returns the measures."""
+    errs = _flash_errors(out, grads, ref, ref_grads)
+    _flash_log(name, errs, dtype)
+    finite = all(bool(torch.isfinite(a).all()) for a in (out, *grads))
+    failed = _flash_failed(errs, dtype)
+    if not finite or failed:
+        raise SystemExit(f"chip_smoke: {name}: over the limit on "
+                         f"{failed}, finite {finite}: {errs}")
+    return errs
+
+
+def _k1_grads(q, k, v, do, causal):
+    """K1's output and dQ/dK/dV through autograd."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import flash_attention
+
+    qr, kr, vr = (a.detach().requires_grad_(True) for a in (q, k, v))
+    out = flash_attention(qr, kr, vr, causal)
+    grads = torch.autograd.grad(out, (qr, kr, vr), do)
+    torch.cuda.synchronize()
+    return out.detach(), grads
+
+
+def flash_long_case(gen, dev) -> tuple:
+    """K1 at phase B's shape (B=2, H=8, T=LONG_T, dh=128, bf16, causal)
+    held against the chunked plain version (the whole [T, T] scores do
+    not fit the card), with its times, the plain version's (its
+    backward timed as chunked fwd+bwd less chunked fwd), SDPA's and the
+    bounds. Returns the kernels-line entries."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    t, dh, bf16 = LONG_T, WIDTH // N_HEADS, torch.bfloat16
+    name = f"flash_attention T={t}, dh={dh}, causal, bfloat16"
+    q, k, v, do = _flash_case(gen, t, dh, bf16, dev)
+    out, grads = _k1_grads(q, k, v, do, True)
+    ref, *ref_grads = _flash_reference_chunked(q, k, v, do, True)
+    errs = _flash_hold(name + " (chunked plain)", bf16, out, grads, ref,
+                       ref_grads)
+    del out, grads, ref, ref_grads
+    o, lse = flash_attention_fwd(q, k, v, True)
+    ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True), iters=5,
+                      warmup=1)
+    bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                      True),
+                          iters=5, warmup=1)
+    plain_ms = cuda_time_ms(
+        lambda: _flash_reference_chunked(q, k, v, None, True), iters=2,
+        warmup=1)
+    plain_both_ms = cuda_time_ms(
+        lambda: _flash_reference_chunked(q, k, v, do, True), iters=2,
+        warmup=1)
+    lib_ms = cuda_time_ms(lambda: _sdpa(q, k, v, True), iters=5, warmup=1)
+    _, l_back = _grad_fn(_sdpa, q, k, v, do, True)
+    lib_bwd_ms = cuda_time_ms(l_back, iters=5, warmup=1)
+    bound, by = _flash_bound(t, dh, bf16, True, False)
+    bbound, bby = _flash_bound(t, dh, bf16, True, True)
+    plain_bwd_ms = plain_both_ms - plain_ms
+    log(f"{name} times: kernel fwd {ms:.4f} ms, bwd {bwd_ms:.4f} ms; "
+        f"chunked plain fwd {plain_ms:.4f}, fwd+bwd {plain_both_ms:.4f}, "
+        f"bwd (the difference) {plain_bwd_ms:.4f} ms; sdpa fwd "
+        f"{lib_ms:.4f}, bwd {lib_bwd_ms:.4f} ms; bound fwd {bound:.4f} ms "
+        f"({by}, {bound / ms:.2%} of it), bwd {bbound:.4f} ms ({bby}, "
+        f"{bbound / bwd_ms:.2%} of it)")
+    return {
+        "flash_attention": dict(
+            max_abs_err=errs["out"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=lib_ms),
+        "flash_attention_bwd": dict(
+            max_abs_err=max(errs["grad"]), ms=bwd_ms,
+            plain_ms=plain_bwd_ms, bound_ms=bbound, bound_by=bby,
+            library_ms=lib_bwd_ms)}
+
+
+def flash_fault_readings(q, k, v, do, ref, ref_grads) -> None:
+    """The chunked plain version held against the whole one (f32, so
+    at the f32 limits), then each planted fault's readings against the
+    bf16 limits: the check must fail every fault."""
+    t = q.shape[2]
+    chunked, *c_grads = _flash_reference_chunked(q, k, v, do, True)
+    _flash_hold(f"chunked plain vs plain T={t}, float32", torch.float32,
+                chunked, c_grads, ref, ref_grads)
+    for fault, drop in FLASH_FAULTS.items():
+        f_out, *f_grads = _flash_reference_chunked(q, k, v, do, True,
+                                                   drop=drop(t))
+        errs = _flash_errors(f_out, f_grads, ref, ref_grads)
+        _flash_log(f"planted fault T={t}: {fault}", errs, torch.bfloat16)
+        failed = _flash_failed(errs, torch.bfloat16)
+        log(f"planted fault T={t}: {fault}: caught by {failed}")
+        if not failed:
+            raise SystemExit(f"chip_smoke: the bf16 limits pass a planted "
+                             f"fault ({fault}): {errs}")
+
+
+def flash_kernel_phase() -> tuple:
+    """K1 forward and backward held against the plain version on the
+    f32 upcast at phase A's and phase B's shapes and at edge cases;
+    planted-fault readings; times; the FLASH_MIN_T sweep. Returns the
+    kernels-line entries (at LONG_T) and K1's fwd + bwd ms there."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        _dense_attention,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    cases = [(2048, 128, True), (1000, 128, True), (2049, 128, True),
+             (1024, 64, True), (1024, 128, False)]
+    for t, dh, causal in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = _flash_case(gen, t, dh, dtype, dev)
+            out, grads = _k1_grads(q, k, v, do, causal)
+            qf, kf, vf = (a.float().requires_grad_(True) for a in (q, k, v))
+            ref = flash_attention_reference(qf, kf, vf, causal)
+            ref_grads = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+            ref = ref.detach()
+            name = (f"flash_attention T={t}, dh={dh}, "
+                    f"{'causal' if causal else 'full'}, "
+                    f"{str(dtype).split('.')[-1]}")
+            _flash_hold(name, dtype, out, grads, ref, ref_grads)
+            if t != 2048:
+                continue
+            if dtype == torch.float32:
+                flash_fault_readings(q, k, v, do, ref, ref_grads)
+            qc, kc, vc, oc = (a.contiguous() for a in (q, k, v, out))
+            _, lse = flash_attention_fwd(qc, kc, vc, causal)
+            ms = cuda_time_ms(lambda: flash_attention_fwd(qc, kc, vc, causal))
+            bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(
+                qc, kc, vc, oc, lse, do, causal))
+            both, _ = _grad_fn(flash_attention, q, k, v, do, causal)
+            both_ms = cuda_time_ms(both)
+            plain_ms = cuda_time_ms(
+                lambda: flash_attention_reference(q, k, v, causal))
+            p_both, p_back = _grad_fn(flash_attention_reference, q, k, v, do,
+                                      causal)
+            plain_bwd_ms = cuda_time_ms(p_back)
+            plain_both_ms = cuda_time_ms(p_both)
+            lib_ms = cuda_time_ms(lambda: _sdpa(q, k, v, causal))
+            l_both, l_back = _grad_fn(_sdpa, q, k, v, do, causal)
+            lib_bwd_ms = cuda_time_ms(l_back)
+            lib_both_ms = cuda_time_ms(l_both)
+            bound, by = _flash_bound(t, dh, dtype, causal, False)
+            bbound, bby = _flash_bound(t, dh, dtype, causal, True)
+            log(f"{name} times: kernel fwd {ms:.4f} ms, bwd {bwd_ms:.4f} ms,"
+                f" fwd+bwd {both_ms:.4f} ms; plain fwd {plain_ms:.4f}, bwd "
+                f"{plain_bwd_ms:.4f}, fwd+bwd {plain_both_ms:.4f} ms; sdpa "
+                f"fwd {lib_ms:.4f}, bwd {lib_bwd_ms:.4f}, fwd+bwd "
+                f"{lib_both_ms:.4f} ms; bound fwd {bound:.4f} ms ({by}, "
+                f"{bound / ms:.1%} of it), bwd {bbound:.4f} ms ({bby}, "
+                f"{bbound / bwd_ms:.1%} of it)")
+    entries = flash_long_case(gen, dev)
+    # FLASH_MIN_T: kernel fwd+bwd against dense fwd+bwd, bf16, causal
+    sweep = []
+    for t in FLASH_SWEEP_T:
+        q, k, v, do = _flash_case(gen, t, 128, torch.bfloat16, dev)
+        k_both, _ = _grad_fn(flash_attention, q, k, v, do, True)
+        d_both, _ = _grad_fn(
+            lambda a, b, c, causal: _dense_attention(a, b, c, causal, None),
+            q, k, v, do, True)
+        k_ms = cuda_time_ms(k_both, iters=10)
+        d_ms = cuda_time_ms(d_both, iters=10)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        d_both()
+        torch.cuda.synchronize()
+        d_mem = torch.cuda.max_memory_allocated() - base
+        sweep.append((t, k_ms, d_ms, d_mem))
+    log("FLASH_MIN_T sweep (B=2, H=8, dh=128, bf16, causal, fwd+bwd ms; "
+        "dense peak memory above its inputs): "
+        + "; ".join(f"T={t}: kernel {a:.4f}, dense {b:.4f}, dense memory "
+                    f"{m / 2**30:.3f} GiB" for t, a, b, m in sweep))
+    flash_attention.launches, flash_attention.bwd_launches = before
+    src = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
+    rep = "deeplearning4j_tpu/nn/layers/attention.py:729"
+    k1_long_ms = (entries["flash_attention"]["ms"]
+                  + entries["flash_attention_bwd"]["ms"])
+    return [dict(name=name, route="cuda", source=src, replaces=rep, **e)
+            for name, e in entries.items()], k1_long_ms
+
+
+# training: the flagship at full width on the Markov task
+TRAIN_VOCAB, TRAIN_B = 64, 2
+PARITY_T, PARITY_STEPS = 2048, 4
+# loss-trajectory agreement, K1 net vs dense net (ROADMAP's 5e-3 at f32
+# with TF32 off; bf16 rounds at other places in the two attentions)
+PARITY_RTOL = {"float32": 5e-3, "bfloat16": 2e-2}
+# at f32 the params after the 4 steps agree too (max |diff|; 1.2e-6
+# measured). At bf16 they are not held: Adam's normalized step turns
+# rounding-level gradient differences into lr-sized param differences.
+PARITY_PARAM_ATOL = {"float32": 1e-5}
+# bench.py's 32k long-context row: 1 warm-up and 2 timed steps
+LONG_T, LONG_STEPS = 32768, 3
+
+
+def _flagship(compute_dtype, use_flash, **kw):
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
+
+    conf = transformer_lm_flagship(vocab=TRAIN_VOCAB, width=WIDTH,
+                                   n_layers=N_LAYERS, n_heads=N_HEADS,
+                                   seed=11, **kw)
+    for c in conf.confs:
+        if compute_dtype != "float32":
+            c.compute_dtype = compute_dtype
+        if hasattr(c.layer, "use_flash"):
+            c.layer.use_flash = use_flash
+    return conf
+
+
+def _markov_batches(n_batches, t, sample_seed):
+    from deeplearning4j_tpu_torch.datasets.markov import markov_lm_batches
+
+    f, y, floor = markov_lm_batches(TRAIN_VOCAB, TRAIN_B * n_batches, t,
+                                    seed=0, sample_seed=sample_seed)
+    return [(f[i:i + TRAIN_B], y[i:i + TRAIN_B])
+            for i in range(0, len(f), TRAIN_B)], floor
+
+
+def _train(net, batches):
+    """fit each batch; returns the losses and the wall of each step."""
+    losses, walls = [], []
+    for f, y in batches:
+        t0 = time.perf_counter()
+        net.fit(f, y)
+        losses.append(float(net.score_value))   # syncs the step
+        walls.append(time.perf_counter() - t0)
+    return losses, walls
+
+
+def training_parity_phase(card: str) -> None:
+    """Phase A: two flagship nets from the same params, one on K1 and
+    one on dense attention, 4 fit steps each at B=2, T=2048; the loss
+    trajectories agree and K1 launched 8 times per step each way."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    batches, _ = _markov_batches(PARITY_STEPS, PARITY_T, sample_seed=1)
+    for cd in ("float32", "bfloat16"):
+        kw = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+        k1 = MultiLayerNetwork(_flagship(cd, True, **kw),
+                               device=DEVICE).init()
+        dense = MultiLayerNetwork(_flagship(cd, False, **kw),
+                                  device=DEVICE).init()
+        for key, p in k1.param_table().items():
+            dense.set_param(key, p)
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        paged_attention.launches = 0
+        k_loss, k_wall = _train(k1, batches)
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        d_loss, d_wall = _train(dense, batches)
+        dense_launches = flash_attention.launches - fwd
+        rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, d_loss))
+        pdiff = max(float((k1.param_table()[k] - p).abs().max())
+                    for k, p in dense.param_table().items())
+        p_tol = PARITY_PARAM_ATOL.get(cd, float("inf"))
+        log(f"training A [{cd}]: K1 losses {[f'{x:.6f}' for x in k_loss]}, "
+            f"dense {[f'{x:.6f}' for x in d_loss]}; max rel diff {rel:.3e} "
+            f"(tol {PARITY_RTOL[cd]}); max |param diff| {pdiff:.3e} (tol "
+            f"{p_tol}); K1 launches fwd {fwd}, bwd {bwd} over "
+            f"{PARITY_STEPS} steps; s/step K1 {[round(w, 4) for w in k_wall]}"
+            f", dense {[round(w, 4) for w in d_wall]} [{card}]")
+        want = N_LAYERS * PARITY_STEPS
+        if (not rel <= PARITY_RTOL[cd] or not pdiff <= p_tol
+                or fwd != want or bwd != want
+                or dense_launches != 0 or paged_attention.launches != 0
+                or not all(np.isfinite(k_loss + d_loss))):
+            raise SystemExit(
+                f"chip_smoke: training phase A [{cd}] failed: rel {rel}, "
+                f"param diff {pdiff}, K1 launches {fwd}/{bwd} (want "
+                f"{want}), dense net's {dense_launches}, paged "
+                f"{paged_attention.launches}")
+        del k1, dense
+        torch.cuda.empty_cache()
+
+
+def training_long_phase(card: str, k1_ms: float) -> dict:
+    """Phase B: bench.py's long-context row (width 1024, 8 blocks, 8
+    heads, bf16, lr 3e-4, warmup 10, total 1000) at B=2, T=32768 on
+    Markov tokens: 1 warm-up and 2 timed fit steps, K1 in auto mode.
+    ``k1_ms`` is K1's fwd + bwd ms at this shape (kernels phase).
+    Returns K1's launches on this run."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t = LONG_T
+    batches, floor = _markov_batches(LONG_STEPS, t, sample_seed=2)
+    net = MultiLayerNetwork(_flagship("bfloat16", None, lr=3e-4,
+                                      warmup_steps=10, total_steps=1000),
+                            device=DEVICE).init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    paged_attention.launches = 0
+    losses, walls = _train(net, batches)
+    fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean(walls[1:]))
+    dense_gb = TRAIN_B * N_HEADS * t * t * 2 / 1e9
+    log(f"training B: T={t}, B={TRAIN_B}, bf16; losses "
+        f"{[f'{x:.6f}' for x in losses]} (entropy floor {floor:.4f}); "
+        f"s/step {[round(w, 3) for w in walls]} (first is warm-up); "
+        f"{TRAIN_B * t / step_s:.1f} tokens/s over the timed steps; peak "
+        f"memory {peak / 2**30:.3f} GiB; K1 launches fwd {fwd}, bwd {bwd} "
+        f"[{card}]. Dense path not attempted: its scores alone are "
+        f"[{TRAIN_B}, {N_HEADS}, {t}, {t}] bf16 = {dense_gb:.1f} GB per "
+        "layer")
+    want = N_LAYERS * LONG_STEPS
+    if (not all(np.isfinite(losses)) or fwd != want or bwd != want
+            or paged_attention.launches != 0):
+        raise SystemExit(f"chip_smoke: training phase B failed: losses "
+                         f"{losses}, K1 launches {fwd}/{bwd} (want {want})")
+    del net
+    torch.cuda.empty_cache()
+    log(f"training B: K1 {N_LAYERS} layers x (fwd + bwd) = "
+        f"{N_LAYERS * k1_ms / 1e3 / step_s:.1%} of the step (K1 timed "
+        "alone at this shape in the kernels phase)")
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd}
+
+
 def serving_phase(card: str) -> int:
     """The flagship served by the paged-KV engine on the card; returns
     the paged-attention kernel's launches on the main run."""
@@ -354,9 +858,13 @@ def main() -> int:
     card = device_phase()
     build_phase()
     kernels = kernel_phase()
-    launches = serving_phase(card)
+    flash, k1_long_ms = flash_kernel_phase()
+    kernels += flash
+    training_parity_phase(card)
+    launches = training_long_phase(card, k1_long_ms)
+    launches["paged_attention"] = serving_phase(card)
     for k in kernels:
-        k["launches"] = launches
+        k["launches"] = launches[k["name"]]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,94 @@
+"""Synthetic Markov-chain language-modeling data with an ANALYTIC
+entropy floor.
+
+The flagship transformer bench (bench.py) needs a convergence gate that
+is honest on a zero-egress machine: random-noise sequences (the old
+utilization rows) have nothing to learn, and any tiny real corpus would
+be memorized by a width-1024 model. An order-1 Markov chain solves both:
+unlimited fresh data (no overfitting possible), real sequential
+structure to learn, and a closed-form optimal loss — the conditional
+entropy H = Σ_i π_i H(P_i·) in nats — that the model's held-out
+cross-entropy (ops/losses.py MCXENT: mean nats/token) can be gated
+against. A model that reaches the floor has provably learned the
+transition structure; no memorization can beat it on held-out draws.
+
+The reference frame for the gate itself is the accuracy-parity role of
+eval/Evaluation.java:85 (reference trains to a known-quality target);
+here the target is information-theoretic rather than a dataset artifact.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def make_chain(vocab: int, seed: int = 0, concentration: float = 1.5
+               ) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Build a random row-stochastic transition matrix.
+
+    Returns (P [V, V], stationary pi [V], conditional entropy in nats).
+    ``concentration`` scales the logit spread: larger -> peakier rows ->
+    lower entropy floor (more learnable signal below log V).
+    """
+    rng = np.random.default_rng(seed)
+    logits = concentration * rng.standard_normal((vocab, vocab))
+    logits -= logits.max(axis=1, keepdims=True)
+    p = np.exp(logits)
+    p /= p.sum(axis=1, keepdims=True)
+    # Stationary distribution by power iteration (row-stochastic P:
+    # pi P = pi).
+    pi = np.full(vocab, 1.0 / vocab)
+    for _ in range(200):
+        nxt = pi @ p
+        if np.abs(nxt - pi).max() < 1e-12:
+            pi = nxt
+            break
+        pi = nxt
+    row_h = -np.sum(p * np.log(p), axis=1)
+    return p, pi, float(np.dot(pi, row_h))
+
+
+def sample_tokens(p: np.ndarray, n_seq: int, seq_len: int,
+                  seed: int = 1) -> np.ndarray:
+    """Sample [n_seq, seq_len + 1] token ids (the +1 supplies next-token
+    labels). Vectorized over sequences: one categorical draw per step.
+    """
+    rng = np.random.default_rng(seed)
+    vocab = p.shape[0]
+    cum = np.cumsum(p, axis=1)
+    cum[:, -1] = 1.0  # guard fp drift
+    toks = np.empty((n_seq, seq_len + 1), dtype=np.int32)
+    toks[:, 0] = rng.integers(0, vocab, n_seq)
+    u = rng.random((n_seq, seq_len))
+    for t in range(seq_len):
+        rows = cum[toks[:, t]]
+        toks[:, t + 1] = (rows < u[:, t:t + 1]).sum(axis=1)
+    return toks
+
+
+def markov_lm_batches(vocab: int, n_seq: int, seq_len: int,
+                      seed: int = 0, concentration: float = 1.5,
+                      sample_seed: int = None,
+                      ) -> Tuple[np.ndarray, np.ndarray, float]:
+    """One-hot LM training tensors from a chain draw.
+
+    Returns (features [n_seq, vocab, seq_len], labels [n_seq, vocab,
+    seq_len], entropy_floor_nats). Features are tokens 0..T-1, labels
+    tokens 1..T — the standard next-token setup on the framework's
+    [N, C, T] recurrent layout.
+
+    ``seed`` fixes the CHAIN (the language); ``sample_seed`` the draws.
+    A held-out split must share ``seed`` and vary ``sample_seed`` —
+    fresh sentences of the same language, the split the entropy-floor
+    gate is defined on.
+    """
+    p, _, floor = make_chain(vocab, seed=seed, concentration=concentration)
+    if sample_seed is None:
+        sample_seed = seed + 1
+    toks = sample_tokens(p, n_seq, seq_len, seed=sample_seed)
+    eye = np.eye(vocab, dtype=np.float32)
+    feats = eye[toks[:, :-1]].transpose(0, 2, 1)
+    labels = eye[toks[:, 1:]].transpose(0, 2, 1)
+    return feats, labels, floor

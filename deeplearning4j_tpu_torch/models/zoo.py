@@ -25,9 +25,10 @@ def transformer_lm(
     remat: bool = False,
 ):
     """Causal transformer over [N, C, T] sequences: stacked causal
-    multi-head self-attention and a softmax output layer. ``ring_axis``
-    and ``remat`` are carried in the conf (sequence parallelism and
-    rematerialization are not ported yet)."""
+    multi-head self-attention and a softmax output layer. ``remat``
+    recomputes each layer's activations in the backward
+    (``torch.utils.checkpoint``); ``ring_axis`` is carried in the conf
+    (sequence parallelism is not ported yet)."""
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         MultiHeadSelfAttention,
     )
@@ -76,7 +77,8 @@ def transformer_lm_flagship(
 ):
     """The flagship: a pre-LN TransformerBlock stack (attention + 4x
     FFN + residuals), a final LayerNorm and a softmax output layer, with
-    Adam and linear-warmup + cosine lr decay in the conf."""
+    Adam and linear-warmup + cosine lr decay in the conf. ``remat``
+    recomputes each layer's activations in the backward."""
     from deeplearning4j_tpu_torch.nn.layers.attention import TransformerBlock
 
     b = (

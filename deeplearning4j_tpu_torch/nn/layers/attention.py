@@ -1,18 +1,23 @@
 """Multi-head self-attention, the pre-LN transformer block, and the
-paged-attention kernel's wrapper.
+wrappers of the two attention kernels.
 
-Port of ``deeplearning4j_tpu/nn/layers/attention.py`` for the serving
-path: ``AttentionImpl`` (``apply``, ``_attend_core``, the masked dense
-attention, the prefill KV cache and the paged block-pool attend) and
-``TransformerBlockImpl``, over the same ``[N, C, T]`` activations and
-``[B, H, T, dh]`` heads. Ring/Ulysses sequence parallelism, tensor
-parallel head sharding, the dense-slot streaming attend and the flash
-kernel for long unmasked sequences belong to later slices.
+Port of ``deeplearning4j_tpu/nn/layers/attention.py``: ``AttentionImpl``
+(``apply``, ``_attend_core``, the masked dense attention, the flash
+attention of training and long prefill, the prefill KV cache and the
+paged block-pool attend) and ``TransformerBlockImpl``, over the same
+``[N, C, T]`` activations and ``[B, H, T, dh]`` heads. Ring/Ulysses
+sequence parallelism, tensor parallel head sharding and the dense-slot
+streaming attend belong to later slices.
 
-The paged decode attention runs the hand-written CUDA kernel
-``csrc/paged_attention.cu`` through :func:`paged_attention`; its plain
-PyTorch version :func:`paged_attention_reference` is the JAX package's
-gather-by-block-table program.
+Two hand-written CUDA kernels, each with its plain PyTorch version:
+
+- K1, ``csrc/flash_attention.cu`` through :func:`flash_attention` (a
+  ``torch.autograd.Function``: forward and dQ/dK/dV backward); plain
+  version :func:`flash_attention_reference`. Dispatch:
+  :func:`_should_use_flash`.
+- K2, ``csrc/paged_attention.cu`` through :func:`paged_attention`; plain
+  version :func:`paged_attention_reference`, the JAX package's
+  gather-by-block-table program.
 """
 
 from __future__ import annotations
@@ -138,7 +143,9 @@ class AttentionImpl(LayerImplBase):
     def _attend_core(cls, lc, q, k, v, state, train, mask):
         """Attention core on [N, H, T, dh] q/k/v, shared with
         TransformerBlockImpl: paged continuation over the serving block
-        pool, or masked dense attention plus the prefill KV cache."""
+        pool, or full-sequence attention (K1 or masked dense, by
+        :func:`_should_use_flash`) plus, outside training, the prefill
+        KV cache."""
         if state is not None:
             if isinstance(state, dict) and "pk" in state:
                 return cls._paged_attend(lc, q, k, v, state, mask)
@@ -150,11 +157,12 @@ class AttentionImpl(LayerImplBase):
             raise NotImplementedError(
                 f"ring_axis={lc.ring_axis!r}: sequence-parallel attention "
                 "is not ported to the torch package yet")
-        if lc.use_flash:
-            raise NotImplementedError(
-                "use_flash=True: the flash-attention kernel is not ported "
-                "to the torch package yet; use None or False")
-        o = _dense_attention(q, k, v, lc.causal, mask)
+        if _should_use_flash(lc.use_flash, q, mask):
+            o = flash_attention(q, k, v, lc.causal)
+        else:
+            o = _dense_attention(q, k, v, lc.causal, mask)
+        # training never builds the prefill cache (tBPTT windows stay
+        # independent, as in the JAX package)
         new_state = None if train else cls._prefill_cache(lc, k, v, mask)
         return o, new_state
 
@@ -339,6 +347,208 @@ def _dense_attention(q, k, v, causal, mask):
         scores = torch.where(mask[:, None, None, :] > 0, scores, neg)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v)
+
+
+#: Auto mode (``use_flash=None``) takes K1 on the card from this length
+#: on: the smallest T of ``chip_smoke.py``'s sweep (kernel fwd+bwd
+#: against dense fwd+bwd at B=2, H=8, dh=128, bf16; T in 512..4096),
+#: where K1 was the faster in every run (PERF.md); the crossover lies
+#: below it and is not measured. Shorter sequences, such as the serving
+#: engine's prompt prefills, stay on the dense path.
+FLASH_MIN_T = 512
+#: head widths K1 takes
+FLASH_HEAD_DIMS = (64, 128)
+
+
+def _should_use_flash(use_flash, q, mask) -> bool:
+    """Full-sequence attention dispatch: K1 (:func:`flash_attention`) or
+    the masked dense path (:func:`_dense_attention`). ``use_flash``
+    keeps its conf JSON values; the TPU tile rules (``T % 128``,
+    ``T % 512`` block health) do not carry over:
+
+    - ``False``: dense always.
+    - ``True``: K1; raises for a tensor that is not on a CUDA device, for
+      a key mask, or for a head width or dtype the kernel does not take,
+      as the JAX package raises off the TPU.
+    - ``None`` (auto): K1 for CUDA tensors with no mask, a head width and
+      dtype it takes and T >= :data:`FLASH_MIN_T`; dense otherwise."""
+    if use_flash is False:
+        return False
+    kernel_ok = (q.device.type == "cuda" and mask is None
+                 and q.shape[-1] in FLASH_HEAD_DIMS
+                 and q.dtype in _DTYPE_CODES)
+    if use_flash is True:
+        if not kernel_ok:
+            raise ValueError(
+                "use_flash=True launches the CUDA flash-attention kernel "
+                "and needs CUDA tensors, no mask, head dim in "
+                f"{FLASH_HEAD_DIMS} and float32/bfloat16 (got "
+                f"{q.device}, mask {'set' if mask is not None else 'None'},"
+                f" dh {q.shape[-1]}, {q.dtype}); use None for auto or "
+                "False for dense")
+        return True
+    if use_flash is None:
+        return kernel_ok and q.shape[2] >= FLASH_MIN_T
+    raise ValueError(f"use_flash={use_flash!r}: expected None, True or "
+                     "False")
+
+
+def flash_attention_reference(q, k, v, causal: bool):
+    """Plain PyTorch version of K1: dense softmax(QKᵀ·dh^-½)·V over
+    [B, H, T, dh], computed in float32 and returned in q's dtype, with
+    the kernel's exact ``dh ** -0.5`` multiplier. (The JAX package's
+    ``_dense_attention``, mirrored by :func:`_dense_attention`, divides
+    by ``sqrt(dh)`` rounded to q's dtype — under bf16 a 1e-4 relative
+    shift of every score; at float32 the two agree to rounding.)"""
+    t = q.shape[2]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                          k.float()) * q.shape[-1] ** -0.5
+    if causal:
+        cm = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                   device=q.device))
+        scores = torch.where(cm, scores,
+                             torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+@functools.cache
+def _flash_lib():
+    """The flash-attention library, built at first use, with its
+    functions' ctypes signatures set."""
+    from deeplearning4j_tpu_torch import cuda_build
+
+    lib = cuda_build.load("flash_attention")
+    lib.dl4j_flash_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dl4j_flash_attention_fwd.restype = ctypes.c_int
+    lib.dl4j_flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dl4j_flash_attention_bwd.restype = ctypes.c_int
+    lib.dl4j_flash_error_string.argtypes = [ctypes.c_int]
+    lib.dl4j_flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _kernel_ready(a: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (the kernel's vector loads)."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
+def _check_flash_args(q, k, v):
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"flash_attention: q/k/v {tuple(q.shape)}/{tuple(k.shape)}/"
+            f"{tuple(v.shape)} must share one [B, H, T, dh] shape")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} "
+            "differ")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention: dtype {q.dtype}; the kernel "
+                         "takes float32 or bfloat16")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q/k/v on different devices")
+    b, h, t, dh = q.shape
+    if dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if min(b, h, t) < 1 or b * h > 65535:
+        raise ValueError(f"flash_attention: shape {tuple(q.shape)} "
+                         "outside 1 <= B*H <= 65535, T >= 1")
+
+
+def _raise_launch(lib, what, err):
+    raise RuntimeError(
+        f"{what} kernel launch failed: CUDA error {err} "
+        f"({lib.dl4j_flash_error_string(err).decode()})")
+
+
+def flash_attention_fwd(q, k, v, causal: bool):
+    """K1's forward kernel on contiguous CUDA q/k/v: returns (O in q's
+    dtype, row log-sum-exp LSE f32 [B, H, T]). Counted in
+    ``flash_attention.launches``."""
+    b, h, t, dh = q.shape
+    lib = _flash_lib()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.dl4j_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, h, t, dh, int(causal), dh ** -0.5,
+        _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        _raise_launch(lib, "flash_attention forward", err)
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool):
+    """K1's backward on contiguous CUDA tensors: ``di = rowsum(dO ∘ O)``
+    as one torch op (the stock Pallas backward also computes it outside
+    its kernels), then the dK/dV and dQ kernels in one launch call.
+    Returns (dQ, dK, dV) in q's dtype. Counted once per call in
+    ``flash_attention.bwd_launches``."""
+    b, h, t, dh = q.shape
+    lib = _flash_lib()
+    di = (do.float() * o.float()).sum(dim=-1).contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.dl4j_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, t, dh, int(causal), dh ** -0.5,
+        _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        _raise_launch(lib, "flash_attention backward", err)
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 under autograd: saves q, k, v, O and LSE; the backward
+    recomputes P from them in the kernels. Deterministic (no atomics),
+    so a rerun under ``torch.utils.checkpoint`` gives the same O."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
+                                         _kernel_ready(do), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool):
+    """Flash attention (K1): the CUDA kernels of
+    ``csrc/flash_attention.cu`` for CUDA tensors, differentiable through
+    their backward; :func:`flash_attention_reference` for CPU tensors.
+
+    q/k/v: one [B, H, T, dh] shape, one dtype (float32 or bfloat16), dh
+    in {64, 128}, any T >= 1; anything else raises (no quiet drop to the
+    plain version). Output in q's dtype. Forward launches count in
+    ``flash_attention.launches``, backward calls in
+    ``flash_attention.bwd_launches``."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_flash_args(q, k, v)
+    return _FlashAttention.apply(q, k, v, bool(causal))
+
+
+flash_attention.launches = 0
+flash_attention.bwd_launches = 0
 
 
 def _should_use_flash_paged(toggle, q) -> bool:

@@ -1,7 +1,8 @@
 """Per-timestep output layer.
 
 Port of ``RnnOutputImpl`` from ``deeplearning4j_tpu/nn/layers/
-recurrent.py``; the LSTM/GRU family belongs to a later slice.
+recurrent.py`` (forward and loss); the LSTM/GRU family belongs to a
+later slice.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import LayerImplBase
 from deeplearning4j_tpu_torch.nn.weights import init_weights
+from deeplearning4j_tpu_torch.ops.losses import loss_fn
 
 
 class RnnOutputImpl(LayerImplBase):
@@ -37,3 +39,7 @@ class RnnOutputImpl(LayerImplBase):
         if mask is not None:
             out = out * mask[:, None, :]
         return out, state
+
+    @classmethod
+    def loss(cls, conf, activations, labels, mask=None):
+        return loss_fn(conf.layer.loss_function)(activations, labels, mask)

@@ -97,10 +97,9 @@ def load_numpy_params(net, params: Dict[str, Dict[str, np.ndarray]]) -> None:
 
 
 def write_model(net, path: str) -> None:
-    """Serialize a MultiLayerNetwork to one zip file, atomically. A net
-    initialized in this package carries no updater state (the training
-    slice is not ported); one restored from a zip writes back what it
-    loaded."""
+    """Serialize a MultiLayerNetwork to one zip file, atomically: conf,
+    params, and the training state (updater state, layer state,
+    iteration) as numpy, so either package resumes training from it."""
     net.init()
     buf = io.BytesIO()
     np.savez(buf, **_flatten(_to_numpy(net.params)))
@@ -120,8 +119,11 @@ def write_model(net, path: str) -> None:
 
 def restore_model(path: str, device="cuda"):
     """Load a model zip into a MultiLayerNetwork on ``device`` (default
-    ``"cuda"``; raises when CUDA is absent). ``extras.pkl`` is unpickled,
-    so load only zips this package or the JAX package wrote."""
+    ``"cuda"``; raises when CUDA is absent), with its updater state
+    (Adam ``m``/``v``, ...) as tensors on the device and its iteration,
+    so ``fit`` resumes where the writer stopped (the ``warmup_cosine``
+    position included). ``extras.pkl`` is unpickled, so load only zips
+    this package or the JAX package wrote."""
     from deeplearning4j_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -143,9 +145,7 @@ def restore_model(path: str, device="cuda"):
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
                             device=dev).init()
     load_numpy_params(net, params)
-    # updater state stays numpy: it only round-trips until the training
-    # slice ports the updaters
-    net.updater_state = extras["updater_state"]
+    net.updater_state = _to_tensors(extras["updater_state"], dev)
     net.state = _to_tensors(extras["state"], dev)
     net.iteration = int(extras["iteration"])
     return net

@@ -1,0 +1,157 @@
+"""K1 (flash attention) of the PyTorch port on the CPU.
+
+The kernel itself (``csrc/flash_attention.cu``) runs only on the card,
+where ``chip_smoke.py`` holds it against :func:`flash_attention_reference`.
+Here the plain version and its autograd gradients are held against the
+JAX package's real Pallas kernel run in interpret mode
+(``force_tpu_interpret_mode``), and, at ragged T the Pallas kernel does
+not take, against the JAX ``_dense_attention``; the dispatch rule is
+checked against the JAX package's for the values they share.
+
+Tolerances (float32): 2e-5 on outputs and 1e-4 on gradients against the
+interpreted kernel (blocked online softmax vs one dense softmax); 1e-5
+against ``_dense_attention`` (the same dense program)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from deeplearning4j_tpu.nn.layers.attention import (
+    _dense_attention as j_dense,
+    _flash_attention as j_flash,
+    _should_use_flash as j_should,
+)
+
+from deeplearning4j_tpu_torch.nn.layers import attention as tattn
+from deeplearning4j_tpu_torch.nn.layers.attention import (
+    _dense_attention as t_dense,
+    _should_use_flash,
+    flash_attention,
+    flash_attention_reference,
+)
+
+
+def _inputs(t, dh, seed=0, b=1, h=2):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, t, dh)).astype(np.float32)
+            for _ in range(4)]          # q, k, v, dO
+
+
+def _jax_vjp(fn, q, k, v, do):
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _torch_vjp(fn, q, k, v, do):
+    ts = [torch.as_tensor(a).requires_grad_(True) for a in (q, k, v)]
+    out = fn(*ts)
+    grads = torch.autograd.grad(out, ts, torch.as_tensor(do))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("t", [256, 512])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_matches_interpreted_pallas_kernel(t, dh, causal):
+    q, k, v, do = _inputs(t, dh, seed=t + dh)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_g = _jax_vjp(lambda a, b, c: j_flash(a, b, c, causal),
+                                q, k, v, do)
+    got, got_g = _torch_vjp(
+        lambda a, b, c: flash_attention_reference(a, b, c, causal),
+        q, k, v, do)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    for name, g, w in zip("qkv", got_g, want_g):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("t", [200, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_matches_dense_at_ragged_t(t, causal):
+    q, k, v, do = _inputs(t, 64, seed=t, b=2)
+    want, want_g = _jax_vjp(lambda a, b, c: j_dense(a, b, c, causal, None),
+                            q, k, v, do)
+    got, got_g = _torch_vjp(
+        lambda a, b, c: flash_attention(a, b, c, causal), q, k, v, do)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+
+def test_wrapper_takes_the_plain_version_on_cpu_without_launching():
+    q, k, v, _ = (torch.as_tensor(a) for a in _inputs(64, 64))
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    np.testing.assert_array_equal(
+        flash_attention(q, k, v, True).numpy(),
+        flash_attention_reference(q, k, v, True).numpy())
+    assert (flash_attention.launches,
+            flash_attention.bwd_launches) == before
+
+
+def test_reference_computes_in_f32_and_returns_q_dtype():
+    q, k, v, _ = (torch.as_tensor(a) for a in _inputs(96, 64))
+    out = flash_attention_reference(q.bfloat16(), k.bfloat16(),
+                                    v.bfloat16(), True)
+    assert out.dtype == torch.bfloat16
+    want = flash_attention_reference(q.bfloat16().float(),
+                                     k.bfloat16().float(),
+                                     v.bfloat16().float(), True)
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  want.bfloat16().float().numpy())
+
+
+def test_reference_uses_the_exact_scale():
+    """The kernel's multiplier is dh**-0.5 exactly; the dense path
+    divides by sqrt(dh) in q's dtype (the same at f32)."""
+    q, k, v, _ = (torch.as_tensor(a) for a in _inputs(48, 128))
+    np.testing.assert_allclose(
+        flash_attention_reference(q, k, v, True).numpy(),
+        t_dense(q, k, v, True, None).numpy(), atol=1e-6)
+
+
+def test_use_flash_true_raises_off_the_card_like_jax():
+    q = torch.zeros(1, 2, 256, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _should_use_flash(True, q, None)
+    with pytest.raises(ValueError):
+        j_should(True, jnp.zeros((1, 2, 256, 64)), None)
+
+
+@pytest.mark.parametrize("toggle", [False, None])
+def test_dispatch_on_cpu_takes_dense(toggle):
+    q = torch.zeros(1, 2, 4096, 64)
+    assert _should_use_flash(toggle, q, None) is False
+    assert bool(j_should(toggle, jnp.zeros((1, 2, 4096, 64)), None)) is False
+
+
+def test_dispatch_rejects_unknown_values():
+    with pytest.raises(ValueError, match="expected None, True or False"):
+        _should_use_flash("interpret", torch.zeros(1, 1, 8, 64), None)
+
+
+def test_auto_threshold_and_kernel_shapes():
+    assert tattn.FLASH_HEAD_DIMS == (64, 128)
+    assert 512 <= tattn.FLASH_MIN_T <= 16384
+
+
+def test_attend_core_routes_through_dispatch(monkeypatch):
+    """With the dispatch patched to K1, the layer's training forward
+    goes through :func:`flash_attention` (its plain version on CPU),
+    and builds no prefill cache."""
+    seen = []
+    monkeypatch.setattr(tattn, "_should_use_flash",
+                        lambda use_flash, q, mask: True)
+    real = tattn.flash_attention
+    monkeypatch.setattr(tattn, "flash_attention",
+                        lambda *a: seen.append(a[0].shape) or real(*a))
+    lc = tattn.MultiHeadSelfAttention(n_in=8, n_out=8, n_heads=2)
+    q, k, v, _ = (torch.as_tensor(a) for a in _inputs(16, 4))
+    o, state = tattn.AttentionImpl._attend_core(lc, q, k, v, None, True,
+                                                None)
+    assert seen == [q.shape] and state is None
+    np.testing.assert_allclose(
+        o.numpy(), t_dense(q, k, v, True, None).numpy(), atol=1e-6)

@@ -115,3 +115,66 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         DecodeEngine(stub)
     assert restore_model(path, device="cpu").device.type == "cpu"
     assert DecodeEngine(_cpu_net(), n_slots=1).device.type == "cpu"
+
+
+def test_training_modules_are_covered():
+    mods = _port_modules()
+    for m in ("deeplearning4j_tpu_torch.ops.losses",
+              "deeplearning4j_tpu_torch.nn.updater.updaters",
+              "deeplearning4j_tpu_torch.nn.gradient",
+              "deeplearning4j_tpu_torch.datasets.dataset",
+              "deeplearning4j_tpu_torch.datasets.markov",
+              "deeplearning4j_tpu_torch.optimize.telemetry",
+              "deeplearning4j_tpu_torch.optimize.listeners"):
+        assert m in mods
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """``fit`` runs on a net that only exists on the card unless built
+    with ``device="cpu"``; a ``DataSet`` stays numpy on the host until
+    ``fit`` moves it to the net's device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    conf = transformer_lm_flagship(vocab=8, width=16, n_layers=1,
+                                   n_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(conf).fit(DataSet([[[0.0]]], [[[0.0]]]))
+    import numpy as np
+
+    x = np.zeros((2, 8, 4), np.float32)
+    x[:, 1, :] = 1.0
+    ds = DataSet(x, x)
+    assert isinstance(ds.features, np.ndarray)
+    net = _cpu_net()
+    net.fit(ds)
+    assert net.iteration == 1 and net.params["0"]["Wq"].device.type == "cpu"
+
+
+def test_flash_kernel_loader_builds_only_on_first_launch(monkeypatch):
+    """Importing the attention module builds nothing; the loader asks
+    ``cuda_build`` for ``csrc/flash_attention.cu`` at first launch and,
+    with no ``nvcc``, raises instead of falling back."""
+    from deeplearning4j_tpu_torch import cuda_build
+    from deeplearning4j_tpu_torch.nn.layers import attention
+
+    assert (cuda_build.CSRC / "flash_attention.cu").exists()
+    assert "flash_attention" not in cuda_build._LIBS
+    asked = []
+
+    def fake_load(name):
+        asked.append(name)
+        raise RuntimeError("nvcc not found")
+
+    attention._flash_lib.cache_clear()
+    monkeypatch.setattr(cuda_build, "load", fake_load)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            attention._flash_lib()
+    finally:
+        attention._flash_lib.cache_clear()
+    assert asked == ["flash_attention"]
