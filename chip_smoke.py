@@ -11,11 +11,13 @@ JAX or of the JAX package. Phases, each fatal on failure:
 3. kernels — each kernel held against its plain PyTorch version on the
    card at its path's shapes, with its time, the plain version's, a
    library call's and the least time the card could take: K2 (paged
-   attention) and K1 (flash attention, forward and dQ/dK/dV, at
-   training A's T=2048, at training B's T=32768 against a plain version
-   chunked over query rows, and at edge cases; planted faults must fail
-   its limits), plus the sweep behind K1's auto-dispatch threshold
-   ``FLASH_MIN_T``.
+   attention), K1 (flash attention, forward and dQ/dK/dV, at training
+   A's T=2048, at training B's T=32768 against a plain version chunked
+   over query rows, and at edge cases; planted faults must fail its
+   limits), plus the sweep behind K1's auto-dispatch threshold
+   ``FLASH_MIN_T``, and K3 (``conv_taps``, LeNet's conv1, at B=2048 in
+   bf16 and f32, ragged and padded batches and a 3x3 kernel; a zeroed
+   tap must fail its limits).
 4. training A — the width-1024 flagship (random weights from a seed) on
    K1 and on dense attention from the same params, 4 ``fit`` steps each
    at B=2, T=2048 on the Markov task, f32 and bf16: loss trajectories
@@ -28,6 +30,15 @@ JAX or of the JAX package. Phases, each fatal on failure:
 6. serving — the flagship served by the paged-KV ``DecodeEngine``: every
    request finishes, K2's launch counter moved on this run, and the
    greedy ids agree with an engine on the plain gather program.
+7. LeNet — bench.py's ``mnist_lenet5_train_throughput`` row:
+   ``lenet5(lr=0.002)``, bf16 compute, B=2048 synthetic MNIST, 7
+   ``fit_scan`` windows of 64 steps, then 2 timed windows (examples/s,
+   s/step, peak memory, K3's launches == steps and its share of the
+   step), falling losses, and ``evaluate`` on 4096 test images at
+   bench.py's 0.97 accuracy gate.
+8. LeNet card vs CPU — one set of port params, 4 f32 ``fit`` steps at
+   B=256 on the card (K3 and cuDNN's conv2) and on the CPU (the plain
+   versions): loss trajectories and params agree.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -104,7 +115,8 @@ def build_phase() -> None:
     from deeplearning4j_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    secs = cuda_build.build_all(["paged_attention", "flash_attention"])
+    secs = cuda_build.build_all(["paged_attention", "flash_attention",
+                                 "conv_taps"])
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.2f} s "
         "wall, nvcc sm_90a)")
 
@@ -630,6 +642,148 @@ def flash_kernel_phase() -> tuple:
             for name, e in entries.items()], k1_long_ms
 
 
+# K3 (conv_taps): LeNet conv1's shape on the training path is B=2048,
+# 1 -> 20 channels, 5x5, 28x28 -> 24x24, bf16 x (compute dtype) with the
+# f32 upcast of bf16 W; each case is held against the plain version
+# (the tap loop) on the same inputs. f32 differs only in summation
+# order (fused multiply-adds): max |err| <= CONV_TOL_F32 * max |ref|.
+# bf16: at most CONV_TOL_ULPS bf16 ulp from the plain version run in
+# bf16 (the f32 sums differ by a rounding or so, then round once).
+CONV_B, CONV_O, CONV_K, CONV_HW = 2048, 20, 5, 28
+CONV_TOL_F32 = 1e-5
+CONV_TOL_ULPS = 1.0
+# the planted fault: the centre tap of every channel zeroed
+CONV_FAULT_TAP = (2, 2)
+
+
+def _conv_case(gen, b, k, hw, dtype, dev):
+    """x [b, 1, hw, hw] and bf16-representable f32 w [O, k, k] (the
+    f32 upcast of the bf16 training weights)."""
+    x = torch.rand(b, 1, hw, hw, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(CONV_O, k, k, generator=gen, device=dev)
+         * 0.1).bfloat16().float()
+    return x, w
+
+
+def _bf16_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of the larger magnitude."""
+    g, r = got.float(), want.float()
+    mag = torch.maximum(g.abs(), r.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - r).abs() / ulp).max())
+
+
+def _conv_errors(got, want) -> dict:
+    err = float((got.float() - want.float()).abs().max())
+    return dict(max_abs_err=err,
+                rel=err / max(float(want.float().abs().max()), 1e-30),
+                ulps=_bf16_ulps(got, want))
+
+
+def _conv_failed(errs, dtype) -> bool:
+    if dtype == torch.float32:
+        return not errs["rel"] <= CONV_TOL_F32
+    return not errs["ulps"] <= CONV_TOL_ULPS
+
+
+def _conv_bound(b, o, k, hw, pad, dtype):
+    """Least time: x read once, out written once (and w), over HBM
+    bytes/s, or the multiply-adds (2 flops each) over the card's peak
+    for the operands' type: bf16 x with bf16-valued w (``_conv_case``,
+    as on the LeNet path) at the bf16 tensor-core rate, f32 at the f32
+    rate."""
+    ho = hw + 2 * pad - k + 1
+    el = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (b * hw * hw + b * o * ho * ho) * el + o * k * k * 4
+    flops = 2.0 * b * o * k * k * ho * ho
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, t_bytes, t_ops
+
+
+def conv_kernel_phase() -> dict:
+    """K3 held against its plain version at LeNet's training shape (bf16
+    and f32), a single image, a ragged batch, a padded case and a 3x3
+    kernel; the planted fault must fail the bf16 limit; times of K3,
+    the plain version and cuDNN's ``F.conv2d`` at B=2048 bf16, and of
+    K3's guarded any-size path at that shape, held to the same limit
+    (what the 5x5 specialisation saves). Returns the kernels-line entry
+    (without launches)."""
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        _conv_taps_launch,
+        conv_taps,
+        conv_taps_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    before = conv_taps.launches
+    cases = [(CONV_B, CONV_K, 0, torch.bfloat16),
+             (CONV_B, CONV_K, 0, torch.float32),
+             (1, CONV_K, 0, torch.bfloat16), (1, CONV_K, 0, torch.float32),
+             (CONV_B + 1, CONV_K, 0, torch.bfloat16),
+             (CONV_B + 1, CONV_K, 0, torch.float32),
+             (64, CONV_K, 2, torch.bfloat16), (64, CONV_K, 2, torch.float32),
+             (64, 3, 0, torch.bfloat16), (64, 3, 0, torch.float32)]
+    main = None
+    for b, k, pad, dtype in cases:
+        x, w = _conv_case(gen, b, k, CONV_HW, dtype, dev)
+        got = conv_taps(x, w, (pad, pad))
+        torch.cuda.synchronize()
+        want = conv_taps_reference(x, w, (pad, pad))
+        errs = _conv_errors(got, want)
+        name = (f"conv_taps B={b}, {k}x{k}, pad {pad}, "
+                f"{str(dtype).split('.')[-1]}")
+        log(f"{name}: max_abs_err {errs['max_abs_err']:.3e}, / max|ref| "
+            f"{errs['rel']:.3e} (f32 tol {CONV_TOL_F32}), bf16 ulps "
+            f"{errs['ulps']:.2f} (bf16 tol {CONV_TOL_ULPS})")
+        if (_conv_failed(errs, dtype) or got.shape != want.shape
+                or not bool(torch.isfinite(got).all())):
+            raise SystemExit(f"chip_smoke: {name}: over the limit: {errs}")
+        if (b, k, pad, dtype) != (CONV_B, CONV_K, 0, torch.bfloat16):
+            continue
+        bad_w = w.clone()
+        bad_w[:, CONV_FAULT_TAP[0], CONV_FAULT_TAP[1]] = 0.0
+        f_errs = _conv_errors(conv_taps(x, bad_w), want)
+        log(f"planted fault ({name}, tap {CONV_FAULT_TAP} zeroed): "
+            f"{f_errs['ulps']:.1f} bf16 ulps, max_abs_err "
+            f"{f_errs['max_abs_err']:.3e}: caught "
+            f"{_conv_failed(f_errs, dtype)}")
+        if not _conv_failed(f_errs, dtype):
+            raise SystemExit(f"chip_smoke: the bf16 limit passes a zeroed "
+                             f"tap: {f_errs}")
+        guarded = _conv_taps_launch(x, w, (0, 0), guarded=True)
+        g_errs = _conv_errors(guarded, want)
+        if _conv_failed(g_errs, dtype):
+            raise SystemExit(f"chip_smoke: {name}, guarded path: over the "
+                             f"limit: {g_errs}")
+        ms = cuda_time_ms(lambda: conv_taps(x, w), iters=100)
+        guarded_ms = cuda_time_ms(
+            lambda: _conv_taps_launch(x, w, (0, 0), guarded=True), iters=100)
+        plain_ms = cuda_time_ms(lambda: conv_taps_reference(x, w), iters=20)
+        wb = w.bfloat16()[:, None]
+        lib_ms = cuda_time_ms(
+            lambda: torch.nn.functional.conv2d(x, wb), iters=100)
+        (bound, by), t_bytes, t_ops = _conv_bound(b, CONV_O, k, CONV_HW,
+                                                  pad, dtype)
+        log(f"{name} times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"cudnn conv2d {lib_ms:.4f} ms; bound {bound:.4f} ms ({by}; "
+            f"bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms), "
+            f"{bound / ms:.1%} of it; guarded any-size path {guarded_ms:.4f} "
+            f"ms ({guarded_ms / ms:.2f}x the 5x5 path, bf16 ulps "
+            f"{g_errs['ulps']:.2f})")
+        main = dict(max_abs_err=errs["max_abs_err"], ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms)
+    conv_taps.launches = before
+    return dict(name="conv_taps", route="cuda",
+                source="deeplearning4j_tpu_torch/csrc/conv_taps.cu",
+                replaces="scripts/lenet_breakdown.py:148", **main)
+
+
 # training: the flagship at full width on the Markov task
 TRAIN_VOCAB, TRAIN_B = 64, 2
 PARITY_T, PARITY_STEPS = 2048, 4
@@ -854,15 +1008,153 @@ def serving_phase(card: str) -> int:
     return launches
 
 
+# LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
+# bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
+# windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
+# synthetic test images); then 2 timed windows
+LENET_B, LENET_WINDOW, LENET_SETUP, LENET_TIMED = 2048, 64, 7, 2
+LENET_N_TRAIN, LENET_N_TEST, LENET_EVAL_BATCH = 8 * 2048, 4096, 1024
+ACCURACY_GATE = 0.97
+# card vs CPU: one set of params, 4 f32 fit steps at B=256, TF32 off;
+# losses within ROADMAP's 5e-3 relative, params within max |diff|
+# 1e-6 (2.98e-8 measured on an H100: summation order only)
+LENET_PARITY_B, LENET_PARITY_STEPS = 256, 4
+LENET_PARITY_RTOL = 5e-3
+LENET_PARITY_PARAM_ATOL = 1e-6
+
+
+def _lenet(lr, compute_dtype=None, device=None):
+    from deeplearning4j_tpu_torch.models.zoo import lenet5
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = lenet5(lr=lr)
+    if compute_dtype is not None:
+        for c in conf.confs:
+            c.compute_dtype = compute_dtype
+    return MultiLayerNetwork(conf, device=device or DEVICE).init()
+
+
+def lenet_phase(card: str, k3_ms: float) -> int:
+    """Phase 7: train LeNet as bench.py does, time 2 windows, gate the
+    accuracy. ``k3_ms`` is K3's time at this shape (kernels phase).
+    Returns K3's launches over the training steps."""
+    from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.convolution import conv_taps
+
+    net = _lenet(0.002, "bfloat16")
+    ds = mnist_dataset(train=True, num_examples=LENET_N_TRAIN)
+    batches = ds.batch_by(LENET_B)
+    reps = -(-LENET_WINDOW // len(batches))
+    feats = np.stack([b.features for b in batches] * reps)[:LENET_WINDOW]
+    labels = np.stack([b.labels for b in batches] * reps)[:LENET_WINDOW]
+    feats = torch.as_tensor(feats.reshape(LENET_WINDOW, LENET_B, 1, 28, 28),
+                            device=DEVICE)
+    labels = torch.as_tensor(labels, device=DEVICE)
+    torch.cuda.synchronize()
+    conv_taps.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    scores = [net.fit_scan(feats, labels) for _ in range(LENET_SETUP)]
+    first = [float(s) for s in scores[0]]
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(LENET_TIMED):
+        t0 = time.perf_counter()
+        last = net.fit_scan(feats, labels)
+        last_loss = [float(x) for x in last]      # syncs the window
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = conv_taps.launches
+    steps = (LENET_SETUP + LENET_TIMED) * LENET_WINDOW
+    others = (flash_attention.launches, flash_attention.bwd_launches,
+              paged_attention.launches)
+    step_s = float(np.mean(walls)) / LENET_WINDOW
+    test = mnist_dataset(train=False, num_examples=LENET_N_TEST,
+                         as_image=True)
+    conv_taps.launches = 0
+    accuracy = net.evaluate(test.batch_by(LENET_EVAL_BATCH)).accuracy()
+    eval_launches = conv_taps.launches
+    falling = np.mean(last_loss) < np.mean(first)
+    log(f"LeNet: lenet5(lr=0.002), bf16, B={LENET_B}; set-up "
+        f"{LENET_SETUP} x {LENET_WINDOW} steps in {setup_s:.3f} s, first "
+        f"window losses {first[0]:.6f} -> {first[-1]:.6f}, last timed "
+        f"window {last_loss[0]:.6f} -> {last_loss[-1]:.6f}; timed windows "
+        f"{[round(w, 4) for w in walls]} s: "
+        f"{LENET_B / step_s:.1f} examples/s, {step_s * 1e3:.4f} ms/step; "
+        f"peak memory {peak / 2**30:.3f} GiB; K3 launches {launches} over "
+        f"{steps} steps, {eval_launches} over "
+        f"{LENET_N_TEST // LENET_EVAL_BATCH} evaluate batches; K3 "
+        f"{k3_ms:.4f} ms x 1 launch a step = {k3_ms / (step_s * 1e3):.1%} "
+        f"of the step; synthetic test accuracy {accuracy:.4f} (gate "
+        f"{ACCURACY_GATE}) [{card}]")
+    if (launches != steps or others != (0, 0, 0)
+            or eval_launches != LENET_N_TEST // LENET_EVAL_BATCH
+            or not np.all(np.isfinite(first + last_loss)) or not falling
+            or accuracy < ACCURACY_GATE):
+        raise SystemExit(
+            f"chip_smoke: LeNet phase failed: K3 launches {launches} (want "
+            f"{steps}), evaluate {eval_launches}, other kernels {others}, "
+            f"losses {first} ... {last_loss}, accuracy {accuracy}")
+    del net, feats, labels
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lenet_parity_phase(card: str) -> None:
+    """Phase 8: one set of port params on the card and on the CPU, 4
+    f32 fit steps each at B=256: the card runs K3 and cuDNN's conv2,
+    the CPU the plain tap loop and its conv2."""
+    from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
+    from deeplearning4j_tpu_torch.nn.layers.convolution import conv_taps
+
+    card_net = _lenet(0.01)
+    cpu_net = _lenet(0.01, device="cpu")
+    for key, p in card_net.param_table().items():
+        cpu_net.set_param(key, p.cpu())
+    ds = mnist_dataset(train=True,
+                       num_examples=LENET_PARITY_B * LENET_PARITY_STEPS,
+                       as_image=True)
+    batches = [(b.features, b.labels) for b in ds.batch_by(LENET_PARITY_B)]
+    conv_taps.launches = 0
+    card_loss, card_wall = _train(card_net, batches)
+    launches = conv_taps.launches
+    cpu_loss, _ = _train(cpu_net, batches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+    pdiff = max(float((p.cpu() - cpu_net.param_table()[k]).abs().max())
+                for k, p in card_net.param_table().items())
+    log(f"LeNet card vs CPU (f32, B={LENET_PARITY_B}): card losses "
+        f"{[f'{x:.6f}' for x in card_loss]}, CPU "
+        f"{[f'{x:.6f}' for x in cpu_loss]}; max rel diff {rel:.3e} (tol "
+        f"{LENET_PARITY_RTOL}); max |param diff| {pdiff:.3e} (tol "
+        f"{LENET_PARITY_PARAM_ATOL}); K3 launches {launches}; card s/step "
+        f"{[round(w, 4) for w in card_wall]} [{card}]")
+    if (not rel <= LENET_PARITY_RTOL or not pdiff <= LENET_PARITY_PARAM_ATOL
+            or launches != LENET_PARITY_STEPS
+            or not np.all(np.isfinite(card_loss))):
+        raise SystemExit(f"chip_smoke: LeNet card vs CPU failed: rel {rel},"
+                         f" param diff {pdiff}, K3 launches {launches}")
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
     kernels = kernel_phase()
     flash, k1_long_ms = flash_kernel_phase()
     kernels += flash
+    conv = conv_kernel_phase()
+    kernels.append(conv)
     training_parity_phase(card)
     launches = training_long_phase(card, k1_long_ms)
     launches["paged_attention"] = serving_phase(card)
+    launches["conv_taps"] = lenet_phase(card, conv["ms"])
+    lenet_parity_phase(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(card)

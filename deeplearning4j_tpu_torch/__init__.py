@@ -1,8 +1,10 @@
 """deeplearning4j_tpu_torch — the PyTorch/CUDA port of deeplearning4j_tpu.
 
 A second package beside the JAX one, held against it: the same conf
-builders and conf JSON, the same ``[N, C, T]`` layouts and param keys,
-the same ``model.zip``, and the same paged-KV serving engine. Entry
+builders and conf JSON (shape inference included), the same
+``[N, C]``, ``[N, C, H, W]`` and ``[N, C, T]`` layouts and param keys,
+the same ``model.zip``, the same MNIST data, and the same paged-KV
+serving engine. Entry
 points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``. Kernels are hand-written CUDA C++ for Hopper under
 ``csrc/``, built at first use (``cuda_build.py``); each has a plain

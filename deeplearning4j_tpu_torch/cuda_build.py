@@ -28,6 +28,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: shared memory one block may use on the card (H100: 227 KB), which
+#: the wrappers check a launch's need against
+SMEM_PER_BLOCK = 232448
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

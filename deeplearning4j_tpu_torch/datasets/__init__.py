@@ -1,7 +1,13 @@
-"""Data containers and the synthetic Markov LM task (numpy-only copies
-of ``deeplearning4j_tpu/datasets/dataset.py`` and ``markov.py``)."""
+"""Data containers, iterators, MNIST and the synthetic Markov LM task
+(numpy-only copies of modules of ``deeplearning4j_tpu/datasets``)."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
     DataSet,
     MultiDataSet,
+)
+from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: F401
+    AsyncDataSetIterator,
+    BaseDataSetIterator,
+    DataSetIterator,
+    ListDataSetIterator,
 )

@@ -211,8 +211,10 @@ class ConvolutionLayer(FeedForwardLayer):
     """2-D convolution (reference nn/conf/layers/ConvolutionLayer.java).
 
     The reference computes conv as im2col + GEMM
-    (nn/layers/convolution/ConvolutionLayer.java:135); here the runtime uses
-    ``lax.conv_general_dilated`` which XLA tiles directly onto the MXU.
+    (nn/layers/convolution/ConvolutionLayer.java:135); here the runtime
+    (``nn/layers/convolution.py:ConvolutionImpl``) runs a single-input-
+    channel, stride-1 conv on the hand-written kernel ``conv_taps``
+    (K3) and every other conv through ``torch.nn.functional.conv2d``.
     ``n_in``/``n_out`` are channel counts (set by shape inference).
     """
 
@@ -232,7 +234,9 @@ class PoolingType(str, enum.Enum):
 class SubsamplingLayer(Layer):
     """Spatial pooling (reference nn/conf/layers/SubsamplingLayer.java;
     runtime nn/layers/convolution/subsampling/SubsamplingLayer.java).
-    Parameter-free; runtime is ``lax.reduce_window``."""
+    Parameter-free; the runtime (``SubsamplingImpl``) pads explicitly
+    (-inf for MAX, zeros for SUM and AVG) and pools with
+    ``torch.nn.functional.max_pool2d``/``avg_pool2d``."""
 
     pooling_type: PoolingType = PoolingType.MAX
     kernel_size: Sequence[int] = (2, 2)

@@ -91,6 +91,7 @@ class ListBuilder:
         self._tbptt_fwd = 20
         self._tbptt_bwd = 20
         self._remat = False
+        self._input_type = None
 
     def layer(self, index: int, layer_bean: L.Layer) -> "ListBuilder":
         self._layers[index] = layer_bean
@@ -127,15 +128,17 @@ class ListBuilder:
         return self
 
     def set_input_type(self, input_type) -> "ListBuilder":
-        """Shape inference (``nn/conf/inputs.py``) belongs to the CNN
-        slice and is not ported yet."""
-        raise NotImplementedError(
-            "set_input_type/cnn_input_size shape inference is not ported "
-            "to the torch package yet")
+        """Enable shape inference + automatic preprocessor insertion
+        (``nn/conf/inputs.py:setup_shapes``, run by :meth:`build`)."""
+        self._input_type = input_type
+        return self
 
     def cnn_input_size(self, height: int, width: int,
                        channels: int) -> "ListBuilder":
-        return self.set_input_type((height, width, channels))
+        from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+        return self.set_input_type(
+            InputType.convolutional(height, width, channels))
 
     def build(self) -> MultiLayerConfiguration:
         if not self._layers:
@@ -161,4 +164,8 @@ class ListBuilder:
             tbptt_bwd_length=self._tbptt_bwd,
             remat=self._remat,
         )
+        if self._input_type is not None:
+            from deeplearning4j_tpu_torch.nn.conf.inputs import setup_shapes
+
+            setup_shapes(conf, self._input_type)
         return conf

@@ -86,9 +86,9 @@ class NeuralNetConfiguration:
     seed: int = 12345
     dtype: str = "float32"
     # Mixed precision: run forward/backward math in this dtype while
-    # params/updater state stay in ``dtype`` (f32 master weights). The
-    # TPU-idiomatic setting is "bfloat16" — matmuls/convs hit the MXU at
-    # 2x f32 rate; grads accumulate in f32 through the cast transpose.
+    # params/updater state stay in ``dtype`` (f32 master weights). On the
+    # card the usual setting is "bfloat16" — matmuls and convs run on the
+    # tensor cores; grads reach the f32 masters through the cast.
     compute_dtype: Optional[str] = None
 
     # ------------------------------------------------------------------

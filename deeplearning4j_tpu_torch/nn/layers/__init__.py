@@ -1,8 +1,10 @@
 """Runtime layer implementations: a registry from conf-bean class to a
 stateless impl class (port of ``deeplearning4j_tpu/nn/layers``).
 
-The torch package holds the impls the transformer serving path runs;
-any other bean raises ``ValueError`` naming it.
+The torch package holds the impls of the transformer path (attention
+blocks, LayerNorm, the per-timestep output layer) and of the CNN path
+(dense, output, convolution and pooling); any other bean raises
+``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -10,11 +12,17 @@ from __future__ import annotations
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers import (
     attention,
+    convolution,
+    dense,
     normalization,
     recurrent,
 )
 
 _IMPLS = {
+    L.DenseLayer: dense.DenseImpl,
+    L.OutputLayer: dense.OutputImpl,
+    L.ConvolutionLayer: convolution.ConvolutionImpl,
+    L.SubsamplingLayer: convolution.SubsamplingImpl,
     L.LayerNormalization: normalization.LayerNormImpl,
     L.RnnOutputLayer: recurrent.RnnOutputImpl,
     attention.MultiHeadSelfAttention: attention.AttentionImpl,

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch import cuda_build
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.nn.conf.serde import register_bean
 from deeplearning4j_tpu_torch.nn.layers.base import LayerImplBase
@@ -416,8 +417,6 @@ def flash_attention_reference(q, k, v, causal: bool):
 def _flash_lib():
     """The flash-attention library, built at first use, with its
     functions' ctypes signatures set."""
-    from deeplearning4j_tpu_torch import cuda_build
-
     lib = cuda_build.load("flash_attention")
     lib.dl4j_flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -636,16 +635,12 @@ def paged_attention_reference(q, pk, pv, bid, bval, lo_blk, floor,
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the card's per-block shared-memory limit (H100: 227 KB)
-_SMEM_LIMIT = 232448
 
 
 @functools.cache
 def _paged_lib():
     """The paged-attention library, built at first use, with its
     functions' ctypes signatures set."""
-    from deeplearning4j_tpu_torch import cuda_build
-
     lib = cuda_build.load("paged_attention")
     fn = lib.dl4j_paged_attention
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
@@ -732,10 +727,11 @@ def paged_attention(q, pk, pv, bid, bval, lo_blk, floor, filled, lengths,
     ntab = bid.shape[1]
     lib = _paged_lib()
     smem = lib.dl4j_paged_attention_smem_bytes(t, dh, bt)
-    if smem > _SMEM_LIMIT:
+    if smem > cuda_build.SMEM_PER_BLOCK:
         raise ValueError(
             f"paged_attention: t={t}, dh={dh}, block_tokens={bt} needs "
-            f"{smem} bytes of shared memory (limit {_SMEM_LIMIT})")
+            f"{smem} bytes of shared memory (limit "
+            f"{cuda_build.SMEM_PER_BLOCK})")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dl4j_paged_attention(

@@ -1,4 +1,5 @@
-"""Shared layer-impl machinery: dropout and activation resolution.
+"""Shared layer-impl machinery: dropout, dropconnect, activation
+resolution.
 
 Port of ``deeplearning4j_tpu/nn/layers/base.py``. Impls are stateless
 classes of classmethods over plain ``{name: Tensor}`` parameter dicts,
@@ -27,6 +28,13 @@ def apply_dropout(x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     u = torch.rand(x.shape, generator=rng, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def apply_dropconnect(w: torch.Tensor, rate: float,
+                      rng: Optional[torch.Generator]) -> torch.Tensor:
+    """DropConnect on a weight matrix: the same inverted Bernoulli mask
+    as :func:`apply_dropout`, drawn over the weights."""
+    return apply_dropout(w, rate, rng)
 
 
 class LayerImplBase:

@@ -3,9 +3,10 @@
 Port of ``deeplearning4j_tpu/nn/multilayer.py``: ``init`` (params and
 updater state), the mixed-precision forward ``_forward_fn`` (with
 ``remat`` as activation checkpointing), ``output``, ``param_table``,
-``set_param``, and training: ``fit`` (a ``DataSet``, features and
-labels, or an iterator of ``DataSet``), ``fit_scan`` (K steps over
-stacked batches), ``score`` and ``compute_gradient_and_score``.
+``set_param``, ``feed_forward``, ``predict``, ``evaluate``, and
+training: ``fit`` (a ``DataSet``, features and labels, or an iterator
+of ``DataSet``), ``fit_scan`` (K steps over stacked batches), ``score``
+and ``compute_gradient_and_score``.
 Parameters are plain ``{layer_index: {name: Tensor}}`` dicts with the
 JAX package's keys, on the net's ``device``.
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -218,8 +220,9 @@ class MultiLayerNetwork:
         return cast
 
     def _forward_fn(self, params, state, x, rng, train: bool,
-                    feature_mask=None, rnn_state=None):
-        """Returns (final activations, new_state, new_rnn_state).
+                    feature_mask=None, rnn_state=None, collect=False):
+        """Returns (final activations, new_state, new_rnn_state); with
+        ``collect`` the first is the list of every layer's activations.
 
         Mixed precision as in the JAX package: compute-dtype params and
         input, except the output layer, which runs at the master dtype;
@@ -244,6 +247,7 @@ class MultiLayerNetwork:
             seeds = torch.randint(0, 2 ** 62, (self.n_layers,),
                                   generator=rng).tolist()
         remat = bool(self.conf.remat) and train and torch.is_grad_enabled()
+        acts = []
         new_state = dict(state) if state else {}
         new_rnn = {}
         for i, (c, impl) in enumerate(zip(self.conf.confs, self._impls)):
@@ -280,7 +284,9 @@ class MultiLayerNetwork:
                     new_state[si] = st
                 else:
                     new_rnn[si] = st
-        return x, new_state, new_rnn
+            if collect:
+                acts.append(x)
+        return (acts if collect else x), new_state, new_rnn
 
     def _loss_fn(self, params, state, rng, features, labels, feature_mask,
                  label_mask):
@@ -498,14 +504,45 @@ class MultiLayerNetwork:
     # Inference and parameters
     # ------------------------------------------------------------------
     def output(self, x, train: bool = False) -> torch.Tensor:
-        """Forward pass on [N, C, T] (or [N, C]) input; returns the last
-        layer's activations as a tensor on the net's device."""
+        """Forward pass on [N, C], [N, C, H, W] or [N, C, T] input;
+        returns the last layer's activations as a tensor on the net's
+        device."""
         self.init()
         x = torch.as_tensor(x, dtype=self._dtype, device=self.device)
         with torch.no_grad():
             y, _, _ = self._forward_fn(self.params, self.state, x, None,
                                        False)
         return y
+
+    def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
+        """All layer activations, input first (reference feedForward)."""
+        self.init()
+        x = torch.as_tensor(x, dtype=self._dtype, device=self.device)
+        with torch.no_grad():
+            acts, _, _ = self._forward_fn(self.params, self.state, x, None,
+                                          False, collect=True)
+        return [x] + acts
+
+    def predict(self, x) -> np.ndarray:
+        """Argmax class predictions (reference Classifier.predict)."""
+        return self.output(x).argmax(dim=1).cpu().numpy()
+
+    def evaluate(self, data_iter):
+        """Classification metrics over an iterable of ``DataSet``: each
+        batch's output comes back to the host as float32 numpy and
+        accumulates into one :class:`Evaluation`."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        self.init()
+        ev = Evaluation()
+        for ds in data_iter:
+            out = self.output(ds.features).float().cpu().numpy()
+            if ds.labels_mask is not None or (
+                    np.asarray(ds.labels).ndim == 3):
+                ev.eval_time_series(ds.labels, out, ds.labels_mask)
+            else:
+                ev.eval(ds.labels, out)
+        return ev
 
     def param_table(self) -> Dict[str, torch.Tensor]:
         """Flat "idx_name" -> tensor view (reference paramTable())."""

@@ -8,6 +8,7 @@ bit-identical (both sides are float32 numpy in the zip)."""
 
 import numpy as np
 import pytest
+import torch
 
 from deeplearning4j_tpu.models import zoo as jzoo
 from deeplearning4j_tpu.nn.conf.multi_layer import (
@@ -21,6 +22,7 @@ from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration as TConf,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    InputPreProcessor,
     RnnToFeedForwardPreProcessor,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TNet
@@ -112,5 +114,9 @@ def test_load_numpy_params_rejects_foreign_weights():
 
 
 def test_unported_preprocessor_raises_naming_the_bean():
-    with pytest.raises(NotImplementedError, match="RnnToFeedForward"):
-        RnnToFeedForwardPreProcessor().pre_process(None)
+    """Every registered preprocessor has its forward; the abstract base
+    alone raises, naming itself."""
+    with pytest.raises(NotImplementedError, match="InputPreProcessor"):
+        InputPreProcessor().pre_process(None)
+    x = torch.zeros(2, 3, 4)
+    assert RnnToFeedForwardPreProcessor().pre_process(x).shape == (8, 3)

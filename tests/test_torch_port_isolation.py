@@ -129,6 +129,29 @@ def test_training_modules_are_covered():
         assert m in mods
 
 
+def test_cnn_modules_are_covered_and_default_to_cuda():
+    """The CNN slice's modules are among those imported without JAX,
+    and LeNet, like every entry point, is built on the card unless the
+    caller asks for the CPU."""
+    mods = _port_modules()
+    for m in ("deeplearning4j_tpu_torch.nn.conf.inputs",
+              "deeplearning4j_tpu_torch.nn.layers.convolution",
+              "deeplearning4j_tpu_torch.nn.layers.dense",
+              "deeplearning4j_tpu_torch.native_rt.lib",
+              "deeplearning4j_tpu_torch.datasets.iterator",
+              "deeplearning4j_tpu_torch.datasets.mnist",
+              "deeplearning4j_tpu_torch.eval.evaluation"):
+        assert m in mods
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from deeplearning4j_tpu_torch.models.zoo import lenet5
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(lenet5())
+    assert MultiLayerNetwork(lenet5(), device="cpu").init().device.type \
+        == "cpu"
+
+
 def test_training_entry_points_default_to_cuda(tmp_path):
     """``fit`` runs on a net that only exists on the card unless built
     with ``device="cpu"``; a ``DataSet`` stays numpy on the host until
