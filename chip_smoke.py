@@ -13,11 +13,11 @@ JAX or of the JAX package. Phases, each fatal on failure:
    library call's and the least time the card could take: K2 (paged
    attention), K1 (flash attention, forward and dQ/dK/dV, at training
    A's T=2048, at training B's T=32768 against a plain version chunked
-   over query rows, and at edge cases; planted faults must fail its
-   limits), plus the sweep behind K1's auto-dispatch threshold
-   ``FLASH_MIN_T``, and K3 (``conv_taps``, LeNet's conv1, at B=2048 in
-   bf16 and f32, ragged and padded batches and a 3x3 kernel; a zeroed
-   tap must fail its limits).
+   over query rows, and at edge cases down to T=1; planted faults must
+   fail its limits; a rerun must give the same bits), plus the sweep
+   behind K1's auto-dispatch threshold ``FLASH_MIN_T``, and K3
+   (``conv_taps``, LeNet's conv1, at B=2048 in bf16 and f32, ragged and
+   padded batches and a 3x3 kernel; a zeroed tap must fail its limits).
 4. training A — the width-1024 flagship (random weights from a seed) on
    K1 and on dense attention from the same params, 4 ``fit`` steps each
    at B=2, T=2048 on the Markov task, f32 and bf16: loss trajectories
@@ -318,7 +318,9 @@ FLASH_SWEEP_T = (512, 1024, 2048, 4096)
 FLASH_REF_ROWS = 512
 # planted faults, each a drop(qpos, kpos) of keys a faulty kernel would
 # leave out, confined to the late half of the rows: the check must fail
-# each of them (K1's key tile is 64)
+# each of them (the bf16 kernels step over keys in tiles of 128 in the
+# forward and 64 in dQ, over queries in tiles of 64 in dK/dV; the f32
+# kernels in tiles of 64 and 32)
 FLASH_FAULTS = {
     "diagonal key dropped in rows >= T/2":
         lambda t: lambda qp, kp: (qp >= t // 2) & (kp == qp),
@@ -328,12 +330,13 @@ FLASH_FAULTS = {
 
 
 def _flash_case(gen, t, dh, dtype, dev):
-    """q/k/v/dO from a seeded generator; q's row 3 is zero in every
-    head."""
+    """q/k/v/dO from a seeded generator; q's row 3 (where T > 3) is zero
+    in every head."""
     shape = (FLASH_B, FLASH_H, t, dh)
     q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                    for _ in range(4))
-    q[:, :, 3, :] = 0.0
+    if t > 3:
+        q[:, :, 3, :] = 0.0
     return [a.to(dtype) for a in (q, k, v, do)]
 
 
@@ -425,16 +428,24 @@ def _flash_reference_chunked(q, k, v, do, causal, drop=None,
 
 def _flash_errors(out, grads, ref, ref_grads) -> dict:
     """The three measures of FLASH_TOL: ``out`` a number, ``grad`` one
-    per dq/dk/dv, ``norm`` one per out/dq/dk/dv."""
-    def rel_norm(x, r):
-        return float((x.float() - r).norm() / r.norm())
+    per dq/dk/dv, ``norm`` one per out/dq/dk/dv. A reference grad that
+    is zero everywhere (dQ and dK at T=1, where each row's softmax has
+    one key and so no gradient) has no scale of its own: its ``grad``
+    and ``norm`` are taken against the largest reference grad's."""
+    maxes = [float(r.abs().max()) for r in ref_grads]
+    norms = [float(r.norm()) for r in ref_grads]
+
+    def scaled(x, own, top):
+        return x / (own if own > 0 else top)
 
     pairs = list(zip(grads, ref_grads))
     return dict(
         out=float((out.float() - ref).abs().max()),
-        grad=[float((g.float() - r).abs().max() / r.abs().max())
-              for g, r in pairs],
-        norm=[rel_norm(out, ref)] + [rel_norm(g, r) for g, r in pairs])
+        grad=[scaled(float((g.float() - r).abs().max()), m, max(maxes))
+              for (g, r), m in zip(pairs, maxes)],
+        norm=[float((out.float() - ref).norm() / ref.norm())]
+        + [scaled(float((g.float() - r).norm()), n, max(norms))
+           for (g, r), n in zip(pairs, norms)])
 
 
 def _flash_failed(errs, dtype) -> list:
@@ -477,6 +488,28 @@ def _k1_grads(q, k, v, do, causal):
     return out.detach(), grads
 
 
+def flash_rerun_check(name, q, k, v, do, causal) -> None:
+    """K1's forward and backward twice on the same inputs: O, LSE, dQ,
+    dK and dV must match bit for bit (no atomics, a fixed summation
+    order). Fatal on any difference."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    runs = []
+    for _ in range(2):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        runs.append((o, lse) + flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal))
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    log(f"{name}: rerun bit for bit (O, LSE, dQ, dK, dV) {same}")
+    if not all(same):
+        raise SystemExit(f"chip_smoke: {name}: a rerun of K1 differs: "
+                         f"O, LSE, dQ, dK, dV equal {same}")
+
+
 def flash_long_case(gen, dev) -> tuple:
     """K1 at phase B's shape (B=2, H=8, T=LONG_T, dh=128, bf16, causal)
     held against the chunked plain version (the whole [T, T] scores do
@@ -496,6 +529,7 @@ def flash_long_case(gen, dev) -> tuple:
     errs = _flash_hold(name + " (chunked plain)", bf16, out, grads, ref,
                        ref_grads)
     del out, grads, ref, ref_grads
+    flash_rerun_check(name, q, k, v, do, True)
     o, lse = flash_attention_fwd(q, k, v, True)
     ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True), iters=5,
                       warmup=1)
@@ -568,7 +602,10 @@ def flash_kernel_phase() -> tuple:
     gen.manual_seed(17)
     before = (flash_attention.launches, flash_attention.bwd_launches)
     cases = [(2048, 128, True), (1000, 128, True), (2049, 128, True),
-             (1024, 64, True), (1024, 128, False)]
+             (1024, 64, True), (1024, 128, False),
+             # shorter than one tile, or ragged against 128
+             (1, 128, True), (77, 128, True), (129, 128, True),
+             (77, 64, True)]
     for t, dh, causal in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = _flash_case(gen, t, dh, dtype, dev)
@@ -585,6 +622,7 @@ def flash_kernel_phase() -> tuple:
                 continue
             if dtype == torch.float32:
                 flash_fault_readings(q, k, v, do, ref, ref_grads)
+            flash_rerun_check(name, q, k, v, do, causal)
             qc, kc, vc, oc = (a.contiguous() for a in (q, k, v, out))
             _, lse = flash_attention_fwd(qc, kc, vc, causal)
             ms = cuda_time_ms(lambda: flash_attention_fwd(qc, kc, vc, causal))

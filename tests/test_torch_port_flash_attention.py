@@ -155,3 +155,109 @@ def test_attend_core_routes_through_dispatch(monkeypatch):
     assert seen == [q.shape] and state is None
     np.testing.assert_allclose(
         o.numpy(), t_dense(q, k, v, True, None).numpy(), atol=1e-6)
+
+
+def _c_prototypes():
+    """{name: [kind, ...]} of the ``extern "C"`` functions of
+    ``csrc/flash_attention.cu``: each parameter's kind is "pointer",
+    "int" or "float"."""
+    import re
+
+    from deeplearning4j_tpu_torch import cuda_build
+
+    src = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    protos = {}
+    for name, params in re.findall(r"\b(dl4j_\w+)\(([^)]*)\)\s*\{", block):
+        kinds = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            kinds.append("pointer" if "*" in p else p.split()[0])
+        protos[name] = kinds
+    return protos
+
+
+_CTYPE_KINDS = {"c_void_p": "pointer", "c_int": "int", "c_float": "float"}
+
+
+@pytest.mark.parametrize("name", ["dl4j_flash_attention_fwd",
+                                  "dl4j_flash_attention_bwd",
+                                  "dl4j_flash_error_string"])
+def test_ctypes_binding_matches_the_c_prototypes(monkeypatch, name):
+    """``_flash_lib`` declares each C function's parameters in the
+    count and kinds the source gives them (a pointer passed as a ctypes
+    int would be cut to 32 bits)."""
+    import types
+
+    from deeplearning4j_tpu_torch import cuda_build
+
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                    for n in _c_prototypes()})
+    tattn._flash_lib.cache_clear()
+    monkeypatch.setattr(cuda_build, "load", lambda lib: fake)
+    try:
+        lib = tattn._flash_lib()
+    finally:
+        tattn._flash_lib.cache_clear()
+    declared = [_CTYPE_KINDS[t.__name__] for t in getattr(lib, name).argtypes]
+    assert declared == _c_prototypes()[name]
+
+
+def _misaligned(shape, dtype):
+    """A contiguous view whose data starts 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    flat = torch.arange(n + 8, dtype=torch.float32).to(dtype)
+    view = flat[1:n + 1].view(shape)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("layout", ["aligned", "misaligned", "transposed"])
+def test_kernel_ready_gives_what_tma_reads(layout):
+    """The kernels read q/k/v/dO through TMA tensor maps over a
+    contiguous [B*H, T, dh] tensor: its base 16-byte aligned and its
+    row stride dh * itemsize (a multiple of 16 for dh in 64, 128)."""
+    shape = (1, 2, 8, 64)
+    if layout == "aligned":
+        a = torch.randn(shape).bfloat16()
+    elif layout == "misaligned":
+        a = _misaligned(shape, torch.bfloat16)
+    else:
+        a = torch.randn(1, 2, 64, 8).bfloat16().transpose(2, 3)
+    r = tattn._kernel_ready(a)
+    assert r.is_contiguous() and r.data_ptr() % 16 == 0
+    assert r.stride(2) * r.element_size() % 16 == 0
+    assert torch.equal(r, a)
+    if layout == "aligned":
+        assert r.data_ptr() == a.data_ptr()     # no copy when none is due
+
+
+def test_autograd_wrapper_hands_the_kernels_ready_tensors(monkeypatch):
+    """``_FlashAttention`` passes contiguous, 16-byte aligned q, k, v
+    to the forward launch and the same, with dO, to the backward,
+    whatever layout it was given."""
+    seen = {}
+
+    def fake_fwd(q, k, v, causal):
+        seen["fwd"] = (q, k, v)
+        o = flash_attention_reference(q, k, v, causal)
+        return o, torch.zeros(q.shape[:3])
+
+    def fake_bwd(q, k, v, o, lse, do, causal):
+        seen["bwd"] = (q, k, v, do)
+        return q * 0, k * 0, v * 0
+
+    monkeypatch.setattr(tattn, "flash_attention_fwd", fake_fwd)
+    monkeypatch.setattr(tattn, "flash_attention_bwd", fake_bwd)
+    shape = (1, 2, 8, 64)
+    q = _misaligned(shape, torch.bfloat16).requires_grad_(True)
+    k = torch.randn(1, 2, 64, 8).bfloat16().transpose(2, 3)
+    k.requires_grad_(True)
+    v = torch.randn(shape).bfloat16().requires_grad_(True)
+    out = tattn._FlashAttention.apply(q, k, v, True)
+    out.backward(torch.randn(1, 2, 64, 8).bfloat16().transpose(2, 3))
+    for tensors in seen.values():
+        for t in tensors:
+            assert t.is_contiguous() and t.data_ptr() % 16 == 0
+    assert len(seen) == 2
