@@ -11,11 +11,19 @@ JAX or of the JAX package. Phases, each fatal on failure:
 3. kernels — each kernel held against its plain PyTorch version on the
    card at its path's shapes, with its time, the plain version's, a
    library call's and the least time the card could take: K2 (paged
-   attention), K1 (flash attention, forward and dQ/dK/dV, at training
+   attention: the serving shape at half and full window, t = 1 and 4,
+   q bf16 and f32; dh=64, 1- to 64-token blocks, a bf16 pool, t=33,
+   B=1, rows that leave splits empty; a rerun must give the same bits;
+   the first pass's partials folded in torch must agree and a fold
+   that drops a split must fail its limits; its device time from a
+   CUDA graph of back-to-back calls, also at 1, 2 and 4 first-pass
+   blocks per SM), K1 (flash
+   attention, forward and dQ/dK/dV, at training
    A's T=2048, at training B's T=32768 against a plain version chunked
    over query rows, and at edge cases down to T=1; planted faults must
-   fail its limits; a rerun must give the same bits), plus the sweep
-   behind K1's auto-dispatch threshold ``FLASH_MIN_T``, and K3
+   fail its limits; a rerun must give the same bits), plus the bf16 and
+   f32 sweeps behind K1's auto-dispatch threshold ``FLASH_MIN_T`` (one
+   for both), and K3
    (``conv_taps``, LeNet's conv1, at B=2048 in bf16 and f32, ragged and
    padded batches and a 3x3 kernel; a zeroed tap must fail its limits).
 4. training A — the width-1024 flagship (random weights from a seed) on
@@ -28,8 +36,15 @@ JAX or of the JAX package. Phases, each fatal on failure:
    s/step, peak memory, finite losses, K1's launches and its share of
    the step.
 6. serving — the flagship served by the paged-KV ``DecodeEngine``: every
-   request finishes, K2's launch counter moved on this run, and the
-   greedy ids agree with an engine on the plain gather program.
+   request finishes, K2 launched once per layer per decode step, and one
+   decode step's forward runs with no host sync. Then the serving gate
+   against an engine on the plain gather program: at f32 the greedy ids
+   are identical on every request, a right program (the plain one with
+   reordered score sums) passes that check and planted faults in the
+   plain engine's attention fail it. At bf16 the free-running id
+   agreement over 8 prompt sets is read against ``ID_AGREEMENT``, with
+   each divergence's f32 log-probability gap; that reading alone does
+   not fail the run.
 7. LeNet — bench.py's ``mnist_lenet5_train_throughput`` row:
    ``lenet5(lr=0.002)``, bf16 compute, B=2048 synthetic MNIST, 7
    ``fit_scan`` windows of 64 steps, then 2 timed windows (examples/s,
@@ -50,6 +65,7 @@ when any phase fails or no card is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -81,7 +97,9 @@ N_REQUESTS, PROMPT_LEN, N_GEN = 12, 128, 128
 TOL_F32 = 1e-5
 TOL_BF16 = 2e-2
 # greedy-id agreement between the kernel and the plain engine at bf16
-# (argmax-level: bf16 near-ties may flip, as in the JAX serving suite)
+# (argmax-level: bf16 near-ties may flip, as in the JAX serving suite);
+# the free-running agreement's mean over the prompt sets of
+# SERVING_SEEDS is read against it, and does not fail the run
 ID_AGREEMENT = 0.9
 
 
@@ -135,15 +153,45 @@ def cuda_time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _paged_case(rng, t, fill, q_dtype, dev):
-    """Kernel operands at the serving path's shapes: B = N_SLOTS rows,
-    each with its own block table into one f32 pool. ``fill`` is
-    "half" (1024 tokens written) or "full" (past the 2048 window, so
-    the head slid out). Row 0 is idle (nothing mapped: no valid key),
-    row 1 has a raised floor, row 2's tail block holds NaN past the
-    written span, and a free pool block is NaN-poisoned."""
-    b, h, dh, bt, tm = N_SLOTS, N_HEADS, WIDTH // N_HEADS, BLOCK_TOKENS, \
-        WINDOW
+def graph_time_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, replayed ``iters`` times between CUDA events, so no host
+    launch gap sits between the kernels (and the capture itself shows
+    that ``fn`` neither syncs nor allocates outside the graph's pool)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def _paged_case(rng, t, fill, q_dtype, dev, *, b=N_SLOTS,
+                dh=WIDTH // N_HEADS, bt=BLOCK_TOKENS,
+                kv_dtype=torch.float32, idle=True):
+    """Kernel operands at the serving path's shapes: ``b`` rows (B =
+    N_SLOTS by default), each with its own block table into one pool of
+    ``kv_dtype`` (f32, the master dtype, by default). ``fill`` is "half"
+    (1024 tokens written), "full" (past the 2048 window, so the head
+    slid out) or "short" (20 + 37 r tokens in row r: live ranges shorter
+    than the split count, so some splits are empty). With ``idle`` row 0
+    is idle (nothing mapped: no valid key); row 1 has a raised floor
+    inside a block, row 2's tail block holds NaN past the written span,
+    and a free pool block is NaN-poisoned."""
+    h, tm = N_HEADS, WINDOW
     ntab = (tm + t - 2) // bt + 2
     per_row = ntab + 2
     nb = b * per_row + 8
@@ -161,13 +209,14 @@ def _paged_case(rng, t, fill, q_dtype, dev):
     lengths = np.full(b, t, np.int32)
     nan_blocks = []
     for r in range(b):
-        length = (tm // 2 if fill == "half" else tm + 2 * bt + 5) + 3 * r
+        length = dict(half=tm // 2 + 3 * r, full=tm + 2 * bt + 5 + 3 * r,
+                      short=20 + 37 * r)[fill]
         fl = max(0, length - tm)
         if r == 1:
-            fl = length - 300
+            fl = length - (50 if fill == "short" else 300)
         filled[r] = length
         floor[r] = fl
-        if r == 0:
+        if r == 0 and idle:
             filled[r] = 0
             continue
         lo = max(fl, max(length - tm + 1, 0))
@@ -189,8 +238,8 @@ def _paged_case(rng, t, fill, q_dtype, dev):
     def i32(a):
         return torch.as_tensor(a, device=dev)
 
-    ops = (q, pk, pv, i32(bid), i32(bval), i32(lo_blk), i32(floor),
-           i32(filled), i32(lengths))
+    ops = (q, pk.to(kv_dtype), pv.to(kv_dtype), i32(bid), i32(bval),
+           i32(lo_blk), i32(floor), i32(filled), i32(lengths))
     return ops, tm
 
 
@@ -248,49 +297,207 @@ def _sdpa_yardstick(ops, tm):
     return lambda: fn(qf, ek, ev, attn_mask=mask)
 
 
-def kernel_phase() -> list:
+def _paged_name(ops, fill, t):
+    q, pk = ops[0], ops[1]
+    return (f"paged_attention {fill} window, B={q.shape[0]}, t={t}, "
+            f"dh={q.shape[3]}, bt={pk.shape[1]}, "
+            f"q={str(q.dtype).split('.')[-1]}, "
+            f"pool={str(pk.dtype).split('.')[-1]}")
+
+
+def _paged_hold(ops, tm, fill, t, idle=True):
+    """K2 against its plain version on the f32 upcast of q: max |err|
+    within TOL_F32 (f32 q) or TOL_BF16 (bf16 q), finite, and the idle
+    row (row 0, where ``idle``) exactly 0. Fatal otherwise. Returns the
+    kernel's output, the plain version's and the error."""
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         paged_attention,
         paged_attention_reference,
     )
 
+    got = paged_attention(*ops, tm=tm)
+    torch.cuda.synchronize()
+    want = paged_attention_reference(ops[0].float(), *ops[1:], tm=tm)
+    err = float((got.float() - want).abs().max())
+    tol = TOL_F32 if ops[0].dtype == torch.float32 else TOL_BF16
+    finite = bool(torch.isfinite(got).all())
+    zero_row = float(got[0].float().abs().max()) if idle else 0.0
+    name = _paged_name(ops, fill, t)
+    if not finite or err > tol or zero_row != 0.0:
+        raise SystemExit(
+            f"chip_smoke: {name}: max_abs_err {err} (tol {tol}), finite "
+            f"{finite}, idle-row max {zero_row} (must be 0)")
+    log(f"{name}: max_abs_err {err:.3e} (tol {tol})")
+    return got, want, err
+
+
+def _paged_times(ops, tm) -> dict:
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    ms = cuda_time_ms(lambda: paged_attention(*ops, tm=tm))
+    plain_ms = cuda_time_ms(lambda: paged_attention_reference(*ops, tm=tm))
+    lib_ms = cuda_time_ms(_sdpa_yardstick(ops, tm))
+    bound_ms, bound_by = _paged_bound(ops, tm)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
+def _paged_log_times(name, times) -> None:
+    log(f"{name} times: kernel {times['ms']:.4f} ms, plain "
+        f"{times['plain_ms']:.4f} ms, sdpa {times['library_ms']:.4f} ms, "
+        f"bound {times['bound_ms']:.4f} ms ({times['bound_by']}, "
+        f"{times['bound_ms'] / times['ms']:.1%} of it)")
+
+
+def paged_device_times(ops, tm, name, times) -> None:
+    """K2's and SDPA's device times (CUDA-graph replays: no host gaps
+    between launches) beside the bound."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+
+    dev_ms = graph_time_ms(lambda: paged_attention(*ops, tm=tm))
+    lib_dev_ms = graph_time_ms(_sdpa_yardstick(ops, tm))
+    log(f"{name} device times (CUDA graph of 20 calls): kernel "
+        f"{dev_ms:.4f} ms ({times['bound_ms'] / dev_ms:.1%} of the "
+        f"{times['bound_ms']:.4f} ms bound), sdpa {lib_dev_ms:.4f} ms")
+    paged_split_sweep(ops, tm, name, times["bound_ms"])
+
+
+def paged_split_sweep(ops, tm, name, bound_ms) -> None:
+    """K2's device time with the split counts that 1, 2 and 4 first-pass
+    blocks per SM give (``PAGED_BLOCKS_PER_SM`` picks one). A reading,
+    not a gate."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        PAGED_BLOCKS_PER_SM,
+        _paged_attention_launch,
+        paged_splits,
+        sm_count,
+    )
+
+    b, h, t, _ = ops[0].shape
+    sms = sm_count(ops[0].device.index)
+    readings = []
+    for per_sm in (1, 2, 4):
+        splits = paged_splits(b, h, t, ops[3].shape[1], sms, per_sm)
+        ms = graph_time_ms(lambda: _paged_attention_launch(
+            *ops, tm=tm, splits=splits))
+        readings.append(f"{per_sm} per SM ({splits} splits) {ms:.4f} ms "
+                        f"({bound_ms / ms:.1%} of bound)")
+    log(f"{name} split sweep on {sms} SMs (device times; "
+        f"PAGED_BLOCKS_PER_SM = {PAGED_BLOCKS_PER_SM}): "
+        + ", ".join(readings))
+
+
+def paged_rerun_check(ops, tm, name) -> None:
+    """K2 twice on the same inputs: the same bits (a split plan that is
+    arithmetic on the inputs, fixed merge and combine orders, no
+    atomics). Fatal on any difference."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+
+    a = paged_attention(*ops, tm=tm)
+    b = paged_attention(*ops, tm=tm)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    log(f"{name}: rerun bit for bit {same}")
+    if not same:
+        raise SystemExit(f"chip_smoke: {name}: a rerun of K2 differs")
+
+
+def _combine(m, l_, acc):
+    """The second pass's fold of split partials, in torch (f32)."""
+    top = m.max(dim=2, keepdim=True).values
+    f = torch.exp(m - top)
+    den = (f * l_).sum(dim=2)
+    return (f[..., None] * acc).sum(dim=2) / torch.where(
+        den == 0, 1.0, den)[..., None]
+
+
+def paged_fault_check(ops, tm, want, name) -> None:
+    """The first pass's partials, folded in torch over every split,
+    agree with the plain version within TOL_F32 (they are f32); folded
+    without the last split (a planted fault: a combine that drops a
+    split) they must fail the bf16 limit. Fatal otherwise."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        _paged_attention_launch,
+        paged_splits,
+        sm_count,
+    )
+
+    b, h, t, _ = ops[0].shape
+    splits = paged_splits(b, h, t, ops[3].shape[1],
+                          sm_count(ops[0].device.index))
+    _, (m, l_, acc) = _paged_attention_launch(*ops, tm=tm, splits=splits)
+    torch.cuda.synchronize()
+    whole = float((_combine(m, l_, acc) - want).abs().max())
+    fault = float((_combine(m[:, :, :-1], l_[:, :, :-1], acc[:, :, :-1])
+                   - want).abs().max())
+    log(f"{name}: {splits} splits; partials folded in torch "
+        f"max_abs_err {whole:.3e} (tol {TOL_F32}); planted fault (last "
+        f"split dropped from the combine) {fault:.3e}: caught "
+        f"{fault > TOL_BF16} (tol {TOL_BF16})")
+    if not whole <= TOL_F32 or not fault > TOL_BF16:
+        raise SystemExit(f"chip_smoke: {name}: partials {whole} (tol "
+                         f"{TOL_F32}), dropped split {fault} must exceed "
+                         f"{TOL_BF16}")
+
+
+def kernel_phase() -> list:
+    """K2 held against its plain version: the serving shape (B=8, H=8,
+    dh=128, bt=16, f32 pool) at half and full window, t = 1 and 4, q
+    bf16 and f32, all timed; at the half window dh=64, bt = 1, 4, 8, 32
+    and 64 (below 16 a warp's 4-key groups are partly empty), a bf16
+    pool, t=33 (ragged against the 4-query tile) and B=1; short
+    rows that leave splits empty; a rerun bit for bit; the planted
+    fault; B=1 at the full window timed beside the main case, and both
+    timed at 1, 2 and 4 first-pass blocks per SM. Returns
+    the kernels-line entry (the full window, t=1, q bf16)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev)
     rng.manual_seed(7)
     before = paged_attention.launches
+    bf16, f32 = torch.bfloat16, torch.float32
     main = None
     for fill in ("half", "full"):
         for t in (1, 4):
-            for q_dtype in (torch.bfloat16, torch.float32):
+            for q_dtype in (bf16, f32):
                 ops, tm = _paged_case(rng, t, fill, q_dtype, dev)
-                got = paged_attention(*ops, tm=tm)
-                torch.cuda.synchronize()
-                ref_ops = (ops[0].float(),) + ops[1:]
-                want = paged_attention_reference(*ref_ops, tm=tm)
-                err = float((got.float() - want).abs().max())
-                tol = TOL_F32 if q_dtype == torch.float32 else TOL_BF16
-                finite = bool(torch.isfinite(got).all())
-                zero_row = float(got[0].float().abs().max())
-                name = (f"paged_attention {fill} window, t={t}, "
-                        f"q={str(q_dtype).split('.')[-1]}, pool=float32")
-                if not finite or err > tol or zero_row != 0.0:
-                    raise SystemExit(
-                        f"chip_smoke: {name}: max_abs_err {err} (tol "
-                        f"{tol}), finite {finite}, idle-row max "
-                        f"{zero_row} (must be 0)")
-                ms = cuda_time_ms(lambda: paged_attention(*ops, tm=tm))
-                plain_ms = cuda_time_ms(
-                    lambda: paged_attention_reference(*ops, tm=tm))
-                lib_ms = cuda_time_ms(_sdpa_yardstick(ops, tm))
-                bound_ms, bound_by = _paged_bound(ops, tm)
-                log(f"{name}: max_abs_err {err:.3e} (tol {tol}); kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}, {bound_ms / ms:.1%} of it)")
-                if fill == "full" and t == 1 and q_dtype == torch.bfloat16:
-                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=lib_ms)
+                got, want, err = _paged_hold(ops, tm, fill, t)
+                times = _paged_times(ops, tm)
+                name = _paged_name(ops, fill, t)
+                _paged_log_times(name, times)
+                if fill == "full" and q_dtype == bf16:
+                    paged_rerun_check(ops, tm, name)
+                    if t == 1:
+                        paged_fault_check(ops, tm, want, name)
+                        main = dict(max_abs_err=err, **times)
+                        paged_device_times(ops, tm, name, times)
+    half = [dict(dh=64), dict(dh=64, q_dtype=f32), dict(bt=32),
+            dict(bt=64), dict(bt=64, dh=64, q_dtype=f32),
+            dict(bt=1, q_dtype=f32), dict(bt=4),
+            dict(bt=8, t=4, q_dtype=f32, kv_dtype=bf16),
+            dict(kv_dtype=bf16), dict(kv_dtype=bf16, q_dtype=f32),
+            dict(kv_dtype=bf16, dh=64, t=4), dict(t=33),
+            dict(t=33, q_dtype=f32, kv_dtype=bf16),
+            dict(b=1, idle=False), dict(b=1, idle=False, t=4, q_dtype=f32)]
+    for kw in half:
+        kw = dict(dict(t=1, q_dtype=bf16), **kw)
+        t, q_dtype = kw.pop("t"), kw.pop("q_dtype")
+        ops, tm = _paged_case(rng, t, "half", q_dtype, dev, **kw)
+        _paged_hold(ops, tm, "half", t, kw.get("idle", True))
+    for t in (1, 4):
+        for q_dtype in (bf16, f32):
+            ops, tm = _paged_case(rng, t, "short", q_dtype, dev)
+            _paged_hold(ops, tm, "short", t)
+    ops, tm = _paged_case(rng, 1, "full", bf16, dev, b=1, idle=False)
+    _paged_hold(ops, tm, "full", 1, idle=False)
+    name = _paged_name(ops, "full", 1)
+    times = _paged_times(ops, tm)
+    _paged_log_times(name, times)
+    paged_device_times(ops, tm, name, times)
     # comparison launches do not count toward the main path's run
     paged_attention.launches = before
     return [dict(
@@ -313,6 +520,8 @@ FLASH_B, FLASH_H = 2, 8
 FLASH_TOL = {torch.float32: dict(out=1e-4, grad=1e-3, norm=1e-5),
              torch.bfloat16: dict(out=2e-2, grad=1e-2, norm=6e-3)}
 FLASH_SWEEP_T = (512, 1024, 2048, 4096)
+# f32 up to the first T where dense no longer fits the card
+FLASH_SWEEP_T_F32 = (512, 1024, 2048, 4096, 8192, 16384, 32768)
 # query rows per chunk of the chunked plain version: a [B, H, 512, T]
 # f32 score block at a time (1 GiB at T=32768)
 FLASH_REF_ROWS = 512
@@ -584,13 +793,69 @@ def flash_fault_readings(q, k, v, do, ref, ref_grads) -> None:
                              f"fault ({fault}): {errs}")
 
 
+def _dense_grad_fn(q, k, v, do):
+    from deeplearning4j_tpu_torch.nn.layers.attention import _dense_attention
+
+    both, _ = _grad_fn(
+        lambda a, b, c, causal: _dense_attention(a, b, c, causal, None),
+        q, k, v, do, True)
+    return both
+
+
+def flash_sweep(gen, dev) -> None:
+    """The threshold behind K1's auto dispatch (``FLASH_MIN_T``, one
+    for bf16 and f32): K1 fwd+bwd against dense fwd+bwd at B=2, H=8,
+    dh=128, causal, with dense's peak memory above its inputs; bf16 over
+    FLASH_SWEEP_T, f32 over FLASH_SWEEP_T_F32 up to the first T where
+    dense does not fit the card. Logs whether each T's faster path is
+    the one the rule picks."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        FLASH_MIN_T,
+        flash_attention,
+    )
+
+    for dtype, ts in ((torch.bfloat16, FLASH_SWEEP_T),
+                      (torch.float32, FLASH_SWEEP_T_F32)):
+        sweep = []
+        for t in ts:
+            iters = 10 if t <= 4096 else 2
+            q, k, v, do = _flash_case(gen, t, 128, dtype, dev)
+            k_both, _ = _grad_fn(flash_attention, q, k, v, do, True)
+            k_ms = cuda_time_ms(k_both, iters=iters, warmup=1)
+            del k_both
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                d_both = _dense_grad_fn(q, k, v, do)
+                d_ms = cuda_time_ms(d_both, iters=iters, warmup=1)
+                d_mem = torch.cuda.max_memory_allocated() - base
+                del d_both
+            except torch.cuda.OutOfMemoryError:
+                d_ms = d_mem = None
+            torch.cuda.empty_cache()
+            rule = t >= FLASH_MIN_T
+            faster = d_ms is None or k_ms < d_ms
+            sweep.append((t, k_ms, d_ms, d_mem, rule == faster))
+            if d_ms is None:
+                break
+        log(f"FLASH_MIN_T sweep ({str(dtype).split('.')[-1]}, B=2, H=8, "
+            f"dh=128, causal, fwd+bwd ms; dense peak memory above its "
+            f"inputs; threshold {FLASH_MIN_T}): " + "; ".join(
+                f"T={t}: kernel {a:.4f}, dense "
+                + (f"{b:.4f}, dense memory {m / 2**30:.3f} GiB"
+                   if b is not None else "does not fit the card")
+                + f", rule {'agrees' if ok else 'DISAGREES'}"
+                for t, a, b, m, ok in sweep))
+
+
 def flash_kernel_phase() -> tuple:
     """K1 forward and backward held against the plain version on the
     f32 upcast at phase A's and phase B's shapes and at edge cases;
     planted-fault readings; times; the FLASH_MIN_T sweep. Returns the
     kernels-line entries (at LONG_T) and K1's fwd + bwd ms there."""
     from deeplearning4j_tpu_torch.nn.layers.attention import (
-        _dense_attention,
         flash_attention,
         flash_attention_bwd,
         flash_attention_fwd,
@@ -650,27 +915,7 @@ def flash_kernel_phase() -> tuple:
                 f"{bound / ms:.1%} of it), bwd {bbound:.4f} ms ({bby}, "
                 f"{bbound / bwd_ms:.1%} of it)")
     entries = flash_long_case(gen, dev)
-    # FLASH_MIN_T: kernel fwd+bwd against dense fwd+bwd, bf16, causal
-    sweep = []
-    for t in FLASH_SWEEP_T:
-        q, k, v, do = _flash_case(gen, t, 128, torch.bfloat16, dev)
-        k_both, _ = _grad_fn(flash_attention, q, k, v, do, True)
-        d_both, _ = _grad_fn(
-            lambda a, b, c, causal: _dense_attention(a, b, c, causal, None),
-            q, k, v, do, True)
-        k_ms = cuda_time_ms(k_both, iters=10)
-        d_ms = cuda_time_ms(d_both, iters=10)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        d_both()
-        torch.cuda.synchronize()
-        d_mem = torch.cuda.max_memory_allocated() - base
-        sweep.append((t, k_ms, d_ms, d_mem))
-    log("FLASH_MIN_T sweep (B=2, H=8, dh=128, bf16, causal, fwd+bwd ms; "
-        "dense peak memory above its inputs): "
-        + "; ".join(f"T={t}: kernel {a:.4f}, dense {b:.4f}, dense memory "
-                    f"{m / 2**30:.3f} GiB" for t, a, b, m in sweep))
+    flash_sweep(gen, dev)
     flash_attention.launches, flash_attention.bwd_launches = before
     src = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
     rep = "deeplearning4j_tpu/nn/layers/attention.py:729"
@@ -966,22 +1211,211 @@ def training_long_phase(card: str, k1_ms: float) -> dict:
     return {"flash_attention": fwd, "flash_attention_bwd": bwd}
 
 
-def serving_phase(card: str) -> int:
-    """The flagship served by the paged-KV engine on the card; returns
-    the paged-attention kernel's launches on the main run."""
+# the serving gate, the kernel engine against the plain engine (the
+# gather program, use_flash_paged=False), at prompt seed 0 unless said.
+# It decides at f32: the greedy ids identical on every request (ROADMAP:
+# "greedy ids identical at f32"), for the kernel engine and for a right
+# program (the plain one with its score sums reordered), while each
+# planted fault in the plain engine's attention must differ. At bf16 it
+# reads the free-running id agreement (ROADMAP's >= 0.9 id match), its
+# mean over the prompt sets default_rng(s), s in SERVING_SEEDS, against
+# ID_AGREEMENT, with every seed's and request's reading, the f32
+# log-probability gap at each first divergence, and the reordered
+# program's reading at seed 0 beside it. That reading does not fail the
+# run: right programs read below the bar on these random weights, where
+# a near-tie flip carries forward (PERF.md §6, K2).
+SERVING_SEEDS = tuple(range(8))
+
+
+def _paged_fault_newest_key_dropped(ref):
+    """Each query placed one position early: its newest key (its own)
+    is no longer causal and its V lane is zeroed; past the window one
+    key older than the window is admitted."""
+    def fn(q, pk, pv, bid, bval, lo_blk, floor, filled, lengths, *, tm):
+        return ref(q, pk, pv, bid, bval, lo_blk, floor, filled - 1,
+                   lengths, tm=tm)
+    return fn
+
+
+def _paged_fault_scale_squared(ref):
+    """Scores scaled by dh^-1 in place of dh^-1/2."""
+    def fn(q, pk, pv, *rest, tm):
+        return ref(q * q.shape[-1] ** -0.5, pk, pv, *rest, tm=tm)
+    return fn
+
+
+def reordered_sums(ref):
+    """A right program: the plain version with its score sums over dh
+    taken in reverse order (the same function, other roundings)."""
+    def fn(q, pk, pv, *rest, tm):
+        return ref(q.flip(-1), pk.flip(-1), pv.flip(-1), *rest,
+                   tm=tm).flip(-1)
+    return fn
+
+
+#: planted faults of the plain engine's attention the f32 gate must
+#: reject (each wraps ``paged_attention_reference``)
+PLANTED_FAULTS = {"newest key dropped": _paged_fault_newest_key_dropped,
+                  "scale squared": _paged_fault_scale_squared}
+
+
+@contextlib.contextmanager
+def paged_reference_wrapped(wrap):
+    """Within the block, the plain paged attention (the gather program
+    ``_paged_attend`` calls for ``use_flash_paged=False``) is
+    ``wrap(paged_attention_reference)``; ``wrap=None`` leaves it. The
+    CUDA kernel is untouched."""
+    from deeplearning4j_tpu_torch.nn.layers import attention
+
+    ref = attention.paged_attention_reference
+    if wrap is not None:
+        attention.paged_attention_reference = wrap(ref)
+    try:
+        yield
+    finally:
+        attention.paged_attention_reference = ref
+
+
+def serving_prompts(seed: int, n=None, length=None, vocab=None) -> list:
+    """The serving workload's prompts from ``default_rng(seed)``: ``n``
+    (N_REQUESTS) prompts of ``length`` (PROMPT_LEN) ids below ``vocab``
+    (VOCAB)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab or VOCAB, length or PROMPT_LEN).tolist()
+            for _ in range(n or N_REQUESTS)]
+
+
+def serve_ids(engine, prompts, n_gen=None) -> tuple:
+    """Greedy-serve ``prompts`` on ``engine``, ``n_gen`` (N_GEN) new
+    tokens each; returns the results in submission order and the wall
+    seconds of the run."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    ids = [engine.submit(Request(list(p), n_gen or N_GEN)) for p in prompts]
+    t0 = time.perf_counter()
+    res = engine.run()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [res[i] for i in ids], time.perf_counter() - t0
+
+
+def request_agreement(a, b) -> float:
+    """The share of positions where two id sequences of one request
+    agree; a position only one of them reached counts as a
+    disagreement."""
+    n = max(len(a), len(b))
+    if n == 0:
+        return 1.0
+    m = min(len(a), len(b))
+    return float((np.asarray(a[:m]) == np.asarray(b[:m])).sum()) / n
+
+
+def agreement(runs_a, runs_b) -> list:
+    """:func:`request_agreement` of each request of two runs, in order."""
+    if len(runs_a) != len(runs_b):
+        raise ValueError(
+            f"runs of {len(runs_a)} and {len(runs_b)} requests")
+    return [request_agreement(a, b) for a, b in zip(runs_a, runs_b)]
+
+
+def first_divergence(a, b):
+    """The first position where two id sequences differ (the shorter
+    one's length if one is a prefix of the other), or None when they
+    are identical."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def logprob_gap(net, prompt, shared, tok_a: int, tok_b: int) -> float:
+    """log p(tok_a) - log p(tok_b) for the token after ``prompt`` +
+    ``shared``, from ``net.output`` (a full forward, no cache) of an
+    LM-shaped net with one-hot input. Near 0 means a near-tie."""
+    ids = torch.as_tensor(list(prompt) + list(shared), dtype=torch.long)
+    vocab = net.conf.confs[0].layer.n_in
+    x = torch.nn.functional.one_hot(ids, vocab).T[None].float()
+    probs = net.output(x)[0, :, -1].double()
+    return float(torch.log(probs[tok_a]) - torch.log(probs[tok_b]))
+
+
+def _serving_net(compute_dtype: str, device=None):
     from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
-    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
 
     conf = transformer_lm_flagship(vocab=VOCAB, width=WIDTH,
                                    n_layers=N_LAYERS, n_heads=N_HEADS,
                                    seed=11)
     for c in conf.confs:
-        c.compute_dtype = "bfloat16"
+        if compute_dtype != "float32":
+            c.compute_dtype = compute_dtype
         if hasattr(c.layer, "stream_max_t"):
             c.layer.stream_max_t = WINDOW
-    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    return MultiLayerNetwork(conf, device=device or DEVICE).init()
+
+
+def decode_forward_sync_check(eng, prompts) -> None:
+    """One decode step's network forward (``DecodeEngine._forward``, the
+    paged attend with its K/V scatter and K2 in every layer) over full
+    slots, run under ``torch.cuda.set_sync_debug_mode("error")``: any
+    host synchronisation in it raises. Fatal if one does."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    for p in prompts[:N_SLOTS]:
+        eng.submit(Request(list(p), N_GEN))
+    eng.step()                   # admissions and one round
+    active = sum(s is not None for s in eng._slots)
+    with torch.no_grad():
+        rnn = eng._paged_rnn_rows(eng._kv_tabs)
+        x = F.one_hot(eng._toks.long(), eng.vocab).to(
+            eng.net._dtype)[:, :, None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _ = eng._forward(x, None, rnn)
+        except RuntimeError as e:
+            raise SystemExit(f"chip_smoke: a decode step's forward syncs "
+                             f"the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()) or active != N_SLOTS:
+        raise SystemExit(f"chip_smoke: sync check: {active} active slots, "
+                         "non-finite output")
+    log(f"serving: one decode step's forward over {active} slots ran under "
+        "set_sync_debug_mode('error') without a host sync")
+    eng.run()
+
+
+def near_tie_report(net32, prompts, ids_a, ids_b, label) -> None:
+    """For each request whose two id runs diverge: the first divergent
+    position, the two tokens, and log p(a) - log p(b) there from the
+    f32 ``net.output`` forward on the shared prefix. Evidence only."""
+    for r, (p, a, b) in enumerate(zip(prompts, ids_a, ids_b)):
+        at = first_divergence(a, b)
+        if at is None or at >= min(len(a), len(b)):
+            continue
+        gap = logprob_gap(net32, p, a[:at], a[at], b[at])
+        log(f"  {label} request {r}: first divergence at token {at}: "
+            f"{a[at]} vs {b[at]}, f32 log-prob gap {gap:+.4e}")
+
+
+def serving_phase(card: str) -> int:
+    """The flagship served by the paged-KV engine on the card (the main
+    run: bf16, prompt seed 0, timed), one decode step's forward checked
+    for host syncs, then the serving gate: f32 ids identical between the
+    kernel engine and the plain engine, and between the plain engine and
+    a right program (the plain one with reordered sums); each planted
+    fault rejected by that check. Beside it the bf16 free-running id
+    agreement over SERVING_SEEDS, read against ID_AGREEMENT with a
+    near-tie report for each request that diverges (not fatal). Returns
+    the paged-attention kernel's launches on the main run."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
+
+    net = _serving_net("bfloat16")
     # the forward is right on a small input: finite softmax rows
     x = torch.zeros(2, VOCAB, 16, device=DEVICE)
     x[:, 3, :] = 1.0
@@ -991,18 +1425,9 @@ def serving_phase(card: str) -> int:
             or float((sums - 1).abs().max()) > 1e-4):
         raise SystemExit(f"chip_smoke: flagship output() is wrong: shape "
                          f"{tuple(probs.shape)}, row sums {sums}")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
-               for _ in range(N_REQUESTS)]
     geometry = dict(paged_kv=True, block_tokens=BLOCK_TOKENS,
                     n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK)
-
-    def serve(engine):
-        ids = [engine.submit(Request(list(p), N_GEN)) for p in prompts]
-        t0 = time.perf_counter()
-        res = engine.run()
-        torch.cuda.synchronize()
-        return [res[i] for i in ids], time.perf_counter() - t0
+    prompts = serving_prompts(0)
 
     eng = DecodeEngine(net, **geometry)
     eng.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))   # warm-up
@@ -1011,7 +1436,7 @@ def serving_phase(card: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     steps0 = eng.stats["decode_steps"]
     paged_attention.launches = 0
-    results, wall = serve(eng)
+    results, wall = serve_ids(eng, prompts)
     launches = paged_attention.launches
     steps = eng.stats["decode_steps"] - steps0
     peak = torch.cuda.max_memory_allocated()
@@ -1028,21 +1453,84 @@ def serving_phase(card: str) -> int:
         f"{N_REQUESTS * N_GEN / wall:.1f} tokens/s aggregate, median TTFT "
         f"{ttft * 1e3:.1f} ms, peak memory {peak / 2**30:.3f} GiB, "
         f"{steps} decode steps, {launches} kernel launches [{card}]")
+    decode_forward_sync_check(eng, prompts)
+    del eng
 
-    plain = DecodeEngine(net, use_flash_paged=False, **geometry)
-    plain_results, plain_wall = serve(plain)
-    same = [np.mean(np.asarray(a.tokens) == np.asarray(b.tokens))
-            for a, b in zip(results, plain_results)]
-    agreement = float(np.mean(same))
-    log(f"serving (plain gather): {N_REQUESTS * N_GEN / plain_wall:.1f} "
-        f"tokens/s aggregate [{card}]; greedy id agreement with the "
-        f"kernel engine {agreement:.4f} (min per request "
-        f"{min(same):.4f}, bar {ID_AGREEMENT}; per request "
-        f"{[round(float(a), 4) for a in same]})")
-    if agreement < ID_AGREEMENT:
+    net32 = _serving_net("float32")
+    for key, p in net.param_table().items():
+        net32.set_param(key, p)
+
+    def free_ids(model, use_flash_paged, seed, wrap=None):
+        with paged_reference_wrapped(wrap):
+            res, secs = serve_ids(DecodeEngine(
+                model, use_flash_paged=use_flash_paged, **geometry),
+                serving_prompts(seed))
+        return [r.tokens for r in res], secs
+
+    def rounded(xs):
+        return [round(x, 4) for x in xs]
+
+    def mean(xs):
+        return float(np.mean(xs))
+
+    # f32, the gate: identical ids, the kernel engine and a right program
+    # against the plain engine; each planted fault must differ
+    kernel32, _ = free_ids(net32, True, 0)
+    plain32, _ = free_ids(net32, False, 0)
+    reord32, _ = free_ids(net32, False, 0, reordered_sums)
+    identical = kernel32 == plain32
+    right32 = reord32 == plain32
+    log(f"serving gate f32, prompt seed 0: kernel ids identical to plain "
+        f"{identical} (per request {rounded(agreement(kernel32, plain32))})"
+        f"; plain with reordered sums identical {right32}")
+    near_tie_report(net32, prompts, kernel32, plain32, "f32 seed 0")
+
+    # bf16, a reading: free-running agreement of the kernel engine with
+    # the plain engine over the seeds, a right program's at seed 0
+    kernel16 = {0: [r.tokens for r in results]}
+    by_seed = {}
+    for s in SERVING_SEEDS:
+        if s not in kernel16:
+            kernel16[s], _ = free_ids(net, True, s)
+        plain16, plain_wall = free_ids(net, False, s)
+        per = agreement(kernel16[s], plain16)
+        by_seed[s] = mean(per)
+        extra = ""
+        if s == 0:
+            right16 = agreement(free_ids(net, False, 0, reordered_sums)[0],
+                                plain16)
+            extra = (f"; plain with reordered sums against plain "
+                     f"{mean(right16):.4f} (per request {rounded(right16)})"
+                     f"; plain engine {N_REQUESTS * N_GEN / plain_wall:.1f} "
+                     f"tokens/s [{card}]")
+        log(f"serving bf16, prompt seed {s}: free-running id agreement "
+            f"{by_seed[s]:.4f} (per request {rounded(per)}){extra}")
+        near_tie_report(net32, serving_prompts(s), kernel16[s], plain16,
+                        f"bf16 seed {s}, kernel vs plain")
+    mean16 = mean(list(by_seed.values()))
+
+    caught = {}
+    for name, wrap in PLANTED_FAULTS.items():
+        fault32, _ = free_ids(net32, False, 0, wrap)
+        fault16, _ = free_ids(net, False, 0, wrap)
+        caught[name] = fault32 != kernel32
+        log(f"serving gate, planted fault ({name}) in the plain engine: f32 "
+            f"ids identical {not caught[name]} (per request "
+            f"{rounded(agreement(kernel32, fault32))}); bf16 free-running "
+            f"at prompt seed 0 "
+            f"{mean(agreement(kernel16[0], fault16)):.4f}")
+    log(f"serving bf16 free-running id agreement over prompt seeds "
+        f"{list(SERVING_SEEDS)}: mean {mean16:.4f}, "
+        f"{'at or above' if mean16 >= ID_AGREEMENT else 'BELOW'} the "
+        f"{ID_AGREEMENT} bar (a reading, not a gate: right programs read "
+        f"below it on these random weights)")
+    log(f"serving gate: f32 ids identical {identical} (right program "
+        f"{right32}); planted faults rejected {caught} [{card}]")
+    if not identical or not right32 or not all(caught.values()):
         raise SystemExit(
-            f"chip_smoke: kernel vs plain id agreement {agreement} < "
-            f"{ID_AGREEMENT}")
+            f"chip_smoke: serving gate failed: f32 ids identical "
+            f"{identical}, right program identical {right32}, planted "
+            f"faults rejected {caught}")
     return launches
 
 

@@ -224,8 +224,17 @@ class AttentionImpl(LayerImplBase):
         Unlike the JAX package, which returns a new pool, this updates
         ``pk``/``pv`` IN PLACE: the returned cache holds the same pool
         tensors. JAX's ``mode="drop"`` scatter has no torch counterpart,
-        so the writable rows (inside the chunk's length, block mapped)
-        are selected with a mask before ``index_put_``. The returned
+        so the scatter has a fixed shape instead: every row of the chunk
+        is written, and a row that must be dropped (past its row's chunk
+        length, or in an unmapped block, as for an idle slot) goes to the
+        **scratch block**, whose index the cache names under
+        ``scratch`` (a Python int). Its owner guarantees that no table
+        maps it (``DecodeEngine`` allocates ``kv_blocks + 1`` blocks,
+        names the last, and its ``BlockPool`` hands out only the first
+        ``kv_blocks``). Nothing reads the scratch block, so what the
+        dropped rows leave there does not matter, and no boolean
+        selection syncs the host. A cache that names no scratch block
+        inside the pool is refused (a host check). The returned
         ``filled`` advances by each row's chunk length."""
         _check_streamable(lc)
         tm = lc.stream_max_t
@@ -235,6 +244,14 @@ class AttentionImpl(LayerImplBase):
         table, base = cache["table"], cache["base"]
         floor, filled = cache["floor"], cache["filled"]
         nb, bt = pk.shape[0], pk.shape[1]
+        scratch = cache.get("scratch")
+        if (not isinstance(scratch, int) or isinstance(scratch, bool)
+                or not 0 <= scratch < nb):
+            raise ValueError(
+                f"paged cache names scratch block {scratch!r}, not a block "
+                f"of its {nb}-block pool: the fixed-shape K/V scatter "
+                "needs a block that no table maps (DecodeEngine names "
+                "its pool's last)")
         s_ring = table.shape[1]
         pkf = pk.view(nb * bt, h, dh)
         pvf = pv.view(nb * bt, h, dh)
@@ -246,11 +263,11 @@ class AttentionImpl(LayerImplBase):
         # -- scatter the chunk's K/V to their absolute positions ------
         pos = filled[:, None] + ar_t[None, :]                 # [B, t]
         blk = torch.gather(table, 1, ((pos // bt) % s_ring).long())
-        writable = ((ar_t[None, :] < lengths[:, None])
-                    & (blk >= 0)).reshape(-1)
-        widx = (blk * bt + pos % bt).reshape(-1)[writable].long()
-        kt = k.transpose(1, 2).reshape(b * t, h, dh)[writable]
-        vt = v.transpose(1, 2).reshape(b * t, h, dh)[writable]
+        writable = (ar_t[None, :] < lengths[:, None]) & (blk >= 0)
+        widx = torch.where(writable, blk * bt + pos % bt,
+                           scratch * bt + pos % bt).reshape(-1).long()
+        kt = k.transpose(1, 2).reshape(b * t, h, dh)
+        vt = v.transpose(1, 2).reshape(b * t, h, dh)
         pkf.index_put_((widx,), kt.to(pkf.dtype))
         pvf.index_put_((widx,), vt.to(pvf.dtype))
         # -- the blocks each row's window can reach -------------------
@@ -271,8 +288,8 @@ class AttentionImpl(LayerImplBase):
             o = paged_attention(*args, tm=tm)
         else:
             o = paged_attention_reference(*args, tm=tm)
-        return o, {"pk": pk, "pv": pv, "table": table, "base": base,
-                   "floor": floor, "filled": filled + lengths}
+        return o, {"pk": pk, "pv": pv, "scratch": scratch, "table": table,
+                   "base": base, "floor": floor, "filled": filled + lengths}
 
 
 class TransformerBlockImpl(LayerImplBase):
@@ -351,10 +368,15 @@ def _dense_attention(q, k, v, causal, mask):
 
 
 #: Auto mode (``use_flash=None``) takes K1 on the card from this length
-#: on: the smallest T of ``chip_smoke.py``'s sweep (kernel fwd+bwd
-#: against dense fwd+bwd at B=2, H=8, dh=128, bf16; T in 512..4096),
-#: where K1 was the faster in every run (PERF.md); the crossover lies
-#: below it and is not measured. Shorter sequences, such as the serving
+#: on, for bfloat16 and float32 alike: the smallest T of
+#: ``chip_smoke.py``'s sweep (kernel fwd+bwd against dense fwd+bwd at
+#: B=2, H=8, dh=128, causal; PERF.md). In bf16 K1 was the faster at
+#: every T (512..4096) in every run; the crossover lies below 512 and is
+#: not measured. The sweep's f32 half (T from 512 up to where dense no
+#: longer fits the card) supports 512 for f32 too: K1 was the faster at
+#: 512, 4096 and 8192 in every run, the two were within 3% either way at
+#: 1024 and dense up to 8% faster at 2048, with no clean crossover, and
+#: from 16384 dense does not fit. Shorter sequences, such as the serving
 #: engine's prompt prefills, stay on the dense path.
 FLASH_MIN_T = 512
 #: head widths K1 takes
@@ -643,15 +665,42 @@ def _paged_lib():
     functions' ctypes signatures set."""
     lib = cuda_build.load("paged_attention")
     fn = lib.dl4j_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.dl4j_paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.dl4j_paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.dl4j_paged_attention_smem_bytes.restype = ctypes.c_size_t
     lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+#: first-pass thread blocks K2 aims for on each of the card's SMs
+#: (``chip_smoke.py`` times 1, 2 and 4 at B=8 and B=1 on every run; 2
+#: read fastest at both on an H100: PERF.md, K2)
+PAGED_BLOCKS_PER_SM = 2
+#: queries one first-pass block takes when t > 1 (``kQueryTile`` in
+#: ``csrc/paged_attention.cu``)
+PAGED_QUERY_TILE = 4
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def paged_splits(b: int, h: int, t: int, ntab: int, sms: int,
+                 per_sm: int = PAGED_BLOCKS_PER_SM) -> int:
+    """K2's split count S: each (row, head, query tile) walks its live
+    table entries in S equal shares, one thread block each. The fewest
+    splits that give ``per_sm`` blocks for each of the card's ``sms``
+    SMs, never more than table entries. A function of the shapes and the
+    card alone, so the same inputs on the same card always take the same
+    plan (and give the same bits)."""
+    tiles = b * h * (1 if t == 1 else -(-t // PAGED_QUERY_TILE))
+    return max(1, min(ntab, -(-(per_sm * sms) // tiles)))
 
 
 def _check_kernel_args(q, pk, pv, bid, bval, lo_blk, floor, filled,
@@ -700,21 +749,65 @@ def _check_kernel_args(q, pk, pv, bid, bval, lo_blk, floor, filled,
     for name in ("lo_blk", "floor", "filled", "lengths"):
         if tuple(named[name].shape) != (b,):
             raise ValueError(f"paged_attention: {name} must be [B={b}]")
+    for name in ("q", "pk", "pv"):
+        if named[name].data_ptr() % 16:
+            raise ValueError(
+                f"paged_attention: {name} is not 16-byte aligned (the "
+                "kernel's vector and cp.async loads)")
+
+
+def _paged_attention_launch(q, pk, pv, bid, bval, lo_blk, floor, filled,
+                            lengths, *, tm: int, splits: int):
+    """Both passes of K2 on checked CUDA operands with ``splits``
+    splits. Returns the output and the first pass's partials (m, l
+    [B, H, S, t] and the unnormalised acc [B, H, S, t, dh], views of the
+    f32 workspace). Counts nothing."""
+    b, h, t, dh = q.shape
+    bt = pk.shape[1]
+    ntab = bid.shape[1]
+    kv = _DTYPE_CODES[pk.dtype]
+    lib = _paged_lib()
+    smem = lib.dl4j_paged_attention_smem_bytes(t, dh, bt, kv)
+    if smem > cuda_build.SMEM_PER_BLOCK:
+        raise ValueError(
+            f"paged_attention: dh={dh}, block_tokens={bt}, {pk.dtype} pool "
+            f"needs {smem} bytes of shared memory (limit "
+            f"{cuda_build.SMEM_PER_BLOCK})")
+    # the f32 workspace: acc [B, H, S, t, dh], then m and l [B, H, S, t]
+    rows = b * h * splits * t
+    ws = torch.empty(rows * (dh + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.dl4j_paged_attention(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), bid.data_ptr(),
+        bval.data_ptr(), lo_blk.data_ptr(), floor.data_ptr(),
+        filled.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, h, t, dh, bt, ntab, int(tm), splits, dh ** -0.5,
+        _DTYPE_CODES[q.dtype], kv, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: CUDA error {err} "
+            f"({lib.dl4j_cuda_error_string(err).decode()})")
+    acc = ws[:rows * dh].view(b, h, splits, t, dh)
+    m = ws[rows * dh:rows * (dh + 1)].view(b, h, splits, t)
+    l_ = ws[rows * (dh + 1):].view(b, h, splits, t)
+    return out, (m, l_, acc)
 
 
 def paged_attention(q, pk, pv, bid, bval, lo_blk, floor, filled, lengths,
                     *, tm: int):
-    """Paged attention: the CUDA kernel ``csrc/paged_attention.cu`` for
+    """Paged attention: the CUDA kernels ``csrc/paged_attention.cu`` for
     CUDA tensors, :func:`paged_attention_reference` for CPU tensors.
 
     Operands as :func:`paged_attention_reference`. The kernel takes q in
     float32 or bfloat16, pk/pv in float32 or bfloat16, dh in {64, 128},
-    block_tokens a power of two <= 64 and any t >= 1 that fits the
-    card's shared memory; anything else raises. Mapped entries of
-    ``bid`` must index the pool (the caller's tables guarantee it; the
-    kernel does not check). Output: [B, H, t, dh] in q's dtype,
-    allocated here; the launch goes on the current stream and is counted
-    in ``paged_attention.launches``."""
+    block_tokens a power of two <= 64 and any t >= 1; q, pk and pv
+    16-byte aligned; anything else raises. Mapped entries of ``bid``
+    must index the pool (the caller's tables guarantee it; the kernel
+    does not check). Output: [B, H, t, dh] in q's dtype, allocated here
+    with the split-K workspace (:func:`paged_splits` splits); the two
+    launches go on the current stream, and the call counts once in
+    ``paged_attention.launches``."""
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, pk, pv, bid, bval, lo_blk, floor, filled, lengths, tm=tm)
@@ -722,28 +815,10 @@ def paged_attention(q, pk, pv, bid, bval, lo_blk, floor, filled, lengths,
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check_kernel_args(q, pk, pv, bid, bval, lo_blk, floor, filled,
                        lengths)
-    b, h, t, dh = q.shape
-    bt = pk.shape[1]
-    ntab = bid.shape[1]
-    lib = _paged_lib()
-    smem = lib.dl4j_paged_attention_smem_bytes(t, dh, bt)
-    if smem > cuda_build.SMEM_PER_BLOCK:
-        raise ValueError(
-            f"paged_attention: t={t}, dh={dh}, block_tokens={bt} needs "
-            f"{smem} bytes of shared memory (limit "
-            f"{cuda_build.SMEM_PER_BLOCK})")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.dl4j_paged_attention(
-        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), bid.data_ptr(),
-        bval.data_ptr(), lo_blk.data_ptr(), floor.data_ptr(),
-        filled.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, t, dh, bt, ntab, int(tm), dh ** -0.5,
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[pk.dtype], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"paged_attention kernel launch failed: CUDA error {err} "
-            f"({lib.dl4j_cuda_error_string(err).decode()})")
+    b, h, t, _ = q.shape
+    out, _ = _paged_attention_launch(
+        q, pk, pv, bid, bval, lo_blk, floor, filled, lengths, tm=tm,
+        splits=paged_splits(b, h, t, bid.shape[1], sm_count(q.device.index)))
     paged_attention.launches += 1
     return out
 

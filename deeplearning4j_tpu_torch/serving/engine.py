@@ -3,7 +3,9 @@
 Port of the ``paged_kv=True`` core of ``deeplearning4j_tpu/serving/
 engine.py:DecodeEngine``. A fixed set of ``n_slots`` decode slots is
 multiplexed across many requests; their KV lives in one block pool per
-attention layer (``[kv_blocks, block_tokens, H, dh]``, the master dtype),
+attention layer (``[kv_blocks + 1, block_tokens, H, dh]``, the master
+dtype; the last block, named ``scratch`` in each layer's pool dict, is
+the scratch block of the fixed-shape K/V scatter, which no table maps),
 addressed through per-slot host block tables (serving/block_pool.py).
 
 One scheduling round (``step()``):
@@ -402,18 +404,23 @@ class DecodeEngine:
 
     def _ensure_paged_pool(self, rnn1) -> None:
         """Create the device block pool lazily from the first B=1
-        prefill state (per layer ``[kv_blocks, block_tokens, H, dh]`` in
-        the state's dtype, the net's master dtype)."""
+        prefill state (per layer ``[kv_blocks + 1, block_tokens, H, dh]``
+        in the state's dtype, the net's master dtype). The last block is
+        the scratch block that fixed-shape scatters send dropped rows to
+        (``AttentionImpl._paged_attend``), named by the layer's
+        ``scratch`` entry: ``block_pool`` never hands it out, so no table
+        maps it."""
         if self._pool is not None:
             return
         bt = self.block_tokens
 
         def make(st):
             k = st["k"]                          # [1, H, W, dh]
-            shape = (self.kv_blocks, bt, k.shape[1], k.shape[3])
+            shape = (self.kv_blocks + 1, bt, k.shape[1], k.shape[3])
             return {"pk": torch.zeros(shape, dtype=k.dtype, device=k.device),
                     "pv": torch.zeros(shape, dtype=st["v"].dtype,
-                                      device=k.device)}
+                                      device=k.device),
+                    "scratch": int(self.kv_blocks)}
 
         self._pool = {name: make(st) for name, st in rnn1.items()}
         self._toks = torch.zeros(self.n_slots, dtype=torch.int32,
@@ -422,10 +429,12 @@ class DecodeEngine:
     def _scatter_row(self, rnn1, table_row: np.ndarray, length: int):
         """Cold admission: write a B=1 prefill row's valid window tokens
         to their absolute positions in the slot's freshly allocated
-        blocks, IN PLACE. The valid positions (inside the row's
-        ``filled`` span and block-mapped) are selected with a mask before
-        ``index_put_`` (JAX's ``mode="drop"`` scatter has no torch
-        counterpart)."""
+        blocks, IN PLACE. A fixed-shape scatter, as in
+        ``AttentionImpl._paged_attend``: every window position is
+        written, those outside the row's ``filled`` span or in an
+        unmapped block to the pool's scratch block (``scratch``), so no
+        boolean selection syncs the host (JAX's ``mode="drop"`` scatter
+        has no torch counterpart)."""
         bt, s_ring = self.block_tokens, self._ring_slots
         tr = torch.as_tensor(table_row).to(self.device)
         for name, st in self._pool.items():
@@ -437,9 +446,10 @@ class DecodeEngine:
             safe = torch.clamp(absp, min=0)
             blk = tr[((safe // bt) % s_ring).long()]
             sel = (absp >= length - fd) & (blk >= 0)
-            idx = (blk * bt + safe % bt)[sel].long()
-            kt = k1[0].permute(1, 0, 2)[sel]     # [W, H, dh] -> valid
-            vt = v1[0].permute(1, 0, 2)[sel]
+            idx = torch.where(sel, blk * bt + safe % bt,
+                              st["scratch"] * bt + safe % bt).long()
+            kt = k1[0].permute(1, 0, 2)          # [W, H, dh]
+            vt = v1[0].permute(1, 0, 2)
             st["pk"].view(nbk * bt, h, dh).index_put_(
                 (idx,), kt.to(st["pk"].dtype))
             st["pv"].view(nbk * bt, h, dh).index_put_(

@@ -6,12 +6,20 @@ Needs a CUDA card. Builds the serving configuration ``chip_smoke.py``
 drives (the width-1024, 8-block transformer flagship at bf16 compute
 with a 2048-token window; random weights from seed 11), fills the
 paged-KV engine's 8 slots with 128-token prompts, and profiles the
-decode of 64 new tokens each with ``torch.profiler``. Prints the wall
-time per decode step, the device's busy and idle shares of that wall
+decode of their last 32 new tokens with ``torch.profiler``. Prints the
+wall time per decode step (and, from one unprofiled round before the
+profiled one, the wall per step and the slots' tokens/s without the
+profiler), the device's busy and idle shares of that wall
 (the sum of kernel times over it: the engine runs on one stream), the
-paged-attention kernel's share, kernel launches per step and the
-kernels that take the most device time, then one JSON line of the same.
-Imports nothing of JAX.
+paged-attention kernels' share (K2's two passes, both named
+``paged_attention_*``), kernel launches per step and the kernels that
+take the most device time, then one JSON line of the same. Before that
+window, one more round runs under ``torch.cuda.set_sync_debug_mode
+("warn")`` to count the host synchronisations per decode step (each sync
+PyTorch sees warns once). ``paged_attention_calls`` counts calls of the
+``paged_attention`` wrapper (one per layer per step); each call launches
+the two CUDA kernels that ``paged_attention_kernels`` counts. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -45,7 +54,23 @@ from deeplearning4j_tpu_torch.serving import (  # noqa: E402
 )
 
 VOCAB, WIDTH, N_LAYERS, N_HEADS, WINDOW = 64, 1024, 8, 8, 2048
-N_SLOTS, DECODE_CHUNK, PROMPT_LEN, N_GEN = 8, 32, 128, 65
+N_SLOTS, DECODE_CHUNK, PROMPT_LEN, N_GEN = 8, 32, 128, 129
+
+
+def syncs_per_step(eng) -> float:
+    """Host synchronisations per decode step over one scheduling round,
+    as ``set_sync_debug_mode("warn")`` counts them."""
+    steps0 = eng.stats["decode_steps"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n = sum("synchronizing CUDA operation" in str(w.message)
+            for w in caught)
+    return n / max(1, eng.stats["decode_steps"] - steps0)
 
 
 def main() -> int:
@@ -75,7 +100,14 @@ def main() -> int:
     for p in prompts:
         eng.submit(Request(list(p), N_GEN))
     eng.step()          # admissions + the first round, unprofiled
+    syncs = syncs_per_step(eng)
     torch.cuda.synchronize()
+    steps0 = eng.stats["decode_steps"]
+    t0 = time.perf_counter()
+    eng.step()          # one unprofiled round
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_steps = eng.stats["decode_steps"] - steps0
     steps0 = eng.stats["decode_steps"]
     launches0 = paged_attention.launches
     with profile(activities=[ProfilerActivity.CPU,
@@ -87,12 +119,13 @@ def main() -> int:
         wall = time.perf_counter() - t0
     steps = eng.stats["decode_steps"] - steps0
     kernels = {}
-    n_kernels = 0
+    n_kernels = n_paged = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.name] = (kernels.get(ev.name, 0.0)
                                 + ev.device_time_total)
             n_kernels += 1
+            n_paged += "paged_attention" in ev.name
     busy_s = sum(kernels.values()) * 1e-6
     paged_s = sum(v for k, v in kernels.items()
                   if "paged_attention" in k) * 1e-6
@@ -100,19 +133,29 @@ def main() -> int:
     summary = {
         "card": card, "decode_steps": steps,
         "ms_per_step": wall / steps * 1e3,
+        "unprofiled_ms_per_step": plain_wall / plain_steps * 1e3,
+        "unprofiled_tokens_per_s": N_SLOTS * plain_steps / plain_wall,
         "device_busy_share": busy_s / wall,
         "device_idle_share": 1.0 - busy_s / wall,
         "paged_attention_share_of_busy": paged_s / busy_s if busy_s else 0,
         "kernels_per_step": n_kernels / steps,
-        "paged_attention_launches": paged_attention.launches - launches0,
+        "paged_attention_calls": paged_attention.launches - launches0,
+        "paged_attention_kernels": n_paged,
+        "host_syncs_per_step": syncs,
         "top_kernels_ms": [(k[:80], v * 1e-3) for k, v in top],
     }
     print(f"[{card}] {steps} decode steps of {N_SLOTS} slots in "
-          f"{wall:.3f} s: {summary['ms_per_step']:.2f} ms per step, device "
+          f"{wall:.3f} s: {summary['ms_per_step']:.2f} ms per step "
+          f"({summary['unprofiled_ms_per_step']:.2f} ms, "
+          f"{summary['unprofiled_tokens_per_s']:.1f} tokens/s unprofiled), "
+          f"device "
           f"busy {summary['device_busy_share']:.1%} (idle "
           f"{summary['device_idle_share']:.1%}), paged attention "
           f"{summary['paged_attention_share_of_busy']:.1%} of busy, "
-          f"{summary['kernels_per_step']:.0f} kernels per step")
+          f"{summary['kernels_per_step']:.0f} kernels per step, "
+          f"{syncs:.3f} host syncs per step; paged_attention wrapper calls "
+          f"{summary['paged_attention_calls']} (each launches 2 CUDA "
+          f"kernels: {n_paged} paged_attention kernels profiled)")
     for name, ms in summary["top_kernels_ms"]:
         print(f"  {ms:9.3f} ms  {name}")
     print(json.dumps(summary))

@@ -181,3 +181,38 @@ def test_block_pool_movers_write_in_place():
     assert pool.deref(b) and pool.free_blocks == 4
     with pytest.raises(AssertionError, match="free block"):
         pool.deref(b)
+
+
+def test_no_table_ever_maps_the_scratch_block(tmp_path, monkeypatch):
+    """The pool holds ``kv_blocks + 1`` blocks; the last is the scratch
+    block the fixed-shape K/V scatters send dropped rows to. Across
+    admissions, slides, evictions and idle slots no device table (the
+    decode rounds' nor an admission's) maps it, the pool never hands it
+    out, and users still see ``kv_blocks`` blocks."""
+    eng = TEngine(restore_model(_zip(tmp_path, "flagship"), device="cpu"),
+                  seed=0, **GEOMETRY)
+    scratch = eng.kv_blocks
+    seen = []
+    rows, scatter = eng._paged_rnn_rows, eng._scatter_row
+
+    def record_rows(tabs):
+        rnn = rows(tabs)
+        seen.append(next(iter(rnn.values()))["table"].numpy().copy())
+        return rnn
+
+    def record_scatter(rnn1, table_row, length):
+        seen.append(np.asarray(table_row).copy())
+        return scatter(rnn1, table_row, length)
+
+    monkeypatch.setattr(eng, "_paged_rnn_rows", record_rows)
+    monkeypatch.setattr(eng, "_scatter_row", record_scatter)
+    res = _serve(eng, TRequest, _prompts())
+    assert all(r.finish_reason == "length" for r in res)
+    assert len(seen) > len(WORKLOAD)
+    assert all(scratch not in tab for tab in seen)
+    assert any((tab == -1).any() for tab in seen)   # idle rows were there
+    for st in eng._pool.values():
+        assert st["pk"].shape[0] == st["pv"].shape[0] == eng.kv_blocks + 1
+        assert st["scratch"] == scratch
+    assert eng.block_pool.n_blocks == eng.kv_blocks
+    assert eng.stats["blocks_free"] == eng.kv_blocks

@@ -138,6 +138,39 @@ def test_auto_threshold_and_kernel_shapes():
     assert 512 <= tattn.FLASH_MIN_T <= 16384
 
 
+def _on_card(t, dtype, dh=128):
+    """A stand-in for a CUDA q of shape [1, 2, t, dh]: what the
+    dispatch reads (device, shape, dtype) without a card."""
+    import types
+
+    return types.SimpleNamespace(device=torch.device("cuda"),
+                                 shape=(1, 2, t, dh), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_auto_dispatch_takes_the_one_threshold_for_each_dtype(dtype):
+    """Auto mode takes K1 on the card from :data:`FLASH_MIN_T` on, for
+    bf16 and f32 alike (one threshold: the f32 sweep supports the bf16
+    value), dense below it; an explicit True takes K1 at any length."""
+    at = tattn.FLASH_MIN_T
+    assert _should_use_flash(None, _on_card(at, dtype), None) is True
+    assert _should_use_flash(None, _on_card(at - 1, dtype), None) is False
+    assert _should_use_flash(None, _on_card(4 * at, dtype), None) is True
+    assert _should_use_flash(True, _on_card(1, dtype), None) is True
+    assert _should_use_flash(False, _on_card(4 * at, dtype), None) is False
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_auto_dispatch_refuses_what_the_kernel_does_not_take(dtype):
+    t = tattn.FLASH_MIN_T
+    mask = torch.ones(1, t)
+    assert _should_use_flash(None, _on_card(t, dtype), mask) is False
+    assert _should_use_flash(None, _on_card(t, dtype, 32), None) is False
+    assert _should_use_flash(None, _on_card(t, torch.float16), None) is False
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        _should_use_flash(True, _on_card(t, dtype, 32), None)
+
+
 def test_attend_core_routes_through_dispatch(monkeypatch):
     """With the dispatch patched to K1, the layer's training forward
     goes through :func:`flash_attention` (its plain version on CPU),
