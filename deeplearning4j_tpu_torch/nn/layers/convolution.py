@@ -6,8 +6,10 @@ the JAX package: activations [N, C, H, W], kernels [O, I, kH, kW]
 
 ``ConvolutionImpl`` dispatches by shape before any launch: a
 single-input-channel, stride-1 conv whose taps and padded image K3
-takes goes to :func:`conv_taps` (the CUDA kernel ``csrc/conv_taps.cu``
-on the card, :func:`conv_taps_reference` on the CPU); every other conv
+takes goes to :func:`conv_taps` (a CUDA kernel of ``csrc/conv_taps.cu``
+on the card, chosen by dtype and shape: the tensor-core kernel for bf16
+x with bf16 W, the CUDA-core kernel for the rest;
+:func:`conv_taps_reference` on the CPU); every other conv
 (LeNet's conv2, 20 -> 50) goes to ``torch.nn.functional.conv2d``, as the
 JAX package leaves every conv to XLA. ``SubsamplingImpl`` keeps
 ``lax.reduce_window``'s padding semantics: MAX pads with -inf, SUM and
@@ -62,6 +64,45 @@ def conv_taps_smem_bytes(o, h, w, kh, kw, ph, pw) -> int:
     return 4 * ((h + 2 * ph) * (w + 2 * pw) + o * kh * kw)
 
 
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def conv_taps_mma_smem_bytes(o, h, w, kh, kw, ph, pw) -> int:
+    """Shared memory one launch of K3's tensor-core kernel needs, in the
+    kernel's layout (``MmaLayout`` in ``csrc/conv_taps.cu``): two
+    mbarriers and two counters (32 bytes), the fix-up list (512 entries
+    of 4 bytes), W's bf16 bits, a ring of 2 landed images (each at x's
+    padded image stride), the zero-padded image when padding > 0, a zero
+    region as large as the padded image after each image buffer that is
+    read, and 2 bf16 output buffers [O, Ho*Wo]. The one formula for it:
+    the wrapper routes a shape that needs more than a block has to the
+    CUDA-core kernel, and passes this size to the launch, which refuses
+    less than the layout takes."""
+    hp, wp = h + 2 * ph, w + 2 * pw
+    npix = (hp - kh + 1) * (wp - kw + 1)
+    zeros = _round8(hp * wp)
+    padded = bool(ph or pw)
+    land = _round8(h * w) + (0 if padded else zeros)
+    pimg = 2 * zeros if padded else 0
+    return 32 + 4 * 512 + 2 * (_round8(o * kh * kw) + 2 * land + pimg
+                               + 2 * _round8(o * npix))
+
+
+def conv_taps_route(x, w, padding) -> str:
+    """Which kernel :func:`conv_taps` launches for CUDA operands it
+    takes: ``"mma"`` (the tensor-core kernel) for bf16 x with bf16 w at
+    a shape whose staging fits one block's shared memory, else
+    ``"ffma"`` (the CUDA-core kernel, w upcast to float32)."""
+    if x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+        o, kh, kw = w.shape
+        smem = conv_taps_mma_smem_bytes(o, x.shape[2], x.shape[3], kh, kw,
+                                        *padding)
+        if smem <= cuda_build.SMEM_PER_BLOCK:
+            return "mma"
+    return "ffma"
+
+
 def _conv_taps_problem(x, w, padding):
     """Why K3 does not take these operands, or None when it does."""
     if x.ndim != 4 or x.shape[1] != 1:
@@ -101,21 +142,30 @@ def takes_conv_taps(x, w, padding) -> bool:
 def _conv_taps_lib():
     """The conv-taps library, built at first use, with its functions'
     ctypes signatures set."""
-    lib = cuda_build.load("conv_taps")
+    return bind_conv_taps(cuda_build.load("conv_taps"))
+
+
+def bind_conv_taps(lib):
+    """Set the ctypes signatures of a loaded conv-taps library's
+    functions; returns the library."""
     lib.dl4j_conv_taps.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
         + [ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p])
     lib.dl4j_conv_taps.restype = ctypes.c_int
+    lib.dl4j_conv_taps_mma.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+        + [ctypes.c_size_t, ctypes.c_void_p])
+    lib.dl4j_conv_taps_mma.restype = ctypes.c_int
     lib.dl4j_conv_taps_error_string.argtypes = [ctypes.c_int]
     lib.dl4j_conv_taps_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _conv_taps_launch(x, w, padding, guarded=False):
-    """K3 on contiguous CUDA x and f32 w; counted in
-    ``conv_taps.launches``. ``guarded`` runs the any-size path even
-    where the source has a fixed-size one (5x5), so the two can be
-    timed against each other."""
+    """K3's CUDA-core kernel on contiguous CUDA x and f32 w;
+    counted in ``conv_taps.launches``. ``guarded`` runs the any-size
+    path even where the source has a fixed-size one (5x5), so the two
+    can be timed against each other."""
     b, _, h, wd = x.shape
     o, kh, kw = w.shape
     ph, pw = padding
@@ -127,27 +177,72 @@ def _conv_taps_launch(x, w, padding, guarded=False):
     err = lib.dl4j_conv_taps(x.data_ptr(), w.data_ptr(), out.data_ptr(), b,
                              o, h, wd, kh, kw, ph, pw, _DTYPE_CODES[x.dtype],
                              smem, int(guarded), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"conv_taps kernel launch failed: CUDA error {err} "
-            f"({lib.dl4j_conv_taps_error_string(err).decode()})")
+    _raise_on(lib, err, "conv_taps")
     conv_taps.launches += 1
     return out
 
 
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {err} "
+            f"({lib.dl4j_conv_taps_error_string(err).decode()})")
+
+
+def _conv_taps_mma_launch(x, w, padding):
+    """K3's tensor-core kernel on contiguous CUDA bf16 x and bf16 w;
+    counted in ``conv_taps.launches`` and ``conv_taps.mma_launches``.
+    The kernel lands each image with one bulk copy, which needs 16-byte
+    aligned images: where H*W is not a multiple of 8 (or x is not
+    16-byte aligned) x is copied to an image stride that is, zero-
+    padded."""
+    b, _, h, wd = x.shape
+    o, kh, kw = w.shape
+    ph, pw = padding
+    hw = h * wd
+    stride = _round8(hw)
+    xs = x.reshape(b, hw)
+    if stride != hw:
+        xs = F.pad(xs, (0, stride - hw))
+    elif xs.data_ptr() % 16:
+        xs = xs.clone()
+    lib = _conv_taps_lib()
+    out = torch.empty((b, o, h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1),
+                      dtype=x.dtype, device=x.device)
+    smem = conv_taps_mma_smem_bytes(o, h, wd, kh, kw, ph, pw)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.dl4j_conv_taps_mma(xs.data_ptr(), w.data_ptr(),
+                                 out.data_ptr(), b, o, h, wd, kh, kw, ph, pw,
+                                 stride, smem, stream)
+    _raise_on(lib, err, "conv_taps (tensor cores)")
+    conv_taps.launches += 1
+    conv_taps.mma_launches += 1
+    return out
+
+
+def _conv_taps_kernel(x, w, padding):
+    """K3 on the card: the kernel :func:`conv_taps_route` names, with w
+    in its own dtype for the tensor-core kernel and upcast to float32
+    for the CUDA-core one."""
+    if conv_taps_route(x, w, padding) == "mma":
+        return _conv_taps_mma_launch(x.contiguous(), w.contiguous(), padding)
+    return _conv_taps_launch(x.contiguous(), w.float().contiguous(), padding)
+
+
 class _ConvTaps(torch.autograd.Function):
-    """K3 under autograd. The forward is the kernel on the card and the
-    plain version on the CPU; the backward is torch ops on both, as the
-    JAX package leaves conv1's gradient to XLA: dW by
-    ``torch.nn.grad.conv2d_weight``, dX by ``conv2d_input`` only when
-    x needs it (LeNet's conv1 input does not)."""
+    """K3 under autograd. The forward is a kernel on the card (by
+    :func:`conv_taps_route`) and the plain version on the CPU; the
+    backward is torch ops on both, as the JAX package leaves conv1's
+    gradient to XLA: dW by ``torch.nn.grad.conv2d_weight``, in w's own
+    dtype, dX by ``conv2d_input`` only when x needs it (LeNet's conv1
+    input does not)."""
 
     @staticmethod
     def forward(ctx, x, w, ph, pw):
         if x.device.type == "cpu":
             out = conv_taps_reference(x, w, (ph, pw))
         else:
-            out = _conv_taps_launch(x.contiguous(), w.contiguous(), (ph, pw))
+            out = _conv_taps_kernel(x, w, (ph, pw))
         ctx.save_for_backward(x, w)
         ctx.padding = (ph, pw)
         return out
@@ -172,21 +267,26 @@ def conv_taps(x, w, padding=(0, 0)):
     ``csrc/conv_taps.cu`` for CUDA tensors, :func:`conv_taps_reference`
     for CPU tensors; differentiable in x and w on both.
 
-    x [B, 1, H, W] in float32 or bfloat16; w [O, kh, kw] (upcast to
-    float32 here), kh and kw <= 7, the padded image and the weights
-    within one block's shared memory; anything else raises. Output
-    [B, O, Ho, Wo] in x's dtype, allocated per call; kernel launches go
-    on the current stream and count in ``conv_taps.launches``."""
+    x [B, 1, H, W] in float32 or bfloat16; w [O, kh, kw] in a floating
+    dtype, kept (so a bf16 w reaches the tensor-core kernel and gets a
+    bf16 gradient), kh and kw <= 7, the padded image and the weights
+    within one block's shared memory for the CUDA-core kernel; anything
+    else raises. Output [B, O, Ho, Wo] in x's dtype, allocated per call;
+    kernel launches go on the current stream and count in
+    ``conv_taps.launches``, those of the tensor-core kernel also in
+    ``conv_taps.mma_launches``. No fallback: a kernel that fails to
+    build or launch raises."""
     padding = tuple(int(p) for p in padding)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv_taps: unsupported device {x.device}")
     problem = _conv_taps_problem(x, w, padding)
     if problem is not None:
         raise ValueError(f"conv_taps: {problem}")
-    return _ConvTaps.apply(x, w.float(), *padding)
+    return _ConvTaps.apply(x, w, *padding)
 
 
 conv_taps.launches = 0
+conv_taps.mma_launches = 0
 
 
 class ConvolutionImpl(LayerImplBase):

@@ -10,9 +10,13 @@ and prints what ``ptxas`` says of each kernel (registers, shared memory,
 spills, and any warning such as a serialised ``wgmma``); then it builds
 the library as ``cuda_build`` does and counts, in each kernel's SASS
 (``cuobjdump -sass``), the instructions that show how it runs: HGMMA
-(wgmma), HMMA (mma.sync), UTMALDG (TMA tile loads), SYNCS (mbarrier
-operations), FFMA, and STL/LDL (local-memory stores and loads: register
-spills). Ends with one JSON line of the counts. Imports nothing of JAX.
+(wgmma), HMMA (mma.sync), UTMALDG (TMA tile loads), UBLKCP (bulk
+copies between global and shared memory), SYNCS (mbarrier operations),
+FFMA, LDS/STS (shared-memory loads and stores), ATOMS (shared-memory
+atomics), and STL/LDL (local-memory stores and loads: register spills).
+The counts are of the SASS as compiled (a loop's body once), not of
+instructions executed. Ends with one JSON line of the counts. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ if ROOT not in sys.path:
 
 from deeplearning4j_tpu_torch import cuda_build  # noqa: E402
 
-OPCODES = ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "FFMA", "STL", "LDL")
+OPCODES = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "SYNCS", "FFMA", "LDS",
+           "STS", "ATOMS", "STL", "LDL")
 
 
 def ptxas_report(name: str) -> list:

@@ -11,9 +11,16 @@ outputs must be bit-identical. Then the plain version against
 ``F.conv2d`` at float32 (1e-5: only the summation order differs), the
 autograd gradients against ``F.conv2d``'s (1e-5), the wrapper's refusals,
 the shared-memory size it launches with, and ``ConvolutionImpl``'s
-dispatch. The CUDA kernel itself runs only on
-the card (``chip_smoke.py``)."""
+dispatch. For the two CUDA kernels (the tensor-core one for bf16 x with
+bf16 W, the CUDA-core one for the rest): which one the card-side
+dispatch launches, with fake libraries; the tensor-core kernel's
+shared-memory formula against the source's layout and the card's
+limits; each ctypes binding against its C prototype; and, in a model of
+the tensor cores' summation order, the ordered fix-up that holds the
+kernel to the plain version's bf16 rounding. The CUDA kernels themselves
+run only on the card (``chip_smoke.py``)."""
 
+import ctypes
 import os
 import textwrap
 
@@ -144,8 +151,8 @@ def test_autograd_matches_conv2d_grads(case):
 
 def test_weight_grad_alone_when_x_needs_none():
     """LeNet's conv1: x needs no gradient, so the backward computes dW
-    only, and a bf16 W gets a bf16 dW (the wrapper's upcast is
-    autograd's to undo)."""
+    only, and a bf16 W gets a bf16 dW (the backward casts dW to W's own
+    dtype)."""
     x, w = _operands(np.random.default_rng(3), 2, o=4, h=9, w=9)
     xt = torch.as_tensor(x).bfloat16()
     wt = torch.as_tensor(w).bfloat16().requires_grad_(True)
@@ -273,3 +280,269 @@ def test_convolution_dispatch(monkeypatch, n_in, stride, padding, taps):
                     padding=padding)
     assert len(calls) == int(taps)
     np.testing.assert_allclose(out.numpy(), want.numpy(), **F32_TOL)
+
+
+# -- the two CUDA kernels: dispatch, layout, bindings, rounding ---------
+
+def _fake_kernels(monkeypatch):
+    """Fake conv-taps library recording which entry each launch calls
+    and with what; the launchers run on CPU tensors through it."""
+    calls = []
+
+    class FakeLib:
+        def dl4j_conv_taps(self, *args):
+            calls.append(("ffma", args))
+            return 0
+
+        def dl4j_conv_taps_mma(self, *args):
+            calls.append(("mma", args))
+            return 0
+
+    class FakeStream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(tconv, "_conv_taps_lib", lambda: FakeLib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: FakeStream())
+    monkeypatch.setattr(conv_taps, "launches", 0)
+    monkeypatch.setattr(conv_taps, "mma_launches", 0)
+    return calls
+
+
+ROUTES = {
+    "bf16 x, bf16 W": ((3, 1, 28, 28), (20, 5, 5), torch.bfloat16,
+                       torch.bfloat16, (0, 0), "mma"),
+    "bf16 x, bf16 W, 7x7 pad 3": ((2, 1, 13, 11), (6, 7, 7),
+                                  torch.bfloat16, torch.bfloat16, (3, 3),
+                                  "mma"),
+    "f32 x, f32 W": ((3, 1, 28, 28), (20, 5, 5), torch.float32,
+                     torch.float32, (0, 0), "ffma"),
+    "bf16 x, f32 W": ((3, 1, 28, 28), (20, 5, 5), torch.bfloat16,
+                      torch.float32, (0, 0), "ffma"),
+    "f32 x, bf16 W": ((3, 1, 28, 28), (20, 5, 5), torch.float32,
+                      torch.bfloat16, (0, 0), "ffma"),
+    # two output buffers of 128 x 576 bf16: past one block
+    "bf16, staging past shared memory": ((2, 1, 28, 28), (128, 5, 5),
+                                         torch.bfloat16, torch.bfloat16,
+                                         (0, 0), "ffma"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_card_dispatch_picks_the_kernel_by_dtype_and_shape(monkeypatch,
+                                                           case):
+    """bf16 x with bf16 W at a shape whose staging fits goes to the
+    tensor-core entry with W as it is; anything else to the CUDA-core entry
+    with W upcast to float32. Decided before any launch, counted per
+    route."""
+    xs, ws, xd, wd, padding, route = ROUTES[case]
+    calls = _fake_kernels(monkeypatch)
+    x, w = torch.zeros(xs, dtype=xd), torch.zeros(ws, dtype=wd)
+    assert tconv.takes_conv_taps(x, w, padding)
+    assert tconv.conv_taps_route(x, w, padding) == route
+    out = tconv._conv_taps_kernel(x, w, padding)
+    (b, _, h, wd_), (o, kh, kw), (ph, pw) = xs, ws, padding
+    assert out.shape == (b, o, h + 2 * ph - kh + 1, wd_ + 2 * pw - kw + 1)
+    assert out.dtype == xd
+    ((entry, args),) = calls
+    assert entry == route
+    assert conv_taps.launches == 1
+    assert conv_taps.mma_launches == int(route == "mma")
+    if route == "ffma":
+        assert args[11] == tconv._DTYPE_CODES[xd]
+        assert args[12] == tconv.conv_taps_smem_bytes(o, h, wd_, kh, kw, ph,
+                                                      pw)
+        return
+    assert args[3:11] == (b, o, h, wd_, kh, kw, ph, pw)
+    stride = -(-h * wd_ // 8) * 8       # images 16-byte aligned
+    assert args[11] == stride
+    assert args[12] == tconv.conv_taps_mma_smem_bytes(o, h, wd_, kh, kw, ph,
+                                                      pw)
+    assert len(args) == 14
+
+
+def _mma_layout_bytes(src, o, h, w, kh, kw, ph, pw):
+    """``MmaLayout::bytes`` of ``csrc/conv_taps.cu``, recomputed from
+    the constants the source declares."""
+    import re
+
+    const = {n: int(v) for n, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+    def r8(n):
+        return (n + 7) // 8 * 8
+
+    hp, wp = h + 2 * ph, w + 2 * pw
+    npix = (hp - kh + 1) * (wp - kw + 1)
+    zeros = r8(hp * wp)
+    land = r8(h * w) + (0 if (ph or pw) else zeros)
+    pimg = 2 * zeros if (ph or pw) else 0
+    land_off = 32 + 4 * const["kFixCap"] + 2 * r8(o * kh * kw)
+    pimg_off = land_off + 2 * const["kStages"] * land
+    return pimg_off + 2 * pimg + 2 * const["kOutBuffers"] * r8(o * npix)
+
+
+@pytest.mark.parametrize("o,h,w,kh,kw,ph,pw", [
+    (20, 28, 28, 5, 5, 0, 0), (20, 28, 28, 5, 5, 2, 2),
+    (6, 13, 11, 7, 4, 3, 1), (64, 27, 27, 1, 1, 0, 0),
+    (40, 10, 9, 3, 3, 1, 1)])
+def test_mma_shared_memory_formula_matches_the_kernels_layout(o, h, w, kh,
+                                                              kw, ph, pw):
+    """The wrapper's one formula is the kernel's layout, built from the
+    source's own constants; at LeNet's shape it fits four blocks on an
+    SM (228 KB, 1 KB reserved a block), the occupancy the kernel is
+    tuned for, and a block's limit always."""
+    src = (cuda_build.CSRC / "conv_taps.cu").read_text()
+    want = _mma_layout_bytes(src, o, h, w, kh, kw, ph, pw)
+    assert tconv.conv_taps_mma_smem_bytes(o, h, w, kh, kw, ph, pw) == want
+    assert want % 16 == 0 and want <= cuda_build.SMEM_PER_BLOCK
+    if (o, h, w, kh, kw, ph, pw) == (20, 28, 28, 5, 5, 0, 0):
+        assert 4 * (want + 1024) <= 228 * 1024
+
+
+def _c_prototypes():
+    """{name: [kind, ...]} of the ``extern "C"`` functions of
+    ``csrc/conv_taps.cu``: each parameter's kind is "pointer", "int",
+    "float" or "size_t"."""
+    import re
+
+    src = (cuda_build.CSRC / "conv_taps.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    protos = {}
+    for name, params in re.findall(r"\b(dl4j_\w+)\(([^)]*)\)\s*\{", block):
+        protos[name] = ["pointer" if "*" in p else p.split()[0]
+                        for p in params.split(",")]
+    return protos
+
+
+_CTYPE_KINDS = {"c_void_p": "pointer", "c_int": "int", "c_float": "float",
+                ctypes.c_size_t.__name__: "size_t"}
+
+
+@pytest.mark.parametrize("name", ["dl4j_conv_taps", "dl4j_conv_taps_mma",
+                                  "dl4j_conv_taps_error_string"])
+def test_ctypes_binding_matches_the_c_prototypes(monkeypatch, name):
+    """``_conv_taps_lib`` declares each C function's parameters in the
+    count and kinds the source gives them (a pointer or a size passed
+    as a ctypes int would be cut to 32 bits, a float passed as an int
+    would be read as garbage)."""
+    import types
+
+    protos = _c_prototypes()
+    assert set(protos) == {"dl4j_conv_taps", "dl4j_conv_taps_mma",
+                           "dl4j_conv_taps_error_string"}
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                    for n in protos})
+    tconv._conv_taps_lib.cache_clear()
+    monkeypatch.setattr(cuda_build, "load", lambda lib: fake)
+    try:
+        lib = tconv._conv_taps_lib()
+    finally:
+        tconv._conv_taps_lib.cache_clear()
+    declared = [_CTYPE_KINDS[t.__name__] for t in getattr(lib, name).argtypes]
+    assert declared == protos[name]
+
+
+def test_bf16_weight_forward_and_grads_equal_the_f32_upcast():
+    """``conv_taps`` keeps a bf16 W (so the card can route it to the
+    tensor cores) and, on the CPU, computes what a call with the f32
+    upcast computes: the same output, and the same dx and dW, each
+    in its own tensor's dtype."""
+    rng = np.random.default_rng(4)
+    x, w = _operands(rng, 3, o=6, h=12, w=10)
+    g = torch.as_tensor(rng.normal(size=(3, 6, 10, 8)).astype(np.float32))
+    res = {}
+    for name, wdt in (("bf16", torch.bfloat16), ("upcast", torch.float32)):
+        xt = torch.as_tensor(x).bfloat16().requires_grad_(True)
+        wb = torch.as_tensor(w).bfloat16().requires_grad_(True)
+        wt = wb if wdt == torch.bfloat16 else wb.float()
+        out = conv_taps(xt, wt, (1, 1))
+        dx, dw = torch.autograd.grad(out, (xt, wb), g.bfloat16())
+        res[name] = (out, dx, dw)
+    for got, want in zip(res["bf16"], res["upcast"]):
+        assert got.dtype == want.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.detach().float().numpy(),
+                                      want.detach().float().numpy())
+
+
+def test_convolution_impl_hands_the_kernel_a_bf16_weight(monkeypatch):
+    """Under ``compute_dtype="bfloat16"`` the net casts W (an f32
+    master) to bf16 and ``ConvolutionImpl`` passes it on as it is, in
+    training and in inference, so the card's LeNet path reaches the
+    tensor-core kernel; the gradient still reaches the f32 master."""
+    from deeplearning4j_tpu_torch.models.zoo import lenet5
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    seen = []
+    real = tconv.conv_taps
+
+    def spy(x, w, padding=(0, 0)):
+        seen.append((x.dtype, w.dtype))
+        return real(x, w, padding)
+
+    monkeypatch.setattr(tconv, "conv_taps", spy)
+    conf = lenet5(lr=0.002)
+    for c in conf.confs:
+        c.compute_dtype = "bfloat16"
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    w0 = net.param_table()["0_W"].clone()
+    assert w0.dtype == torch.float32
+    rng = np.random.default_rng(5)
+    feats = rng.random((8, 1, 28, 28)).astype(np.float32)
+    labels = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    net.fit(feats, labels)
+    net.output(feats)
+    assert seen == [(torch.bfloat16, torch.bfloat16)] * 2
+    assert not torch.equal(net.param_table()["0_W"], w0)
+
+
+def _ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of the larger magnitude (as
+    ``chip_smoke.py`` reads K3's bf16 limit)."""
+    g, r = got.float(), want.float()
+    mag = torch.maximum(g.abs(), r.abs()).clamp_min(2.0 ** -126)
+    return float(((g - r).abs()
+                  / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _fix_rel() -> float:
+    """The tensor-core kernel's fix-up threshold, ``kFixRel``, as
+    ``csrc/conv_taps.cu`` defines it by default."""
+    import re
+
+    src = (cuda_build.CSRC / "conv_taps.cu").read_text()
+    (lit,) = re.findall(r"#define DL4J_CONV_TAPS_FIX_REL (\S+)f\n", src)
+    return float.fromhex(lit)
+
+
+def test_reordered_sums_miss_the_ulp_limit_and_the_fix_up_restores_it():
+    """Why the tensor-core kernel recomputes some outputs in order. A
+    model of its sums (each k-step of 16 taps summed exactly, then added
+    in f32, as an mma may) moves a few near-cancelling outputs of
+    ``chip_smoke.py``'s data (rand x, 0.1 randn W, bf16) by more than
+    the 1 bf16 ulp ``chip_smoke.py`` allows from the plain version.
+    Recomputing, in the plain version's order, each output with |out| <
+    kFixRel * sum |w x| brings every output within one ulp, at well
+    under 1% of the outputs recomputed."""
+    fix_rel = _fix_rel()
+    assert fix_rel == 2.0 ** -10
+    worst, fixed_worst, shares = 0.0, 0.0, []
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        x = torch.as_tensor(rng.random((256, 1, 28, 28),
+                                       dtype=np.float32)).bfloat16()
+        w = torch.as_tensor(rng.normal(size=(20, 5, 5)).astype(np.float32)
+                            * 0.1).bfloat16()
+        ref = conv_taps_reference(x, w)
+        xd, wd = x[:, 0].double(), w.double()
+        terms = torch.stack([wd[None, :, dy, dx, None, None]
+                             * xd[:, None, dy:dy + 24, dx:dx + 24]
+                             for dy in range(5) for dx in range(5)])
+        mma = terms[:16].sum(0).float() + terms[16:].sum(0).float()
+        flag = mma.abs() < fix_rel * terms.abs().sum(0)
+        fixed = torch.where(flag, ref.float(), mma)
+        worst = max(worst, _ulps(mma.bfloat16(), ref))
+        fixed_worst = max(fixed_worst, _ulps(fixed.bfloat16(), ref))
+        shares.append(float(flag.double().mean()))
+    assert worst > 1.0
+    assert fixed_worst <= 1.0
+    assert max(shares) < 0.01
