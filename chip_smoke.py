@@ -20,8 +20,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    blocks per SM), K1 (flash
    attention, forward and dQ/dK/dV, at training
    A's T=2048, at training B's T=32768 against a plain version chunked
-   over query rows, and at edge cases down to T=1; planted faults must
-   fail its limits; a rerun must give the same bits), plus the bf16 and
+   over query rows, and at edge cases down to T=1; its f32 split pass
+   bit for bit against its plain version; planted faults must fail its
+   bf16 and f32 limits; a rerun must give the same bits; SDPA's own f32
+   readings as a report), plus the bf16 and
    f32 sweeps behind K1's auto-dispatch threshold ``FLASH_MIN_T`` (one
    for both), and K3
    (``conv_taps``, LeNet's conv1: its tensor-core kernel for bf16 x with
@@ -63,7 +65,11 @@ JAX or of the JAX package. Phases, each fatal on failure:
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
 
-The line before the last is ``{"kernels": [...]}``; the last is
+The line before the last is ``{"kernels": [...]}`` (K1's bf16 entries
+at training B's shape, its f32 entries ``flash_attention_f32`` and
+``flash_attention_f32_bwd`` at training A's, their launches from phase
+A's f32 run; every f32 operations bound at the f32-accurate rate,
+``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when any phase fails or no card is present.
 """
@@ -85,10 +91,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s,
-# float32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
+# float32 FLOP/s outside the tensor cores, bf16 and TF32 tensor-core
+# FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
+# the cheapest f32-accurate route the card has, for every f32 operations
+# bound: split TF32 (three TF32 products for each f32 one), or the CUDA
+# cores if they were faster
+F32_ACCURATE_FLOPS = max(F32_FLOPS, TF32_FLOPS / 3)
 
 # the serving path's shapes: bench.py's serving configuration
 VOCAB, WIDTH, N_LAYERS, N_HEADS, WINDOW = 64, 1024, 8, 8, 2048
@@ -260,7 +272,7 @@ def _paged_bound(ops, tm):
         a.numel() * a.element_size() for a in ops[3:])
     flops = 4.0 * n_blocks * bt * h * t * dh
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / F32_ACCURATE_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -527,9 +539,10 @@ FLASH_SWEEP_T_F32 = (512, 1024, 2048, 4096, 8192, 16384, 32768)
 FLASH_REF_ROWS = 512
 # planted faults, each a drop(qpos, kpos) of keys a faulty kernel would
 # leave out, confined to the late half of the rows: the check must fail
-# each of them (the bf16 kernels step over keys in tiles of 128 in the
-# forward and 64 in dQ, over queries in tiles of 64 in dK/dV; the f32
-# kernels in tiles of 64 and 32)
+# each of them at both dtypes' limits (the bf16 kernels step over keys
+# in tiles of 128 in the forward and 64 in dQ, over queries in tiles of
+# 64 in dK/dV; the f32 kernels over keys in tiles of 64 in the forward
+# and 32 in dQ, over queries in tiles of 32 in dK/dV)
 FLASH_FAULTS = {
     "diagonal key dropped in rows >= T/2":
         lambda t: lambda qp, kp: (qp >= t // 2) & (kp == qp),
@@ -556,15 +569,17 @@ def _flash_flops(t, dh, causal):
     return f / 2 if causal else f
 
 
-def _flash_bound(t, dh, dtype, causal, backward):
+def _flash_bound(t, dh, dtype, causal, backward, peak=None):
     """Least time: each operand read once and each output written once
     (fwd: q, k, v -> o, lse; bwd: q, k, v, o, dO, lse -> dq, dk, dv)
-    over HBM bytes/s, or the flops over the dtype's peak."""
+    over HBM bytes/s, or the flops over the dtype's peak (f32: the f32-
+    accurate rate; ``peak`` overrides it)."""
     el = FLASH_B * FLASH_H * t * dh * (2 if dtype == torch.bfloat16 else 4)
     rows = FLASH_B * FLASH_H * t * 4
     nbytes = (8 * el + 2 * rows) if backward else (4 * el + rows)
     flops = _flash_flops(t, dh, causal) * (2.5 if backward else 1.0)
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    if peak is None:
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_ACCURATE_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -589,8 +604,16 @@ def _grad_fn(fn, q, k, v, do, causal):
 
 
 def _sdpa(q, k, v, causal):
-    return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal)
+    """SDPA as the yardstick; at f32 pinned to its memory-efficient
+    backend (SDPBackend.EFFICIENT_ATTENTION), at bf16 left to PyTorch's
+    choice."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    pin = (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)
+           if q.dtype == torch.float32 else contextlib.nullcontext())
+    with pin:
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
 
 
 def _flash_reference_chunked(q, k, v, do, causal, drop=None,
@@ -776,7 +799,7 @@ def flash_long_case(gen, dev) -> tuple:
 def flash_fault_readings(q, k, v, do, ref, ref_grads) -> None:
     """The chunked plain version held against the whole one (f32, so
     at the f32 limits), then each planted fault's readings against the
-    bf16 limits: the check must fail every fault."""
+    bf16 and the f32 limits: the check must fail every fault at both."""
     t = q.shape[2]
     chunked, *c_grads = _flash_reference_chunked(q, k, v, do, True)
     _flash_hold(f"chunked plain vs plain T={t}, float32", torch.float32,
@@ -786,11 +809,13 @@ def flash_fault_readings(q, k, v, do, ref, ref_grads) -> None:
                                                    drop=drop(t))
         errs = _flash_errors(f_out, f_grads, ref, ref_grads)
         _flash_log(f"planted fault T={t}: {fault}", errs, torch.bfloat16)
-        failed = _flash_failed(errs, torch.bfloat16)
-        log(f"planted fault T={t}: {fault}: caught by {failed}")
-        if not failed:
-            raise SystemExit(f"chip_smoke: the bf16 limits pass a planted "
-                             f"fault ({fault}): {errs}")
+        for dtype in (torch.bfloat16, torch.float32):
+            failed = _flash_failed(errs, dtype)
+            log(f"planted fault T={t}: {fault}: caught at "
+                f"{str(dtype).split('.')[-1]} by {failed}")
+            if not failed:
+                raise SystemExit(f"chip_smoke: the {dtype} limits pass a "
+                                 f"planted fault ({fault}): {errs}")
 
 
 def _dense_grad_fn(q, k, v, do):
@@ -850,11 +875,41 @@ def flash_sweep(gen, dev) -> None:
                 for t, a, b, m, ok in sweep))
 
 
+def flash_split_check(gen, dev) -> None:
+    """K1's f32 split pass (``f32_operands``: big and small tf32
+    planes, and those of the transpose in the kernels' row order) held
+    against its plain version bit for bit, at phase A's shape and at
+    ragged T. Fatal on any difference."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        f32_operands,
+        f32_operands_reference,
+    )
+
+    same = {}
+    modes = ((True, False), (False, True), (True, True), (True, False))
+    for t, dh in ((PARITY_T, 128), (77, 128), (1, 64), (2049, 64)):
+        xs = [torch.randn((FLASH_B, FLASH_H, t, dh), generator=gen,
+                          device=dev) for _ in modes]
+        ops = [(x, r, c) for x, (r, c) in zip(xs, modes)]
+        # one launch for four operands, as the backward's, and one each
+        for i, got in enumerate(f32_operands(ops)
+                                + [f32_operands([op])[0] for op in ops]):
+            x, r, c = ops[i % len(ops)]
+            same[(t, dh, i)] = torch.equal(
+                got, f32_operands_reference(x, r, c))
+    log(f"flash_attention f32 split pass vs plain, bit for bit (T, dh, "
+        f"operand; 0-3 in one launch, 4-7 one launch each): {same}")
+    if not all(same.values()):
+        raise SystemExit(f"chip_smoke: K1's f32 split pass differs from "
+                         f"its plain version: {same}")
+
+
 def flash_kernel_phase() -> tuple:
     """K1 forward and backward held against the plain version on the
     f32 upcast at phase A's and phase B's shapes and at edge cases;
     planted-fault readings; times; the FLASH_MIN_T sweep. Returns the
-    kernels-line entries (at LONG_T) and K1's fwd + bwd ms there."""
+    kernels-line entries (bf16 at LONG_T, f32 at phase A's T) and K1's
+    fwd + bwd ms at LONG_T."""
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         flash_attention,
         flash_attention_bwd,
@@ -866,6 +921,8 @@ def flash_kernel_phase() -> tuple:
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     before = (flash_attention.launches, flash_attention.bwd_launches)
+    flash_split_check(gen, dev)
+    entries = {}
     cases = [(2048, 128, True), (1000, 128, True), (2049, 128, True),
              (1024, 64, True), (1024, 128, False),
              # shorter than one tile, or ragged against 128
@@ -882,7 +939,7 @@ def flash_kernel_phase() -> tuple:
             name = (f"flash_attention T={t}, dh={dh}, "
                     f"{'causal' if causal else 'full'}, "
                     f"{str(dtype).split('.')[-1]}")
-            _flash_hold(name, dtype, out, grads, ref, ref_grads)
+            errs = _flash_hold(name, dtype, out, grads, ref, ref_grads)
             if t != 2048:
                 continue
             if dtype == torch.float32:
@@ -914,7 +971,27 @@ def flash_kernel_phase() -> tuple:
                 f"{lib_both_ms:.4f} ms; bound fwd {bound:.4f} ms ({by}, "
                 f"{bound / ms:.1%} of it), bwd {bbound:.4f} ms ({bby}, "
                 f"{bbound / bwd_ms:.1%} of it)")
-    entries = flash_long_case(gen, dev)
+            if dtype != torch.float32:
+                continue
+            qr, kr, vr = (a.detach().requires_grad_(True) for a in (q, k, v))
+            s_out = _sdpa(qr, kr, vr, causal)
+            s_grads = torch.autograd.grad(s_out, (qr, kr, vr), do)
+            _flash_log(f"sdpa (EFFICIENT_ATTENTION) T={t}, dh={dh}, float32 "
+                       "(a report, no bar)", _flash_errors(
+                           s_out.detach(), s_grads, ref, ref_grads), dtype)
+            old, _ = _flash_bound(t, dh, dtype, causal, False, F32_FLOPS)
+            bold, _ = _flash_bound(t, dh, dtype, causal, True, F32_FLOPS)
+            log(f"{name}: the bound at the CUDA cores' {F32_FLOPS / 1e12:.0f}"
+                f" TFLOP/s would be fwd {old:.4f} ms ({old / ms:.1%} of it),"
+                f" bwd {bold:.4f} ms ({bold / bwd_ms:.1%} of it)")
+            entries["flash_attention_f32"] = dict(
+                max_abs_err=errs["out"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+            entries["flash_attention_f32_bwd"] = dict(
+                max_abs_err=max(errs["grad"]), ms=bwd_ms,
+                plain_ms=plain_bwd_ms, bound_ms=bbound, bound_by=bby,
+                library_ms=lib_bwd_ms)
+    entries = {**flash_long_case(gen, dev), **entries}
     flash_sweep(gen, dev)
     flash_attention.launches, flash_attention.bwd_launches = before
     src = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
@@ -1007,7 +1084,7 @@ def _conv_bound(b, o, k, hw, pad, dtype):
     el = 2 if dtype == torch.bfloat16 else 4
     nbytes = (b * hw * hw + b * o * ho * ho) * el + o * k * k * 4
     flops = 2.0 * b * o * k * k * ho * ho
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_ACCURATE_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1196,10 +1273,11 @@ def _train(net, batches):
     return losses, walls
 
 
-def training_parity_phase(card: str) -> None:
+def training_parity_phase(card: str) -> dict:
     """Phase A: two flagship nets from the same params, one on K1 and
     one on dense attention, 4 fit steps each at B=2, T=2048; the loss
-    trajectories agree and K1 launched 8 times per step each way."""
+    trajectories agree and K1 launched 8 times per step each way.
+    Returns K1's f32 launches (forward, backward) on this run."""
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         flash_attention,
         paged_attention,
@@ -1207,6 +1285,7 @@ def training_parity_phase(card: str) -> None:
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     batches, _ = _markov_batches(PARITY_STEPS, PARITY_T, sample_seed=1)
+    launches = {}
     for cd in ("float32", "bfloat16"):
         kw = dict(lr=1e-3, warmup_steps=2, total_steps=100)
         k1 = MultiLayerNetwork(_flagship(cd, True, **kw),
@@ -1241,8 +1320,12 @@ def training_parity_phase(card: str) -> None:
                 f"param diff {pdiff}, K1 launches {fwd}/{bwd} (want "
                 f"{want}), dense net's {dense_launches}, paged "
                 f"{paged_attention.launches}")
+        if cd == "float32":
+            launches = {"flash_attention_f32": fwd,
+                        "flash_attention_f32_bwd": bwd}
         del k1, dense
         torch.cuda.empty_cache()
+    return launches
 
 
 def training_long_phase(card: str, k1_ms: float) -> dict:
@@ -1747,8 +1830,8 @@ def main() -> int:
     kernels += flash
     conv = conv_kernel_phase()
     kernels += conv
-    training_parity_phase(card)
-    launches = training_long_phase(card, k1_long_ms)
+    launches = training_parity_phase(card)
+    launches.update(training_long_phase(card, k1_long_ms))
     launches["paged_attention"] = serving_phase(card)
     k3_ms = {k["name"]: k["ms"] for k in conv}["conv_taps"]
     launches["conv_taps"] = lenet_phase(card, k3_ms)

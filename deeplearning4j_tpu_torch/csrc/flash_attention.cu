@@ -11,8 +11,8 @@
 // scores. The forward also writes the row log-sum-exp LSE [B, H, T]
 // (f32) that the backward uses to recompute P without a second softmax.
 //
-// Three kernels, each in a float32 variant on the CUDA cores (FFMA) and
-// a bfloat16 variant on the tensor cores:
+// Three kernels, each in a bfloat16 variant (wgmma bf16) and a float32
+// variant (wgmma tf32 in split TF32, below), all on the tensor cores:
 //   * Forward: one block per query tile of one (b, h), walking key tiles
 //     with an online softmax (running max m and sum l in f32); under
 //     causal, key tiles wholly above the diagonal are never visited. It
@@ -31,10 +31,6 @@
 //     diagonal gets probability exactly 0 whatever the tile holds, and
 //     rows and keys past a ragged T read as zeros. Any T >= 1 works (no
 //     T % 128 rule).
-//   * float32 (FA2-style, 64-row tiles, 128 threads): tiles are staged
-//     in shared memory as f32 (Q^T and K^T transposed, so a thread's 4x8
-//     score micro-tile reads float4s); P and dS go through shared memory
-//     to the next product. Bound by the CUDA cores (67 TFLOP/s).
 //
 // bfloat16, the training path (B=2, H=8, dh=128, T=2048 and 32768,
 // causal). What bounds it on the card: operations. Causal attention at
@@ -83,460 +79,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr float kNeg = -1e30f;
-
-// forward: queries per block, keys per step
-constexpr int kFwdQ = 64;
-constexpr int kFwdK = 64;
-// dK/dV: keys per block, queries per step
-constexpr int kBwdK = 64;
-constexpr int kBwdQ = 32;
-// dQ: queries per block, keys per step
-constexpr int kDqQ = 64;
-constexpr int kDqK = 32;
-
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void unpack(const float4 v, float* o) {
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-// max / sum over the 8 consecutive lanes that share a row group
-__device__ __forceinline__ float group8_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-  return v;
-}
-__device__ __forceinline__ float group8_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  return v;
-}
-
-// Stage rows [r0, r0 + ROWS) of one head [T, DH] in shared memory
-// transposed, dst[d * ROWS + r], zero past T. Consecutive threads take
-// consecutive rows, so the transposed stores hit consecutive banks.
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage_t(const float* src, int r0, int t_len,
-                                        float* dst) {
-  for (int i = threadIdx.x; i < ROWS * (DH / 4); i += kThreads) {
-    const int r = i % ROWS;
-    const int d = (i / ROWS) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < t_len) load4(src + (size_t)(r0 + r) * DH + d, v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[(d + e) * ROWS + r] = v[e];
-  }
-}
-
-// Stage the same rows row-major, dst[r * DH + d], zero past T.
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage(const float* src, int r0, int t_len,
-                                      float* dst) {
-  for (int i = threadIdx.x; i < ROWS * (DH / 4); i += kThreads) {
-    const int r = i / (DH / 4);
-    const int d = (i % (DH / 4)) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < t_len) load4(src + (size_t)(r0 + r) * DH + d, v);
-    *reinterpret_cast<float4*>(dst + r * DH + d) =
-        make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-__device__ __forceinline__ bool allowed(int key, int qi, int t_len,
-                                        bool causal) {
-  return key < t_len && qi < t_len && (!causal || key <= qi);
-}
-
-// ---------------------------------------------------------------- forward
-// Thread layout: rg = tid / 8 owns rows rg*4 .. rg*4+3 of the 64-query
-// tile; cg = tid % 8 owns score columns cg*4+{0..3} and 32+cg*4+{0..3}
-// and output columns c*32 + cg*4 + {0..3}.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int t_len, int causal,
-                 float scale) {
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DH][kFwdQ]
-  float* kt = qt + DH * kFwdQ;                  // [DH][kFwdK]
-  float* vs = kt + DH * kFwdK;                  // [kFwdK][DH]
-  float* ps = vs + kFwdK * DH;                  // [kFwdK][kFwdQ]
-  constexpr int NC = DH / 32;
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;
-  const int cg = tid & 7;
-  const int q0 = blockIdx.x * kFwdQ;
-  const size_t bh = blockIdx.y;
-  const size_t head = bh * (size_t)t_len * DH;
-
-  stage_t<DH, kFwdQ>(q + head, q0, t_len, qt);
-
-  float acc[4][4 * NC];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = causal ? min(t_len, q0 + kFwdQ) : t_len;
-  for (int k0 = 0; k0 < k_end; k0 += kFwdK) {
-    __syncthreads();  // the previous tile's kt / vs / ps are consumed
-    stage_t<DH, kFwdK>(k + head, k0, t_len, kt);
-    stage<DH, kFwdK>(v + head, k0, t_len, vs);
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float a[4], b[8];
-      unpack(lds4(qt + d * kFwdQ + rg * 4), a);
-      unpack(lds4(kt + d * kFwdK + cg * 4), b);
-      unpack(lds4(kt + d * kFwdK + 32 + cg * 4), b + 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + rg * 4 + i;
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = k0 + (j < 4 ? cg * 4 + j : 32 + cg * 4 + j - 4);
-        // rows past T are never written: let them see every key < T
-        const bool ok = key < t_len && (!causal || key <= qi);
-        s[i][j] = ok ? s[i][j] * scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = group8_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = k0 + (j < 4 ? cg * 4 + j : 32 + cg * 4 + j - 4);
-        const bool ok = key < t_len && (!causal || key <= qi);
-        const float p = ok ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        sum += p;
-      }
-      sum = group8_sum(sum);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = j < 4 ? cg * 4 + j : 32 + cg * 4 + j - 4;
-        ps[col * kFwdQ + rg * 4 + i] = s[i][j];
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kFwdK; ++kk) {
-      float p[4];
-      unpack(lds4(ps + kk * kFwdQ + rg * 4), p);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float vv[4];
-        unpack(lds4(vs + kk * DH + c * 32 + cg * 4), vv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][c * 4 + e] = fmaf(p[i], vv[e], acc[i][c * 4 + e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + rg * 4 + i;
-    if (qi >= t_len) continue;
-    const float inv = 1.f / l[i];  // l >= 1: the row's max key counts
-    float* orow = o + head + (size_t)qi * DH;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        orow[c * 32 + cg * 4 + e] = acc[i][c * 4 + e] * inv;
-    if (cg == 0) lse[bh * t_len + qi] = m[i] + logf(l[i]);
-  }
-}
-
-// ----------------------------------------------------------- backward dK/dV
-// Thread layout: kg = tid / 8 owns keys kg*4 .. kg*4+3 of the 64-key
-// tile; qg = tid % 8 owns queries qg*4 .. qg*4+3 of each 32-query step
-// and output columns c*32 + qg*4 + {0..3}.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ di, float* __restrict__ dk,
-                      float* __restrict__ dv, int t_len, int causal,
-                      float scale) {
-  extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);  // [DH][kBwdK]
-  float* vt = kt + DH * kBwdK;                  // [DH][kBwdK]
-  float* qt = vt + DH * kBwdK;                  // [DH][kBwdQ]
-  float* dot = qt + DH * kBwdQ;                 // [DH][kBwdQ]
-  float* qs = dot + DH * kBwdQ;                 // [kBwdQ][DH]
-  float* dos = qs + kBwdQ * DH;                 // [kBwdQ][DH]
-  float* pt = dos + kBwdQ * DH;                 // [kBwdQ][kBwdK]
-  float* dst = pt + kBwdQ * kBwdK;              // [kBwdQ][kBwdK]
-  float* ls = dst + kBwdQ * kBwdK;              // [kBwdQ]
-  float* dis = ls + kBwdQ;                      // [kBwdQ]
-  constexpr int NC = DH / 32;
-
-  const int tid = threadIdx.x;
-  const int kg = tid >> 3;
-  const int qg = tid & 7;
-  const int k0 = blockIdx.x * kBwdK;
-  const size_t bh = blockIdx.y;
-  const size_t head = bh * (size_t)t_len * DH;
-
-  stage_t<DH, kBwdK>(k + head, k0, t_len, kt);
-  stage_t<DH, kBwdK>(v + head, k0, t_len, vt);
-
-  float dk_acc[4][4 * NC], dv_acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) {
-      dk_acc[i][c] = 0.f;
-      dv_acc[i][c] = 0.f;
-    }
-
-  // under causal only queries at or after the tile's first key attend it
-  const int q_begin = causal ? k0 : 0;
-  for (int q0 = q_begin; q0 < t_len; q0 += kBwdQ) {
-    __syncthreads();
-    stage_t<DH, kBwdQ>(q + head, q0, t_len, qt);
-    stage<DH, kBwdQ>(q + head, q0, t_len, qs);
-    stage_t<DH, kBwdQ>(dout + head, q0, t_len, dot);
-    stage<DH, kBwdQ>(dout + head, q0, t_len, dos);
-    for (int i = tid; i < kBwdQ; i += kThreads) {
-      const int qi = q0 + i;
-      ls[i] = qi < t_len ? lse[bh * t_len + qi] : 0.f;
-      dis[i] = qi < t_len ? di[bh * t_len + qi] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = 0.f;
-        dp[i][j] = 0.f;
-      }
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float ka[4], va[4], qb[4], ob[4];
-      unpack(lds4(kt + d * kBwdK + kg * 4), ka);
-      unpack(lds4(vt + d * kBwdK + kg * 4), va);
-      unpack(lds4(qt + d * kBwdQ + qg * 4), qb);
-      unpack(lds4(dot + d * kBwdQ + qg * 4), ob);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(ka[i], qb[j], s[i][j]);
-          dp[i][j] = fmaf(va[i], ob[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + kg * 4 + i;
-        const int ql = qg * 4 + j;
-        const bool ok = allowed(key, q0 + ql, t_len, causal);
-        const float p = ok ? expf(s[i][j] * scale - ls[ql]) : 0.f;
-        const float ds = ok ? p * (dp[i][j] - dis[ql]) : 0.f;
-        pt[ql * kBwdK + kg * 4 + i] = p;
-        dst[ql * kBwdK + kg * 4 + i] = ds;
-      }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int qq = 0; qq < kBwdQ; ++qq) {
-      float p[4], ds[4];
-      unpack(lds4(pt + qq * kBwdK + kg * 4), p);
-      unpack(lds4(dst + qq * kBwdK + kg * 4), ds);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float ob[4], qb[4];
-        unpack(lds4(dos + qq * DH + c * 32 + qg * 4), ob);
-        unpack(lds4(qs + qq * DH + c * 32 + qg * 4), qb);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dv_acc[i][c * 4 + e] = fmaf(p[i], ob[e], dv_acc[i][c * 4 + e]);
-            dk_acc[i][c * 4 + e] = fmaf(ds[i], qb[e], dk_acc[i][c * 4 + e]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + kg * 4 + i;
-    if (key >= t_len) continue;
-    float* dkrow = dk + head + (size_t)key * DH;
-    float* dvrow = dv + head + (size_t)key * DH;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dkrow[c * 32 + qg * 4 + e] = dk_acc[i][c * 4 + e] * scale;
-        dvrow[c * 32 + qg * 4 + e] = dv_acc[i][c * 4 + e];
-      }
-  }
-}
-
-// -------------------------------------------------------------- backward dQ
-// Thread layout: rg = tid / 8 owns queries rg*4 .. rg*4+3 of the
-// 64-query tile; cg = tid % 8 owns keys cg*4 .. cg*4+3 of each 32-key
-// step and output columns c*32 + cg*4 + {0..3}.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, float* __restrict__ dq,
-                    int t_len, int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DH][kDqQ]
-  float* dot = qt + DH * kDqQ;                  // [DH][kDqQ]
-  float* kt = dot + DH * kDqQ;                  // [DH][kDqK]
-  float* vt = kt + DH * kDqK;                   // [DH][kDqK]
-  float* ks = vt + DH * kDqK;                   // [kDqK][DH]
-  float* dss = ks + kDqK * DH;                  // [kDqK][kDqQ]
-  constexpr int NC = DH / 32;
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;
-  const int cg = tid & 7;
-  const int q0 = blockIdx.x * kDqQ;
-  const size_t bh = blockIdx.y;
-  const size_t head = bh * (size_t)t_len * DH;
-
-  stage_t<DH, kDqQ>(q + head, q0, t_len, qt);
-  stage_t<DH, kDqQ>(dout + head, q0, t_len, dot);
-
-  float lse_r[4], di_r[4];
-  float acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + rg * 4 + i;
-    lse_r[i] = qi < t_len ? lse[bh * t_len + qi] : 0.f;
-    di_r[i] = qi < t_len ? di[bh * t_len + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = causal ? min(t_len, q0 + kDqQ) : t_len;
-  for (int k0 = 0; k0 < k_end; k0 += kDqK) {
-    __syncthreads();
-    stage_t<DH, kDqK>(k + head, k0, t_len, kt);
-    stage_t<DH, kDqK>(v + head, k0, t_len, vt);
-    stage<DH, kDqK>(k + head, k0, t_len, ks);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = 0.f;
-        dp[i][j] = 0.f;
-      }
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float qa[4], oa[4], kb[4], vb[4];
-      unpack(lds4(qt + d * kDqQ + rg * 4), qa);
-      unpack(lds4(dot + d * kDqQ + rg * 4), oa);
-      unpack(lds4(kt + d * kDqK + cg * 4), kb);
-      unpack(lds4(vt + d * kDqK + cg * 4), vb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = q0 + rg * 4 + i;
-        const int key = k0 + cg * 4 + j;
-        const bool ok = allowed(key, qi, t_len, causal);
-        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        dss[(cg * 4 + j) * kDqQ + rg * 4 + i] =
-            ok ? p * (dp[i][j] - di_r[i]) : 0.f;
-      }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kDqK; ++kk) {
-      float ds[4];
-      unpack(lds4(dss + kk * kDqQ + rg * 4), ds);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float kb[4];
-        unpack(lds4(ks + kk * DH + c * 32 + cg * 4), kb);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][c * 4 + e] = fmaf(ds[i], kb[e], acc[i][c * 4 + e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + rg * 4 + i;
-    if (qi >= t_len) continue;
-    float* row = dq + head + (size_t)qi * DH;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        row[c * 32 + cg * 4 + e] = acc[i][c * 4 + e] * scale;
-  }
-}
 
 // ------------------------------------------------- bf16 kernels for Hopper
 // The same three kernels for bfloat16 inputs, built from Hopper's parts:
@@ -645,7 +188,7 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
 
 // ---- wgmma
 // shared-memory operand descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t gmma_desc(const bf16* p, uint32_t lbo,
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
                                               uint32_t sbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
@@ -1295,73 +838,782 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ------------------------------------------------------------------ launch
-constexpr size_t fwd_smem(int dh) {
-  return sizeof(float) * ((size_t)dh * kFwdQ + (size_t)dh * kFwdK +
-                          (size_t)kFwdK * dh + (size_t)kFwdK * kFwdQ);
-}
-constexpr size_t dkdv_smem(int dh) {
-  return sizeof(float) *
-         ((size_t)2 * dh * kBwdK + (size_t)4 * dh * kBwdQ +
-          (size_t)2 * kBwdQ * kBwdK + (size_t)2 * kBwdQ);
-}
-constexpr size_t dq_smem(int dh) {
-  return sizeof(float) * ((size_t)2 * dh * kDqQ + (size_t)3 * dh * kDqK +
-                          (size_t)kDqK * kDqQ);
+// ---------------------------------------------- float32 kernels for Hopper
+// The same three kernels for float32 inputs, on the tensor cores in split
+// TF32 ("3xTF32"). Each operand x is held as big = tf32(x) and small =
+// tf32(x - big), tf32 being round to nearest (ties away) to 10 mantissa
+// bits (cvt.rna.tf32.f32); each product A B is As Bb + Ab Bs + Ab Bb into
+// f32 accumulators, the two small products over every k8 step first and
+// the big one last (see 5). The error is near 2^-22
+// of |A||B|, like an f32 sum's; one tf32 product (2^-11) would miss the
+// f32 limits. A CPU model (tests/test_torch_port_flash_attention.py)
+// decided it: round-to-nearest big, three products, no small Ab Bs term
+// beyond them, passes every f32 measure with a wide margin; a single
+// TF32 product fails the norm measure.
+//
+// What bounds it on the card: operations, three tensor-core products for
+// each f32 one (495 TFLOP/s tf32 / 3 = 165 effective, against 67 on the
+// CUDA cores). The design:
+//   1. Every product is a wgmma m64nNk8 .tf32: S = Q Kᵀ and its kin read
+//      both operands from shared memory; P V, Pᵀ dO, dSᵀ Q and dS K take
+//      P or dS from registers, split there.
+//   2. wgmma .tf32 reads shared-memory operands K-major only (the
+//      transpose bit is for 16-bit types), so the operands that run along
+//      the rows (V, dO and Q in dV and dK, K in dQ) are read from a
+//      transposed copy. The split of every shared-memory operand and those
+//      copies are made once per call by flash_split_kernel, one pass
+//      over O(T dh) bytes for all of a call's operands (the wrapper
+//      allocates them): big and small planes
+//      [2, B*H, T, dh] and transposed planes [2, B*H, dh, Tp], Tp = T
+//      rounded up to 8.
+//   3. The f32 accumulator is not the tf32 A fragment's layout: thread
+//      (g, t) holds columns 2t and 2t + 1 of each 8, the fragment wants
+//      k = t and t + 4. So k = t is read from column 2t and k = t + 4 from
+//      column 2t + 1, and the transposed planes hold the keys (or queries)
+//      of each 8 in the order 0 2 4 6 1 3 5 7: the sum is the same, and no
+//      shuffle is needed.
+//   4. Loads overlap the math: a producer warp issues TMA loads (boxes of
+//      [rows, 32 floats], 128-byte swizzle: a k8 step is 32 bytes, as a
+//      bf16 k16 step) into buffers with full/empty mbarriers, one pair per
+//      operand, so one operand's next tile loads while another's product
+//      runs; a consumer warpgroup computes.
+//   5. The tensor cores' f32 accumulation rounds toward zero, so a sum
+//      carried through hundreds of wgmmas drifts toward zero (dK and dV
+//      missed the f32 norm limit from T = 1000 on, more with T).
+//      So each step's product goes into a fresh accumulator (the first
+//      wgmma of its chain overwrites) and is added to the running O, dK,
+//      dV or dQ in registers, rounded to nearest. Within a chain the
+//      small products come first, while the accumulator is still small,
+//      so only the big product's k8 steps (4 to 16) truncate at the
+//      full scale.
+//   6. Under causal the heaviest tiles launch first, as in bf16.
+// Shared memory at dh = 128 (227 KB a block): a [64, 128] f32 tile is 32
+// KB a plane, 64 KB split. Forward: Q (64 rows) + K (64 keys) + Vᵀ (64
+// keys), 192 KB; the backward holds its 64 rows' two operands (K and V,
+// or Q and dO) split, 128 KB, and steps of 32 over three more (Q, dO, Qᵀ
+// or K, V, Kᵀ), 96 KB: 224 KB. So one warpgroup a block and one block an
+// SM at dh = 128 (two at dh = 64); a 2-stage ring of these tiles does not
+// fit. dK and dV are separate blocks, as in bf16.
+//
+// ptxas (-Xptxas -v, sm_90a; scripts/torch_kernel_sass.py), 160 threads
+// a block: registers a thread, forward 210 at dh=128 (161 at dh=64),
+// dK/dV 191 (127), dQ 181 (117); no spills, no stack frame, no
+// serialised wgmma. Shared memory (dynamic, with 1 KB for 1024-byte
+// alignment): forward 197,672 bytes at dh=128 (99,368 at dh=64), dK/dV
+// 230,952 (116,264), dQ 230,440 (115,752). flash_split_kernel: 30
+// registers, 4,224 bytes.
+
+constexpr int kF32Threads = kWg + 32;  // a consumer warpgroup + producer warp
+constexpr int kF32Rows = 64;           // queries or keys a block owns
+constexpr int kF32FwdKeys = 64;        // keys per forward step
+constexpr int kF32Step = 32;           // queries (dK/dV) or keys (dQ) a step
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
+#define DL4J_D16                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "      \
+  "%8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (+)= A B over one k8 step of tf32: A and B from shared memory (both
+// K-major) at OA / OB 16-byte units past da / db, N columns; `acc` 0
+// overwrites d
+template <int N, int OA, int OB>
+__device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t da,
+                                              uint64_t db, int acc) {
+  static_assert(N == 32 || N == 64, "wgmma_tf32_ss: N is 32 or 64");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 sa, sb;\n"
+        "add.s64 sa, %16, %19;\nadd.s64 sb, %17, %20;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " DL4J_D16
+        ", sa, sb, p, 1, 1;\n}\n"
+        : DL4J_F8(d, 0), DL4J_F8(d, 8)
+        : "l"(da), "l"(db), "r"(acc), "n"(OA), "n"(OB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 sa, sb;\n"
+        "add.s64 sa, %32, %35;\nadd.s64 sb, %33, %36;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " DL4J_D32
+        ", sa, sb, p, 1, 1;\n}\n"
+        : DL4J_F32(d)
+        : "l"(da), "l"(db), "r"(acc), "n"(OA), "n"(OB));
+  }
+}
+// d (+)= A B over one k8 step of tf32: A (a k8 fragment) from registers,
+// B from shared memory (K-major) at OB 16-byte units past db, N columns;
+// `acc` 0 overwrites d
+template <int N, int OB>
+__device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t* a,
+                                              uint64_t db, int acc) {
+  static_assert(N == 64 || N == 128, "wgmma_tf32_rs: N is 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 sb;\n"
+        "add.s64 sb, %36, %38;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " DL4J_D32
+        ", {%32, %33, %34, %35}, sb, p, 1, 1;\n}\n"
+        : DL4J_F32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+          "n"(OB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 sb;\n"
+        "add.s64 sb, %68, %70;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " DL4J_D64
+        ", {%64, %65, %66, %67}, sb, p, 1, 1;\n}\n"
+        : DL4J_F32(d), DL4J_F32((d + 32))
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+          "n"(OB));
+  }
+}
+
+// 16-byte units past a tile's descriptor of k8 step kk, in a tile of
+// `rows` rows stored as boxes of [rows, 32 floats]: 32 bytes a step, a
+// box (rows * 128 bytes) every 4 steps
+__host__ __device__ constexpr int k8_offset(int kk, int rows) {
+  return (kk / 4) * rows * 8 + (kk % 4) * 2;
+}
+
+// S = A Bᵀ in split TF32 for one warpgroup's 64 rows of A: A is a tile of
+// ROWS_A rows and B one of N rows, both along dh, each in big and small
+// planes
+template <int N, int ROWS_A, int... KK>
+__device__ __forceinline__ void gemm3_rows_k(float* d, uint64_t ab,
+                                             uint64_t as, uint64_t bb,
+                                             uint64_t bs,
+                                             std::integer_sequence<int, KK...>) {
+  (wgmma_tf32_ss<N, k8_offset(KK, ROWS_A), k8_offset(KK, N)>(d, as, bb,
+                                                             KK > 0),
+   ...);
+  (wgmma_tf32_ss<N, k8_offset(KK, ROWS_A), k8_offset(KK, N)>(d, ab, bs, 1),
+   ...);
+  (wgmma_tf32_ss<N, k8_offset(KK, ROWS_A), k8_offset(KK, N)>(d, ab, bb, 1),
+   ...);
+}
+template <int DH, int N, int ROWS_A>
+__device__ __forceinline__ void gemm3_rows(float* d, const float* ab,
+                                           const float* as, const float* bb,
+                                           const float* bs) {
+  gemm3_rows_k<N, ROWS_A>(d, gmma_desc(ab, 16, 1024), gmma_desc(as, 16, 1024),
+                          gmma_desc(bb, 16, 1024), gmma_desc(bs, 16, 1024),
+                          std::make_integer_sequence<int, DH / 8>{});
+}
+// d = A B in split TF32: A is K / 8 split k8 fragments in registers, B a
+// transposed tile [N = DH rows, K] in big and small planes (boxes of
+// [DH, 32] along K)
+template <int N, int... KK>
+__device__ __forceinline__ void gemm3_reg_k(float* d, const uint32_t (*ab)[4],
+                                            const uint32_t (*as)[4],
+                                            uint64_t bb, uint64_t bs,
+                                            std::integer_sequence<int, KK...>) {
+  (wgmma_tf32_rs<N, k8_offset(KK, N)>(d, as[KK], bb, KK > 0), ...);
+  (wgmma_tf32_rs<N, k8_offset(KK, N)>(d, ab[KK], bs, 1), ...);
+  (wgmma_tf32_rs<N, k8_offset(KK, N)>(d, ab[KK], bb, 1), ...);
+}
+template <int DH, int K>
+__device__ __forceinline__ void gemm3_reg(float* d, const uint32_t (*ab)[4],
+                                          const uint32_t (*as)[4],
+                                          const float* bb, const float* bs) {
+  gemm3_reg_k<DH>(d, ab, as, gmma_desc(bb, 16, 1024), gmma_desc(bs, 16, 1024),
+                  std::make_integer_sequence<int, K / 8>{});
+}
+
+// An accumulator's first K columns as split tf32 A fragments, one per 8
+// columns: k = t from column 2t, k = t + 4 from column 2t + 1 (so the B
+// tile's k rows hold columns 0 2 4 6 1 3 5 7 of each 8)
+template <int K>
+__device__ __forceinline__ void acc_to_a_tf32(uint32_t (*ab)[4],
+                                              uint32_t (*as)[4],
+                                              const float* d) {
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    const float x[4] = {d[4 * kk], d[4 * kk + 2], d[4 * kk + 1],
+                        d[4 * kk + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ab[kk][e] = tf32_rna(x[e]);
+      as[kk][e] = tf32_rna(x[e] - __uint_as_float(ab[kk][e]));
+    }
+  }
+}
+
+// rows [r0, r0 + ROWS) of head bh, both planes of a [2 BH, T, DH] map:
+// DH / 32 boxes [ROWS, 32] a plane; rows past T read as 0
+template <int DH, int ROWS>
+__device__ __forceinline__ void tma_rows(float* big, float* small,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int r0, int bh,
+                                         int n_bh) {
+#pragma unroll
+  for (int h = 0; h < DH / 32; ++h) {
+    tma_load(big + h * ROWS * 32, map, bar, h * 32, r0, bh);
+    tma_load(small + h * ROWS * 32, map, bar, h * 32, r0, n_bh + bh);
+  }
+}
+// columns [c0, c0 + COLS) of head bh, both planes of a transposed
+// [2 BH, DH, Tp] map: COLS / 32 boxes [DH, 32] a plane; past Tp, 0
+template <int DH, int COLS>
+__device__ __forceinline__ void tma_cols(float* big, float* small,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int bh,
+                                         int n_bh) {
+#pragma unroll
+  for (int h = 0; h < COLS / 32; ++h) {
+    tma_load(big + h * DH * 32, map, bar, c0 + h * 32, 0, bh);
+    tma_load(small + h * DH * 32, map, bar, c0 + h * 32, 0, n_bh + bh);
+  }
+}
+
+// Forward. A block owns 64 queries of one (b, h). Q lands once; K tiles
+// and Vᵀ tiles of 64 keys land in one buffer each, the next K while this
+// tile's P V runs, the next V while the next S runs. Online softmax as in
+// bf16.
+template <int DH>
+struct F32FwdSmem {
+  static constexpr uint32_t plane = kF32Rows * DH * 4;  // also 64 keys
+  static constexpr uint32_t q = 0, k = 2 * plane, v = 4 * plane;
+  static constexpr uint32_t bars = 6 * plane;
+  static constexpr uint32_t bytes = bars + 8 * 5 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tvt,
+                      float* __restrict__ o, float* __restrict__ lse,
+                      int t_len, int n_bh, int causal, float scale_log2) {
+  using L = F32FwdSmem<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  float* qb = reinterpret_cast<float*>(base + L::q);
+  float* qs = qb + L::plane / 4;
+  float* kb = reinterpret_cast<float*>(base + L::k);
+  float* ks = kb + L::plane / 4;
+  float* vb = reinterpret_cast<float*>(base + L::v);
+  float* vs = vb + L::plane / 4;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::bars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = q_full + 2;
+  uint64_t* v_full = q_full + 3;
+  uint64_t* v_empty = q_full + 4;
+
+  const int bh = blockIdx.x;
+  const int n_qt = (t_len + kF32Rows - 1) / kF32Rows;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) *
+                 kF32Rows;
+  const int k_end = causal ? min(t_len, q0 + kF32Rows) : t_len;
+  const int n_tiles = (k_end + kF32FwdKeys - 1) / kF32FwdKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(k_empty, 4);
+    mbar_init(v_empty, 4);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWg) {   // the producer warp: one thread issues TMA
+    if (threadIdx.x != kWg) return;
+    mbar_expect_tx(q_full, 2 * L::plane);
+    tma_rows<DH, kF32Rows>(qb, qs, &tq, q_full, q0, bh, n_bh);
+    for (int n = 0; n < n_tiles; ++n) {
+      if (n > 0) mbar_wait(k_empty, (n - 1) & 1);
+      mbar_expect_tx(k_full, 2 * L::plane);
+      tma_rows<DH, kF32FwdKeys>(kb, ks, &tk, k_full, n * kF32FwdKeys, bh,
+                                n_bh);
+      if (n > 0) mbar_wait(v_empty, (n - 1) & 1);
+      mbar_expect_tx(v_full, 2 * L::plane);
+      tma_cols<DH, kF32FwdKeys>(vb, vs, &tvt, v_full, n * kF32FwdKeys, bh,
+                                n_bh);
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + warp * 16 + g;       // this thread's rows: +0, +8
+
+  float acc[DH / 2];
+#pragma unroll
+  for (int j = 0; j < DH / 2; ++j) acc[j] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this thread's part
+
+  mbar_wait(q_full, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const uint32_t par = n & 1;
+    const int k0 = n * kF32FwdKeys;
+    float sc[kF32FwdKeys / 2];
+    mbar_wait(k_full, par);
+    wg_fence();
+    gemm3_rows<DH, kF32FwdKeys, kF32Rows>(sc, qb, qs, kb, ks);
+    wg_commit();
+    wg_wait();
+    reg_fence<kF32FwdKeys / 2>(sc);
+    if (lane == 0) mbar_arrive(k_empty);
+
+    // masks are selects; a tile needs them where it runs past T or
+    // holds a key after the block's first row
+    const bool masked =
+        k0 + kF32FwdKeys > t_len || (causal && k0 + kF32FwdKeys - 1 > q0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kF32FwdKeys / 2; ++j) {
+      float x = sc[j] * scale_log2;
+      if (masked) {
+        const int key = k0 + 8 * (j >> 2) + 2 * t + (j & 1);
+        const int row = row0 + 8 * ((j >> 1) & 1);
+        x = (key < t_len && (!causal || key <= row)) ? x : kNeg;
+      }
+      sc[j] = x;
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = group4_max(mx[h]);   // every row sees a key in every tile
+      alpha[h] = fast_exp2(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < kF32FwdKeys / 2; ++j) {
+      const int h = (j >> 1) & 1;
+      sc[j] = fast_exp2(sc[j] - m[h]);   // a masked key gives exactly 0
+      l[h] += sc[j];
+    }
+    uint32_t pb[kF32FwdKeys / 8][4], ps[kF32FwdKeys / 8][4];
+    acc_to_a_tf32<kF32FwdKeys>(pb, ps, sc);
+
+    float pv[DH / 2];   // this tile's P V, folded in below
+    mbar_wait(v_full, par);
+    reg_fence<kF32FwdKeys / 8>(pb);
+    reg_fence<kF32FwdKeys / 8>(ps);
+    wg_fence();
+    gemm3_reg<DH, kF32FwdKeys>(pv, pb, ps, vb, vs);
+    wg_commit();
+    wg_wait();
+    reg_fence<DH / 2>(pv);
+    if (lane == 0) mbar_arrive(v_empty);
+#pragma unroll
+    for (int j = 0; j < DH / 2; ++j)
+      acc[j] = fmaf(acc[j], alpha[(j >> 1) & 1], pv[j]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const float lsum = group4_sum(l[h]);   // l >= 1: the row's max key
+    if (row >= t_len) continue;
+    const float inv = 1.f / lsum;
+    float* orow = o + ((size_t)bh * t_len + row) * DH;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c)
+      *reinterpret_cast<float2*>(orow + 8 * c + 2 * t) = make_float2(
+          acc[4 * c + 2 * h] * inv, acc[4 * c + 2 * h + 1] * inv);
+    if (t == 0)
+      lse[(size_t)bh * t_len + row] = fmaf(m[h], kLn2, logf(lsum));
+  }
+}
+
+// Backward dK/dV. A block owns 64 keys of one (b, h) and one of their two
+// outputs (blockIdx.z: 0 dK, 1 dV). K (and, for dK, V) land once; steps of
+// 32 queries, from the block's first key on under causal, bring Q (with
+// its LSE and Di, which the producer warp's lanes copy in beside the TMA
+// loads; two buffers, by step parity), dO (dK) and the transposed Qᵀ (dK)
+// or dOᵀ (dV). Per step:
+//   Sᵀ = K Qᵀ, Pᵀ = exp(Sᵀ scale - LSE);
+//   dV block: dV += Pᵀ dO (dOᵀ tile);
+//   dK block: dPᵀ = V dOᵀ, dSᵀ = Pᵀ (dPᵀ - Di), dK += dSᵀ Q (Qᵀ tile).
+template <int DH>
+struct F32DkdvSmem {
+  static constexpr uint32_t kv_plane = kF32Rows * DH * 4;
+  static constexpr uint32_t step_plane = kF32Step * DH * 4;
+  static constexpr uint32_t k = 0, v = 2 * kv_plane, q = 4 * kv_plane;
+  static constexpr uint32_t dout = q + 2 * step_plane;
+  static constexpr uint32_t tr = dout + 2 * step_plane;   // Qᵀ or dOᵀ
+  static constexpr uint32_t rows = tr + 2 * step_plane;   // 2 x (lse2, di)
+  static constexpr uint32_t bars = rows + 2 * 2 * kF32Step * 4;
+  static constexpr uint32_t bytes = bars + 8 * 5 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tqt,
+                           const __grid_constant__ CUtensorMap tdot,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int t_len, int n_bh, int causal, float scale,
+                           float scale_log2) {
+  using L = F32DkdvSmem<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  auto pl = [&](uint32_t off) { return reinterpret_cast<float*>(base + off); };
+  float *kb = pl(L::k), *ks = pl(L::k + L::kv_plane);
+  float *vb = pl(L::v), *vs = pl(L::v + L::kv_plane);
+  float *qb = pl(L::q), *qs = pl(L::q + L::step_plane);
+  float *ob = pl(L::dout), *os = pl(L::dout + L::step_plane);
+  float *tb = pl(L::tr), *ts = pl(L::tr + L::step_plane);
+  float* rows = pl(L::rows);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + L::bars);
+  uint64_t* full = kv_full + 1;    // Q, dO, the rows
+  uint64_t* empty = kv_full + 2;
+  uint64_t* t_full = kv_full + 3;  // Qᵀ or dOᵀ
+  uint64_t* t_empty = kv_full + 4;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kF32Rows;   // ascending: heaviest first
+  const bool dk_part = blockIdx.z == 0;   // the heavier blocks first
+  const int q_begin = causal ? k0 : 0;
+  const int n_steps = (t_len - q_begin + kF32Step - 1) / kF32Step;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(full, 32);
+    mbar_init(empty, 4);
+    mbar_init(t_full, 1);
+    mbar_init(t_empty, 4);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= kWg) {   // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, (dk_part ? 4 : 2) * L::kv_plane);
+      tma_rows<DH, kF32Rows>(kb, ks, &tk, kv_full, k0, bh, n_bh);
+      if (dk_part) tma_rows<DH, kF32Rows>(vb, vs, &tv, kv_full, k0, bh, n_bh);
+    }
+    for (int i = 0; i < n_steps; ++i) {
+      const int q0 = q_begin + i * kF32Step;
+      if (i > 0) mbar_wait(empty, (i - 1) & 1);
+      float* rs = rows + (i & 1) * 2 * kF32Step;
+      const int qi = q0 + lane;
+      const bool in = qi < t_len;
+      rs[lane] = in ? lse[(size_t)bh * t_len + qi] * kLog2e : 0.f;
+      rs[kF32Step + lane] = in ? di[(size_t)bh * t_len + qi] : 0.f;
+      if (lane == 0) {
+        mbar_expect_tx(full, (dk_part ? 4 : 2) * L::step_plane);
+        tma_rows<DH, kF32Step>(qb, qs, &tq, full, q0, bh, n_bh);
+        if (dk_part) tma_rows<DH, kF32Step>(ob, os, &tdo, full, q0, bh, n_bh);
+        if (i > 0) mbar_wait(t_empty, (i - 1) & 1);
+        mbar_expect_tx(t_full, 2 * L::step_plane);
+        tma_cols<DH, kF32Step>(tb, ts, dk_part ? &tqt : &tdot, t_full, q0, bh,
+                               n_bh);
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = k0 + warp * 16 + g;   // this thread's keys: +0, +8
+  float acc[DH / 2];
+#pragma unroll
+  for (int j = 0; j < DH / 2; ++j) acc[j] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int q0 = q_begin + i * kF32Step;
+    const uint32_t par = i & 1;
+    const float* rs = rows + (i & 1) * 2 * kF32Step;
+    float st[kF32Step / 2], dpt[kF32Step / 2];
+    mbar_wait(full, par);
+    wg_fence();
+    gemm3_rows<DH, kF32Step, kF32Rows>(st, kb, ks, qb, qs);
+    if (dk_part) gemm3_rows<DH, kF32Step, kF32Rows>(dpt, vb, vs, ob, os);
+    wg_commit();
+    wg_wait();
+    reg_fence<kF32Step / 2>(st);
+    if (dk_part) reg_fence<kF32Step / 2>(dpt);
+    // the rows buffer stays: the producer refills the other one next
+    if (lane == 0) mbar_arrive(empty);
+
+    const bool masked =
+        q0 + kF32Step > t_len || (causal && q0 < k0 + kF32Rows - 1);
+#pragma unroll
+    for (int j = 0; j < kF32Step / 2; ++j) {
+      const int col = 8 * (j >> 2) + 2 * t + (j & 1);
+      float p = fast_exp2(fmaf(st[j], scale_log2, -rs[col]));
+      if (masked) {
+        const int key = key0 + 8 * ((j >> 1) & 1);
+        const int qi = q0 + col;
+        p = (qi < t_len && (!causal || key <= qi)) ? p : 0.f;
+      }
+      st[j] = dk_part ? p * (dpt[j] - rs[kF32Step + col]) : p;
+    }
+    uint32_t ab[kF32Step / 8][4], as[kF32Step / 8][4];   // Pᵀ or dSᵀ
+    acc_to_a_tf32<kF32Step>(ab, as, st);
+    float part[DH / 2];   // this step's product, folded in below
+    mbar_wait(t_full, par);
+    reg_fence<kF32Step / 8>(ab);
+    reg_fence<kF32Step / 8>(as);
+    wg_fence();
+    gemm3_reg<DH, kF32Step>(part, ab, as, tb, ts);
+    wg_commit();
+    wg_wait();
+    reg_fence<DH / 2>(part);
+    if (lane == 0) mbar_arrive(t_empty);
+#pragma unroll
+    for (int j = 0; j < DH / 2; ++j) acc[j] += part[j];
+  }
+
+  float* out = dk_part ? dk : dv;
+  const float mult = dk_part ? scale : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= t_len) continue;
+    float* row = out + ((size_t)bh * t_len + key) * DH;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c)
+      *reinterpret_cast<float2*>(row + 8 * c + 2 * t) = make_float2(
+          acc[4 * c + 2 * h] * mult, acc[4 * c + 2 * h + 1] * mult);
+  }
+}
+
+// Backward dQ. A block owns 64 queries of one (b, h); Q and dO land once,
+// steps of 32 keys bring K and V (one buffer, one barrier pair) and Kᵀ
+// (another). Per step: S = Q Kᵀ, dP = dO Vᵀ, dS = P (dP - Di) split in
+// registers, dQ += dS K (Kᵀ tile). Under causal the heaviest query tiles
+// launch first.
+template <int DH>
+struct F32DqSmem {
+  static constexpr uint32_t q_plane = kF32Rows * DH * 4;
+  static constexpr uint32_t step_plane = kF32Step * DH * 4;
+  static constexpr uint32_t q = 0, dout = 2 * q_plane, k = 4 * q_plane;
+  static constexpr uint32_t v = k + 2 * step_plane;
+  static constexpr uint32_t tr = v + 2 * step_plane;   // Kᵀ
+  static constexpr uint32_t bars = tr + 2 * step_plane;
+  static constexpr uint32_t bytes = bars + 8 * 5 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tkt,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di,
+                         float* __restrict__ dq, int t_len, int n_bh,
+                         int causal, float scale, float scale_log2) {
+  using L = F32DqSmem<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  auto pl = [&](uint32_t off) { return reinterpret_cast<float*>(base + off); };
+  float *qb = pl(L::q), *qs = pl(L::q + L::q_plane);
+  float *ob = pl(L::dout), *os = pl(L::dout + L::q_plane);
+  float *kb = pl(L::k), *ks = pl(L::k + L::step_plane);
+  float *vb = pl(L::v), *vs = pl(L::v + L::step_plane);
+  float *tb = pl(L::tr), *ts = pl(L::tr + L::step_plane);
+  uint64_t* qo_full = reinterpret_cast<uint64_t*>(base + L::bars);
+  uint64_t* full = qo_full + 1;     // K and V
+  uint64_t* empty = qo_full + 2;
+  uint64_t* t_full = qo_full + 3;   // Kᵀ
+  uint64_t* t_empty = qo_full + 4;
+
+  const int bh = blockIdx.x;
+  const int n_qt = (t_len + kF32Rows - 1) / kF32Rows;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) *
+                 kF32Rows;
+  const int k_end = causal ? min(t_len, q0 + kF32Rows) : t_len;
+  const int n_tiles = (k_end + kF32Step - 1) / kF32Step;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qo_full, 1);
+    mbar_init(full, 1);
+    mbar_init(empty, 4);
+    mbar_init(t_full, 1);
+    mbar_init(t_empty, 4);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWg) {   // the producer warp: one thread issues TMA
+    if (threadIdx.x != kWg) return;
+    mbar_expect_tx(qo_full, 4 * L::q_plane);
+    tma_rows<DH, kF32Rows>(qb, qs, &tq, qo_full, q0, bh, n_bh);
+    tma_rows<DH, kF32Rows>(ob, os, &tdo, qo_full, q0, bh, n_bh);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int k0 = n * kF32Step;
+      if (n > 0) mbar_wait(empty, (n - 1) & 1);
+      mbar_expect_tx(full, 4 * L::step_plane);
+      tma_rows<DH, kF32Step>(kb, ks, &tk, full, k0, bh, n_bh);
+      tma_rows<DH, kF32Step>(vb, vs, &tv, full, k0, bh, n_bh);
+      if (n > 0) mbar_wait(t_empty, (n - 1) & 1);
+      mbar_expect_tx(t_full, 2 * L::step_plane);
+      tma_cols<DH, kF32Step>(tb, ts, &tkt, t_full, k0, bh, n_bh);
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + warp * 16 + g;
+  float lse2[2], dir[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool in = row < t_len;
+    lse2[h] = in ? lse[(size_t)bh * t_len + row] * kLog2e : 0.f;
+    dir[h] = in ? di[(size_t)bh * t_len + row] : 0.f;
+  }
+  float acc[DH / 2];
+#pragma unroll
+  for (int j = 0; j < DH / 2; ++j) acc[j] = 0.f;
+
+  mbar_wait(qo_full, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int k0 = n * kF32Step;
+    const uint32_t par = n & 1;
+    float sc[kF32Step / 2], dp[kF32Step / 2];
+    mbar_wait(full, par);
+    wg_fence();
+    gemm3_rows<DH, kF32Step, kF32Rows>(sc, qb, qs, kb, ks);
+    gemm3_rows<DH, kF32Step, kF32Rows>(dp, ob, os, vb, vs);
+    wg_commit();
+    wg_wait();
+    reg_fence<kF32Step / 2>(sc);
+    reg_fence<kF32Step / 2>(dp);
+    if (lane == 0) mbar_arrive(empty);
+
+    const bool masked =
+        k0 + kF32Step > t_len || (causal && k0 + kF32Step - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < kF32Step / 2; ++j) {
+      const int h = (j >> 1) & 1;
+      float p = fast_exp2(fmaf(sc[j], scale_log2, -lse2[h]));
+      if (masked) {
+        const int key = k0 + 8 * (j >> 2) + 2 * t + (j & 1);
+        p = (key < t_len && (!causal || key <= row0 + 8 * h)) ? p : 0.f;
+      }
+      sc[j] = p * (dp[j] - dir[h]);
+    }
+    uint32_t ab[kF32Step / 8][4], as[kF32Step / 8][4];
+    acc_to_a_tf32<kF32Step>(ab, as, sc);
+    float part[DH / 2];   // this step's product, folded in below
+    mbar_wait(t_full, par);
+    reg_fence<kF32Step / 8>(ab);
+    reg_fence<kF32Step / 8>(as);
+    wg_fence();
+    gemm3_reg<DH, kF32Step>(part, ab, as, tb, ts);
+    wg_commit();
+    wg_wait();
+    reg_fence<DH / 2>(part);
+    if (lane == 0) mbar_arrive(t_empty);
+#pragma unroll
+    for (int j = 0; j < DH / 2; ++j) acc[j] += part[j];
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= t_len) continue;
+    float* out = dq + ((size_t)bh * t_len + row) * DH;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c)
+      *reinterpret_cast<float2*>(out + 8 * c + 2 * t) = make_float2(
+          acc[4 * c + 2 * h] * scale, acc[4 * c + 2 * h + 1] * scale);
+  }
+}
+
+// The f32 kernels' operands from up to kSplitMax tensors x [BH, T, dh]
+// of one shape, in one launch: rows[i] (when not null) gets x[i]'s big
+// and small planes [2][BH][T][dh], cols[i] (when not null) those of its
+// transpose, [2][BH][dh][Tp], Tp = T rounded up to 8, position p of each
+// 8 holding row kKeyOrder[p] of those 8, zeros past T. A block takes 32
+// rows by 32 columns of one head of one tensor (blockIdx.x: the tensor
+// and the columns) through a shared tile.
+constexpr int kSplitMax = 4;
+__constant__ int kKeyOrder[8] = {0, 2, 4, 6, 1, 3, 5, 7};
+
+struct SplitArgs {
+  const float* x[kSplitMax];
+  float* rows[kSplitMax];
+  float* cols[kSplitMax];
+};
+
+// p[i] by selects over constant indices: a run-time index into a kernel
+// parameter's array would copy the array to local memory in every thread
+template <typename T>
+__device__ __forceinline__ T pick(const T (&p)[kSplitMax], int i) {
+  T r = p[0];
+#pragma unroll
+  for (int j = 1; j < kSplitMax; ++j) r = i == j ? p[j] : r;
+  return r;
+}
+
+__global__ void __launch_bounds__(256)
+flash_split_kernel(const SplitArgs a, int t_len, int tp, int dh,
+                   size_t rows_plane, size_t cols_plane) {
+  __shared__ float tile[32][33];
+  const int op = blockIdx.x / (dh / 32);
+  const int c0 = (blockIdx.x % (dh / 32)) * 32, r0 = blockIdx.y * 32;
+  const size_t bh = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const float* x = pick(a.x, op);
+  float* rows = pick(a.rows, op);
+  float* cols = pick(a.cols, op);
+  // every load before any store: the pointers come from a struct, so the
+  // compiler cannot tell that the stores leave x alone
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 8 * i;
+    v[i] = r < t_len ? __ldg(x + (bh * t_len + r) * dh + c0 + tx) : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 8 * i;
+    tile[ty + 8 * i][tx] = v[i];
+    if (rows != nullptr && r < t_len) {
+      const size_t at = (bh * t_len + r) * dh + c0 + tx;
+      const uint32_t b = tf32_rna(v[i]);
+      rows[at] = __uint_as_float(b);
+      rows[rows_plane + at] =
+          __uint_as_float(tf32_rna(v[i] - __uint_as_float(b)));
+    }
+  }
+  if (cols == nullptr) return;
+  __syncthreads();
+  const int pos = r0 + tx;
+  if (pos >= tp) return;
+  const int src = (tx & ~7) + kKeyOrder[tx & 7];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = ty + 8 * i;
+    const float w = tile[src][c];
+    const uint32_t b = tf32_rna(w);
+    const size_t at = (bh * dh + c0 + c) * tp + pos;
+    cols[at] = __uint_as_float(b);
+    cols[cols_plane + at] = __uint_as_float(tf32_rna(w - __uint_as_float(b)));
+  }
+}
+
+// ------------------------------------------------------------------ launch
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-template <int DH>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int bh, int t, int causal, float scale,
-                       cudaStream_t s) {
-  auto kern = flash_fwd_kernel<DH>;
-  const size_t smem = fwd_smem(DH);
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((t + kFwdQ - 1) / kFwdQ, bh);
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), t, causal, scale);
-  return cudaGetLastError();
-}
-
-template <int DH>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* di,
-                       void* dq, void* dk, void* dv, int bh, int t,
-                       int causal, float scale, cudaStream_t s) {
-  auto kdkdv = flash_bwd_dkdv_kernel<DH>;
-  auto kdq = flash_bwd_dq_kernel<DH>;
-  cudaError_t e = allow_smem(kdkdv, dkdv_smem(DH));
-  if (e != cudaSuccess) return e;
-  e = allow_smem(kdq, dq_smem(DH));
-  if (e != cudaSuccess) return e;
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  const float* dop = static_cast<const float*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dp = static_cast<const float*>(di);
-  dim3 g1((t + kBwdK - 1) / kBwdK, bh);
-  kdkdv<<<g1, kThreads, dkdv_smem(DH), s>>>(
-      qp, kp, vp, dop, lp, dp, static_cast<float*>(dk), static_cast<float*>(dv), t,
-      causal, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dim3 g2((t + kDqQ - 1) / kDqQ, bh);
-  kdq<<<g2, kThreads, dq_smem(DH), s>>>(qp, kp, vp, dop, lp, dp,
-                                        static_cast<float*>(dq), t, causal,
-                                        scale);
-  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled, a libcuda entry point, reached through the
@@ -1471,6 +1723,106 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// A tensor map over f32 planes [planes * BH, rows, cols] (cols
+// contiguous), built for each call: boxes of [box_rows, 32], 128-byte
+// swizzle; past rows or cols, zeros.
+cudaError_t plane_map(CUtensorMap* map, const void* ptr, int planes_bh,
+                      int rows, int cols, int box_rows) {
+  EncodeTiledFn enc;
+  cudaError_t e = encode_tiled(&enc);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes_bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4,
+                                 (cuuint64_t)rows * cols * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// T rounded up to 8: the row length of the transposed planes
+int padded_t(int t) { return (t + 7) / 8 * 8; }
+
+// maps over an operand's big and small planes: rows [2 BH, T, DH] with
+// boxes of `box_rows` rows, or transposed [2 BH, DH, Tp]
+template <int DH>
+cudaError_t rows_map(CUtensorMap* map, const void* p, int bh, int t,
+                     int box_rows) {
+  return plane_map(map, p, 2 * bh, t, DH, box_rows);
+}
+template <int DH>
+cudaError_t cols_map(CUtensorMap* map, const void* p, int bh, int t) {
+  return plane_map(map, p, 2 * bh, DH, padded_t(t), DH);
+}
+
+template <int DH>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
+                           void* o, void* lse, int bh, int t, int causal,
+                           float scale, cudaStream_t s) {
+  auto kern = flash_fwd_tf32_kernel<DH>;
+  const size_t smem = F32FwdSmem<DH>::bytes;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e == cudaSuccess) e = rows_map<DH>(&mq, q, bh, t, kF32Rows);
+  if (e == cudaSuccess) e = rows_map<DH>(&mk, k, bh, t, kF32FwdKeys);
+  if (e == cudaSuccess) e = cols_map<DH>(&mv, v, bh, t);
+  if (e != cudaSuccess) return e;
+  dim3 grid(bh, (t + kF32Rows - 1) / kF32Rows);
+  kern<<<grid, kF32Threads, smem, s>>>(mq, mk, mv, static_cast<float*>(o),
+                                       static_cast<float*>(lse), t, bh,
+                                       causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// q, k and dout hold their rows planes and then their transposed planes,
+// v its rows planes
+template <int DH>
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* di,
+                           void* dq, void* dk, void* dv, int bh, int t,
+                           int causal, float scale, cudaStream_t s) {
+  auto kdkdv = flash_bwd_dkdv_tf32_kernel<DH>;
+  auto kdq = flash_bwd_dq_tf32_kernel<DH>;
+  const size_t smem1 = F32DkdvSmem<DH>::bytes, smem2 = F32DqSmem<DH>::bytes;
+  const size_t rows_floats = 2 * (size_t)bh * t * DH;
+  const float* qt = static_cast<const float*>(q) + rows_floats;
+  const float* kt = static_cast<const float*>(k) + rows_floats;
+  const float* dot = static_cast<const float*>(dout) + rows_floats;
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(di);
+  CUtensorMap mq, mk, mv, mdo, mqt, mdot;
+  cudaError_t e = allow_smem(kdkdv, smem1);
+  if (e == cudaSuccess) e = allow_smem(kdq, smem2);
+  if (e == cudaSuccess) e = rows_map<DH>(&mq, q, bh, t, kF32Step);
+  if (e == cudaSuccess) e = rows_map<DH>(&mk, k, bh, t, kF32Rows);
+  if (e == cudaSuccess) e = rows_map<DH>(&mv, v, bh, t, kF32Rows);
+  if (e == cudaSuccess) e = rows_map<DH>(&mdo, dout, bh, t, kF32Step);
+  if (e == cudaSuccess) e = cols_map<DH>(&mqt, qt, bh, t);
+  if (e == cudaSuccess) e = cols_map<DH>(&mdot, dot, bh, t);
+  if (e != cudaSuccess) return e;
+  dim3 g1(bh, (t + kF32Rows - 1) / kF32Rows, 2);
+  kdkdv<<<g1, kF32Threads, smem1, s>>>(
+      mq, mk, mv, mdo, mqt, mdot, lp, dp, static_cast<float*>(dk),
+      static_cast<float*>(dv), t, bh, causal, scale, scale * kLog2e);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = rows_map<DH>(&mq, q, bh, t, kF32Rows);
+  if (e == cudaSuccess) e = rows_map<DH>(&mk, k, bh, t, kF32Step);
+  if (e == cudaSuccess) e = rows_map<DH>(&mv, v, bh, t, kF32Step);
+  if (e == cudaSuccess) e = rows_map<DH>(&mdo, dout, bh, t, kF32Rows);
+  if (e == cudaSuccess) e = cols_map<DH>(&mqt, kt, bh, t);   // Kᵀ
+  if (e != cudaSuccess) return e;
+  dim3 g2(bh, (t + kF32Rows - 1) / kF32Rows);
+  kdq<<<g2, kF32Threads, smem2, s>>>(mq, mk, mv, mdo, mqt, lp, dp,
+                                     static_cast<float*>(dq), t, bh, causal,
+                                     scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int B, int H, int T, int dh) {
   return B >= 1 && H >= 1 && T >= 1 && (dh == 64 || dh == 128) &&
          (long long)B * H <= 65535;
@@ -1480,9 +1832,41 @@ bool shape_ok(int B, int H, int T, int dh) {
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16; q/k/v/o share it. q, k, v, o
-// are contiguous [B, H, T, dh]; lse is f32 [B, H, T]. Launches on
-// ``stream`` and does not synchronise; returns the launch's error.
+// The float32 kernels' operands from the n (1 to 4) tensors x[i], each
+// contiguous f32 [B, H, T, dh], in one launch: into rows[i] (may be null)
+// x[i]'s big and small planes [2][B*H][T][dh], big = tf32(x) rounded to
+// nearest, small = tf32(x - big); into cols[i] (may be null) the same of
+// its transpose, [2][B*H][dh][Tp], Tp = T rounded up to 8, each 8 rows of
+// x in the order 0 2 4 6 1 3 5 7, zeros past T. x, rows and cols are
+// host arrays of n device pointers. Launches on ``stream``; returns the
+// launch's error.
+cudaError_t dl4j_flash_attention_split(const void* const* x,
+                                       void* const* rows, void* const* cols,
+                                       int n, int B, int H, int T, int dh,
+                                       void* stream) {
+  if (!shape_ok(B, H, T, dh) || n < 1 || n > kSplitMax)
+    return cudaErrorInvalidValue;
+  SplitArgs a = {};
+  for (int i = 0; i < n; ++i) {
+    if (x[i] == nullptr || (rows[i] == nullptr && cols[i] == nullptr))
+      return cudaErrorInvalidValue;
+    a.x[i] = static_cast<const float*>(x[i]);
+    a.rows[i] = static_cast<float*>(rows[i]);
+    a.cols[i] = static_cast<float*>(cols[i]);
+  }
+  const int bh = B * H, tp = padded_t(T);
+  dim3 grid(n * (dh / 32), (tp + 31) / 32, bh);
+  flash_split_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, T, tp, dh, (size_t)bh * T * dh, (size_t)bh * dh * tp);
+  return cudaGetLastError();
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16; q/k/v/o share it. o is
+// contiguous [B, H, T, dh]; so are q, k, v at bfloat16, while at float32
+// they are the operands dl4j_flash_attention_split made of them: q and k
+// its rows planes, v its transposed planes. lse is f32 [B, H, T].
+// Launches on ``stream`` and does not synchronise; returns the launch's
+// error.
 cudaError_t dl4j_flash_attention_fwd(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int B, int H, int T, int dh,
@@ -1492,9 +1876,9 @@ cudaError_t dl4j_flash_attention_fwd(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;
   if (dtype == 0 && dh == 64)
-    return launch_fwd<64>(q, k, v, o, lse, bh, T, causal, scale, s);
+    return launch_fwd_f32<64>(q, k, v, o, lse, bh, T, causal, scale, s);
   if (dtype == 0 && dh == 128)
-    return launch_fwd<128>(q, k, v, o, lse, bh, T, causal, scale, s);
+    return launch_fwd_f32<128>(q, k, v, o, lse, bh, T, causal, scale, s);
   if (dtype == 1 && dh == 64)
     return launch_fwd_tc<64>(q, k, v, o, lse, bh, T, causal, scale, s);
   if (dtype == 1 && dh == 128)
@@ -1503,8 +1887,11 @@ cudaError_t dl4j_flash_attention_fwd(const void* q, const void* k,
 }
 
 // The backward's two kernels (dK/dV, then dQ) on ``stream``. dout, dq,
-// dk, dv share q's dtype and shape; di = rowsum(dout * o) is f32
-// [B, H, T]. Returns the first launch error.
+// dk, dv share q's dtype; dq, dk, dv are [B, H, T, dh], and so are q, k,
+// v, dout at bfloat16, while at float32 they are the operands
+// dl4j_flash_attention_split made of them: q, k and dout its rows planes
+// followed by its transposed planes, v its rows planes. di =
+// rowsum(dout * o) is f32 [B, H, T]. Returns the first launch error.
 cudaError_t dl4j_flash_attention_bwd(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* di,
@@ -1515,11 +1902,11 @@ cudaError_t dl4j_flash_attention_bwd(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;
   if (dtype == 0 && dh == 64)
-    return launch_bwd<64>(q, k, v, dout, lse, di, dq, dk, dv, bh, T,
-                                 causal, scale, s);
+    return launch_bwd_f32<64>(q, k, v, dout, lse, di, dq, dk, dv, bh, T,
+                              causal, scale, s);
   if (dtype == 0 && dh == 128)
-    return launch_bwd<128>(q, k, v, dout, lse, di, dq, dk, dv, bh,
-                                  T, causal, scale, s);
+    return launch_bwd_f32<128>(q, k, v, dout, lse, di, dq, dk, dv, bh, T,
+                               causal, scale, s);
   if (dtype == 1 && dh == 64)
     return launch_bwd_tc<64>(q, k, v, dout, lse, di, dq, dk, dv, bh, T,
                              causal, scale, s);

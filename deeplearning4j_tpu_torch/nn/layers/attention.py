@@ -14,7 +14,9 @@ Two hand-written CUDA kernels, each with its plain PyTorch version:
 - K1, ``csrc/flash_attention.cu`` through :func:`flash_attention` (a
   ``torch.autograd.Function``: forward and dQ/dK/dV backward); plain
   version :func:`flash_attention_reference`. Dispatch:
-  :func:`_should_use_flash`.
+  :func:`_should_use_flash`. At float32 its kernels read operands that
+  its split pass prepares (:func:`f32_operands`, plain version
+  :func:`f32_operands_reference`).
 - K2, ``csrc/paged_attention.cu`` through :func:`paged_attention`; plain
   version :func:`paged_attention_reference`, the JAX package's
   gather-by-block-table program.
@@ -371,13 +373,13 @@ def _dense_attention(q, k, v, causal, mask):
 #: on, for bfloat16 and float32 alike: the smallest T of
 #: ``chip_smoke.py``'s sweep (kernel fwd+bwd against dense fwd+bwd at
 #: B=2, H=8, dh=128, causal; PERF.md). In bf16 K1 was the faster at
-#: every T (512..4096) in every run; the crossover lies below 512 and is
-#: not measured. The sweep's f32 half (T from 512 up to where dense no
-#: longer fits the card) supports 512 for f32 too: K1 was the faster at
-#: 512, 4096 and 8192 in every run, the two were within 3% either way at
-#: 1024 and dense up to 8% faster at 2048, with no clean crossover, and
-#: from 16384 dense does not fit. Shorter sequences, such as the serving
-#: engine's prompt prefills, stay on the dense path.
+#: every T (512..4096) in every run. In f32, on the split-TF32 kernels,
+#: K1 was the faster at every T of the sweep's f32 half (512 up to where
+#: dense no longer fits the card) in every run, by about 2x at 512 and
+#: 1024 and 2.5-3.3x from 2048, and from 16384 dense does not fit. In
+#: both dtypes the crossover lies below 512 and is not measured. Shorter
+#: sequences, such as the serving engine's prompt prefills, stay on the
+#: dense path.
 FLASH_MIN_T = 512
 #: head widths K1 takes
 FLASH_HEAD_DIMS = (64, 128)
@@ -448,9 +450,96 @@ def _flash_lib():
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dl4j_flash_attention_bwd.restype = ctypes.c_int
+    lib.dl4j_flash_attention_split.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.dl4j_flash_attention_split.restype = ctypes.c_int
     lib.dl4j_flash_error_string.argtypes = [ctypes.c_int]
     lib.dl4j_flash_error_string.restype = ctypes.c_char_p
     return lib
+
+
+#: The order in which the float32 kernels' transposed operands hold each
+#: 8 rows (keys or queries): position p holds row F32_ROW_ORDER[p]. The
+#: kernels read a k8 tf32 fragment out of an f32 accumulator that holds
+#: columns 2t and 2t + 1 where the fragment wants k = t and t + 4.
+F32_ROW_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Finite float32 ``x`` rounded to TF32 (10 mantissa bits), to
+    nearest with ties away from zero: the kernels' ``cvt.rna.tf32.f32``."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def f32_padded_t(t: int) -> int:
+    """The row length of the transposed planes: T rounded up to 8."""
+    return -(-t // 8) * 8
+
+
+def f32_operand_floats(shape, rows: bool, cols: bool) -> int:
+    """Floats of :func:`f32_operands`' result for x of ``shape``
+    [B, H, T, dh]: two planes of B*H*T*dh for ``rows``, two of
+    B*H*dh*Tp for ``cols``."""
+    b, h, t, dh = shape
+    return 2 * b * h * dh * (t * rows + f32_padded_t(t) * cols)
+
+
+def f32_operands_reference(x: torch.Tensor, rows: bool,
+                           cols: bool) -> torch.Tensor:
+    """Plain version of K1's float32 split pass on x [B, H, T, dh]:
+    one flat float32 tensor holding, for ``rows``, big = tf32(x) and
+    small = tf32(x - big) as planes [2][B*H][T][dh], then, for ``cols``,
+    the same of x's transpose as planes [2][B*H][dh][Tp] (Tp =
+    :func:`f32_padded_t`), each 8 rows of x in :data:`F32_ROW_ORDER`,
+    zeros past T."""
+    b, h, t, dh = x.shape
+    parts = []
+    if rows:
+        parts.append(x.float())
+    if cols:
+        tp = f32_padded_t(t)
+        xp = torch.zeros((b, h, tp, dh), dtype=torch.float32,
+                         device=x.device)
+        xp[:, :, :t] = x
+        order = torch.tensor(F32_ROW_ORDER, device=x.device)
+        perm = (torch.arange(0, tp, 8, device=x.device)[:, None]
+                + order).reshape(-1)
+        parts.append(xp[:, :, perm].transpose(2, 3))
+    out = []
+    for a in parts:
+        big = tf32_round(a)
+        out += [big.reshape(-1), tf32_round(a - big).reshape(-1)]
+    return torch.cat(out)
+
+
+def f32_operands(ops) -> list:
+    """K1's float32 split pass (``flash_split_kernel``), one launch on
+    the current stream for all of ``ops``: 1 to 4 ``(x, rows, cols)``,
+    each x a contiguous CUDA tensor of one shape. Returns, for each,
+    what :func:`f32_operands_reference` computes, as views into one
+    buffer."""
+    b, h, t, dh = ops[0][0].shape
+    lib = _flash_lib()
+    sizes = [f32_operand_floats(x.shape, r, c) for x, r, c in ops]
+    buf = torch.empty(sum(sizes), dtype=torch.float32,
+                      device=ops[0][0].device)
+    outs, ptrs = [], []
+    at = 0
+    for (x, rows, cols), n in zip(ops, sizes):
+        out = buf[at:at + n]
+        at += n
+        skip = 4 * f32_operand_floats(x.shape, rows, False)
+        ptrs.append((x.data_ptr(), out.data_ptr() if rows else None,
+                     out.data_ptr() + skip if cols else None))
+        outs.append(out)
+    arrays = [(ctypes.c_void_p * len(ops))(*col) for col in zip(*ptrs)]
+    err = lib.dl4j_flash_attention_split(
+        *arrays, len(ops), b, h, t, dh,
+        torch.cuda.current_stream(buf.device).cuda_stream)
+    if err != 0:
+        _raise_launch(lib, "flash_attention split", err)
+    return outs
 
 
 def _kernel_ready(a: torch.Tensor) -> torch.Tensor:
@@ -490,12 +579,16 @@ def _raise_launch(lib, what, err):
 
 def flash_attention_fwd(q, k, v, causal: bool):
     """K1's forward kernel on contiguous CUDA q/k/v: returns (O in q's
-    dtype, row log-sum-exp LSE f32 [B, H, T]). Counted in
-    ``flash_attention.launches``."""
+    dtype, row log-sum-exp LSE f32 [B, H, T]). At float32 the split pass
+    first prepares the kernel's operands (q and k split, v split and
+    transposed). Counted in ``flash_attention.launches``."""
     b, h, t, dh = q.shape
     lib = _flash_lib()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        q, k, v = f32_operands([(q, True, False), (k, True, False),
+                                (v, False, True)])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dl4j_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -511,12 +604,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool):
     """K1's backward on contiguous CUDA tensors: ``di = rowsum(dO ∘ O)``
     as one torch op (the stock Pallas backward also computes it outside
     its kernels), then the dK/dV and dQ kernels in one launch call.
-    Returns (dQ, dK, dV) in q's dtype. Counted once per call in
+    Returns (dQ, dK, dV) in q's dtype. At float32 the split pass first
+    prepares the kernels' operands (q, k and dO split, and split and
+    transposed; v split). Counted once per call in
     ``flash_attention.bwd_launches``."""
     b, h, t, dh = q.shape
     lib = _flash_lib()
     di = (do.float() * o.float()).sum(dim=-1).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.dtype == torch.float32:
+        q, k, v, do = f32_operands([(q, True, True), (k, True, True),
+                                    (v, True, False), (do, True, True)])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dl4j_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

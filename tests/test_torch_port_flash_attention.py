@@ -10,7 +10,12 @@ checked against the JAX package's for the values they share.
 
 Tolerances (float32): 2e-5 on outputs and 1e-4 on gradients against the
 interpreted kernel (blocked online softmax vs one dense softmax); 1e-5
-against ``_dense_attention`` (the same dense program)."""
+against ``_dense_attention`` (the same dense program).
+
+The float32 kernels compute in split TF32; a CPU model of their products
+(below) is scored with ``chip_smoke``'s own measures against its f32
+limits, and their split pass's plain version (``f32_operands_reference``)
+is checked for the layout the kernels read."""
 
 import jax
 import jax.numpy as jnp
@@ -215,6 +220,7 @@ _CTYPE_KINDS = {"c_void_p": "pointer", "c_int": "int", "c_float": "float"}
 
 @pytest.mark.parametrize("name", ["dl4j_flash_attention_fwd",
                                   "dl4j_flash_attention_bwd",
+                                  "dl4j_flash_attention_split",
                                   "dl4j_flash_error_string"])
 def test_ctypes_binding_matches_the_c_prototypes(monkeypatch, name):
     """``_flash_lib`` declares each C function's parameters in the
@@ -294,3 +300,184 @@ def test_autograd_wrapper_hands_the_kernels_ready_tensors(monkeypatch):
         for t in tensors:
             assert t.is_contiguous() and t.data_ptr() % 16 == 0
     assert len(seen) == 2
+
+
+# ---- K1's float32 route: split TF32, and the operands its split pass
+# prepares
+
+def _tf32_truncate(x):
+    """x cut to TF32 toward zero (its low 13 bits cleared)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b, mode):
+    """a @ b as K1's f32 kernels compute it, emulated in float32 on the
+    CPU: "split" is big = tf32(x), small = tf32(x - big) per operand and
+    As Bb + Ab Bs + Ab Bb (the kernels' three products); "split_trunc"
+    the same with big cut toward zero; "single" is one product of the
+    operands rounded to tf32 (plain TF32)."""
+    big = _tf32_truncate if mode == "split_trunc" else tattn.tf32_round
+    ab, bb = big(a), big(b)
+    if mode == "single":
+        return ab @ bb
+    as_, bs = tattn.tf32_round(a - ab), tattn.tf32_round(b - bb)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _k1_f32_model(q, k, v, do, causal, mode):
+    """K1's forward and backward with every product through
+    :func:`_split_mm`: S = Q Kᵀ, O = P V / l, then from the LSE
+    P, dP = dO Vᵀ, dS = P (dP - Di), dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K.
+    Returns (O, (dQ, dK, dV))."""
+    t, dh = q.shape[-2:]
+    scale = dh ** -0.5
+    s = _split_mm(q, k.transpose(-1, -2), mode) * scale
+    if causal:
+        keep = torch.tril(torch.ones(t, t, dtype=torch.bool))
+        s = torch.where(keep, s, torch.tensor(-1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_ = p.sum(-1, keepdim=True)
+    o = _split_mm(p, v, mode) / l_
+    p = torch.exp(s - (m + torch.log(l_)))
+    ds = p * (_split_mm(do, v.transpose(-1, -2), mode)
+              - (do * o).sum(-1, keepdim=True))
+    return o, (_split_mm(ds, k, mode) * scale,
+               _split_mm(ds.transpose(-1, -2), q, mode) * scale,
+               _split_mm(p.transpose(-1, -2), do, mode))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_tf32_meets_the_f32_limits_and_single_tf32_does_not(dh,
+                                                                  causal):
+    """The CPU model that chose the f32 kernels' split: three products
+    (no small x small term) pass every measure of
+    ``chip_smoke.FLASH_TOL[float32]`` against a float64 reference, with
+    the norm under a fifth of its limit, whether big is rounded to
+    nearest (what the kernels do: it needs no assumption about what the
+    tensor cores make of an operand's low 13 bits) or cut toward zero; a
+    single TF32 product misses the norm limit, so the limits still tell
+    the two apart."""
+    import chip_smoke
+
+    q, k, v, do = (torch.as_tensor(a) for a in _inputs(256, dh, seed=dh))
+    q64, k64, v64 = (a.double().requires_grad_(True) for a in (q, k, v))
+    ref = flash_attention_reference(q64, k64, v64, causal)
+    ref_grads = torch.autograd.grad(ref, (q64, k64, v64), do.double())
+    readings = {}
+    for mode in ("split", "split_trunc", "single"):
+        out, grads = _k1_f32_model(q, k, v, do, causal, mode)
+        errs = chip_smoke._flash_errors(out, grads, ref.detach(), ref_grads)
+        readings[mode] = (errs, chip_smoke._flash_failed(errs,
+                                                         torch.float32))
+    for mode in ("split", "split_trunc"):
+        errs, failed = readings[mode]
+        assert failed == [], (mode, errs)
+        limit = chip_smoke.FLASH_TOL[torch.float32]["norm"]
+        assert max(errs["norm"]) < limit / 5, (mode, errs)
+    assert "norm" in readings["single"][1], readings["single"][0]
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """:func:`tf32_round` keeps 10 mantissa bits, rounding to nearest
+    with ties away from zero (``cvt.rna.tf32.f32``)."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2 ** -20, 1 + 1.5 * ulp,
+                      -(1 + ulp / 2), 3.0, 0.0, -0.0, 2 ** -100],
+                     dtype=torch.float32)
+    want = [1 + ulp, 1.0, 1 + 2 * ulp, -(1 + ulp), 3.0, 0.0, -0.0,
+            2 ** -100]
+    got = tattn.tf32_round(x)
+    assert got.tolist() == want
+    assert not bool((got.view(torch.int32) & 0x1FFF).any())
+
+
+def test_split_planes_hold_big_and_small_tf32_parts():
+    """The rows planes: big = tf32(x), small = tf32(x - big), each with
+    its low 13 bits clear, their sum within 2^-21 of x."""
+    x = torch.as_tensor(_inputs(21, 64, seed=3, b=2)[0])
+    flat = tattn.f32_operands_reference(x, True, False)
+    n = x.numel()
+    assert flat.numel() == tattn.f32_operand_floats(x.shape, True, False)
+    big, small = flat[:n].view(x.shape), flat[n:].view(x.shape)
+    torch.testing.assert_close(big, tattn.tf32_round(x), rtol=0, atol=0)
+    assert not bool((flat.view(torch.int32) & 0x1FFF).any())
+    assert float(((big + small - x).abs() / x.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("t", [1, 8, 13, 77])
+def test_transposed_planes_hold_each_8_rows_in_the_kernels_order(t):
+    """The transposed planes [2][B*H][dh][Tp]: Tp = T rounded up to 8,
+    position p of each 8 holds row F32_ROW_ORDER[p] of those 8 (the
+    kernels read an accumulator's columns 2j and 2j + 1 as k = j and
+    j + 4), zeros past T."""
+    b, h, dh = 1, 2, 64
+    x = torch.as_tensor(_inputs(t, dh, seed=t, b=b, h=h)[0])
+    tp = tattn.f32_padded_t(t)
+    assert tp % 8 == 0 and t <= tp < t + 8
+    flat = tattn.f32_operands_reference(x, False, True)
+    assert flat.numel() == tattn.f32_operand_floats(x.shape, False, True)
+    big = flat[:b * h * dh * tp].view(b * h, dh, tp)
+    rows = tattn.tf32_round(x).view(b * h, t, dh)
+    assert tattn.F32_ROW_ORDER == (0, 2, 4, 6, 1, 3, 5, 7)
+    for pos in range(tp):
+        src = pos - pos % 8 + tattn.F32_ROW_ORDER[pos % 8]
+        want = rows[:, src] if src < t else torch.zeros(b * h, dh)
+        assert torch.equal(big[:, :, pos], want), pos
+
+
+@pytest.mark.parametrize("t", [1, 77, 2048, 2049])
+def test_split_planes_meet_the_tma_alignment_rules(t):
+    """What the kernels' tensor maps need of the prepared operands:
+    every plane starts 16-byte aligned past the buffer's start, and each
+    plane's row stride (dh or Tp floats) is a multiple of 16 bytes."""
+    b, h = 2, 8
+    for dh in (64, 128):
+        rows_bytes = 4 * tattn.f32_operand_floats((b, h, t, dh), True,
+                                                   False)
+        plane = b * h * t * dh * 4
+        cols_plane = b * h * dh * tattn.f32_padded_t(t) * 4
+        assert rows_bytes == 2 * plane
+        assert plane % 16 == 0 and cols_plane % 16 == 0
+        assert (dh * 4) % 16 == 0
+        assert (tattn.f32_padded_t(t) * 4) % 16 == 0
+
+
+def test_split_wrapper_passes_the_planes_where_the_kernels_read_them(
+        monkeypatch):
+    """``f32_operands`` makes one launch for all its operands: one buffer
+    of their ``f32_operand_floats``, each operand's rows planes at its
+    start and its transposed planes right after them (null where not
+    asked for), every pointer 16-byte aligned, with x's B, H, T, dh."""
+    import types
+
+    calls = []
+
+    def split(xs, rows, cols, n, *shape):
+        calls.append(([xs[i] for i in range(n)], [rows[i] for i in range(n)],
+                      [cols[i] for i in range(n)], n, shape))
+        return 0
+
+    monkeypatch.setattr(tattn, "_flash_lib", lambda: types.SimpleNamespace(
+        dl4j_flash_attention_split=split))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    modes = [(True, True), (True, False), (False, True), (True, True)]
+    xs = [torch.zeros(2, 3, 13, 64) for _ in modes]
+    outs = tattn.f32_operands([(x, r, c) for x, (r, c) in zip(xs, modes)])
+    (xp, rows_p, cols_p, n, shape), = calls
+    assert n == 4 and shape[:4] == (2, 3, 13, 64)
+    assert xp == [x.data_ptr() for x in xs]
+    base = outs[0].data_ptr()
+    for i, (out, (r, c)) in enumerate(zip(outs, modes)):
+        assert out.dtype == torch.float32
+        assert out.numel() == tattn.f32_operand_floats(xs[i].shape, r, c)
+        assert out.data_ptr() == base + 4 * sum(o.numel() for o in outs[:i])
+        skip = 4 * tattn.f32_operand_floats(xs[i].shape, True, False)
+        assert rows_p[i] == (out.data_ptr() if r else None)
+        assert cols_p[i] == (out.data_ptr() + (skip if r else 0)
+                             if c else None)
+        for p in (rows_p[i], cols_p[i]):
+            assert p is None or p % 16 == 0
