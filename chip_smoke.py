@@ -29,9 +29,11 @@ JAX or of the JAX package. Phases, each fatal on failure:
    (``conv_taps``, LeNet's conv1: its tensor-core kernel for bf16 x with
    bf16 W and the CUDA-core kernel for the rest, each case on the
    route it must take; at B=2048 in bf16 and f32, ragged and padded
-   batches, 1x1, 3x3 and 7x7 kernels, 529 output pixels, an inf and a
-   NaN whose non-finite outputs must sit where the plain version's do;
-   the main case rerun bit for bit; a zeroed tap must fail its limits).
+   batches, 1x1, 3x3 and 7x7 kernels, 529 output pixels, 50 and 128
+   channels (the CUDA-core kernel's output staged in pieces), an inf
+   and a NaN whose non-finite outputs must sit where the plain
+   version's do, in bf16 and in f32; each route's main case rerun bit
+   for bit; a zeroed tap must fail the bf16 and the f32 limits).
 4. training A — the width-1024 flagship (random weights from a seed) on
    K1 and on dense attention from the same params, 4 ``fit`` steps each
    at B=2, T=2048 on the Markov task, f32 and bf16: loss trajectories
@@ -57,7 +59,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    of ``evaluate``'s on the tensor-core kernel, and its share of the
    step), falling losses, and ``evaluate`` on 4096 test images at
    bench.py's 0.97 accuracy gate.
-8. LeNet card vs CPU — one set of port params, 4 f32 ``fit`` steps at
+8. LeNet f32 — the same run of the zoo's default ``lenet5(lr=0.01)``
+   (no compute dtype: f32 throughout), every K3 launch of training and
+   ``evaluate`` on the CUDA-core kernel.
+9. LeNet card vs CPU — one set of port params, 4 f32 ``fit`` steps at
    B=256 on the card (K3 on the CUDA-core kernel, the f32 route, and
    cuDNN's conv2) and on the CPU (the plain versions): loss trajectories
    and params agree.
@@ -68,8 +73,9 @@ read just after (comparison launches do not count).
 The line before the last is ``{"kernels": [...]}`` (K1's bf16 entries
 at training B's shape, its f32 entries ``flash_attention_f32`` and
 ``flash_attention_f32_bwd`` at training A's, their launches from phase
-A's f32 run; every f32 operations bound at the f32-accurate rate,
-``F32_ACCURATE_FLOPS``); the last is
+A's f32 run; K3's ``conv_taps`` and ``conv_taps_f32`` with their
+launches from phases 7 and 8; every f32 operations bound at the
+f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when any phase fails or no card is present.
 """
@@ -1036,14 +1042,33 @@ CONV_CASES = (
     (64, 1, CONV_HW, 0, _BF16, _BF16),
     (64, 7, CONV_HW, 3, _BF16, _BF16),
     # 23x23 = 529 output pixels (not a multiple of 16 or 8), H*W odd
-    (64, CONV_K, 27, 0, _BF16, _BF16))
+    (64, CONV_K, 27, 0, _BF16, _BF16),
+    # the CUDA-core kernel's guarded path (1x1, 7x7 padded), its strips
+    # past a row's end (23x23), and an output whose 16-byte stores do not
+    # line up (bf16, 20 x 529 elements an image)
+    (64, 1, CONV_HW, 0, _F32, _F32), (64, 7, CONV_HW, 3, _F32, _F32),
+    (64, CONV_K, 27, 0, _F32, _F32), (64, CONV_K, 27, 0, _BF16, _F32),
+    # images that fill a block, the output in pieces: the CUDA-core
+    # kernel's ring 3 deep (f32 128x128), 4 deep (bf16 x 128x128), 1 deep
+    # (f32 200x200), and none, the strips storing from registers (bf16 x
+    # 200x200, f32 200x200 padded, f32 240x240: the largest square image
+    # whose padded f32 copy and W fit a block at 20 channels)
+    (4, CONV_K, 128, 0, _F32, _F32), (4, CONV_K, 128, 0, _BF16, _F32),
+    (4, CONV_K, 200, 0, _F32, _F32), (4, CONV_K, 200, 0, _BF16, _F32),
+    (4, CONV_K, 200, 2, _F32, _F32), (4, CONV_K, 240, 0, _F32, _F32))
+# the CUDA-core kernel with more channels than two output buffers hold:
+# (batch, channels, kernel size, image size, padding, x dtype), staged
+# in pieces of channel-rows that start and end inside a channel
+CONV_PIECE_CASES = ((64, 128, CONV_K, CONV_HW, 0, _F32),
+                    (64, 128, CONV_K, CONV_HW, 2, _F32),
+                    (64, 50, CONV_K, 27, 0, _BF16))
 
 
-def _conv_case(gen, b, k, hw, dtype, w_dtype, dev):
-    """x [b, 1, hw, hw] in ``dtype`` and bf16-representable w [O, k, k]
+def _conv_case(gen, b, k, hw, dtype, w_dtype, dev, o=CONV_O):
+    """x [b, 1, hw, hw] in ``dtype`` and bf16-representable w [o, k, k]
     in ``w_dtype`` (the bf16 training weights, or their f32 upcast)."""
     x = torch.rand(b, 1, hw, hw, generator=gen, device=dev).to(dtype)
-    w = (torch.randn(CONV_O, k, k, generator=gen, device=dev)
+    w = (torch.randn(o, k, k, generator=gen, device=dev)
          * 0.1).bfloat16().to(w_dtype)
     return x, w
 
@@ -1096,18 +1121,18 @@ def _conv_name(b, k, hw, pad, dtype, w_dtype):
             f"{str(dtype).split('.')[-1]}, W {str(w_dtype).split('.')[-1]}")
 
 
-def conv_nonfinite_check(gen, dev) -> None:
-    """One inf and one NaN in a bf16 batch (the tensor-core kernel): the
-    non-finite outputs sit exactly where the plain version's do, and the
-    finite ones hold the bf16 limit."""
+def conv_nonfinite_check(x, w) -> None:
+    """x with one inf and one NaN (bf16 x and W: the tensor-core kernel;
+    f32: the CUDA-core kernel): the non-finite outputs sit exactly where
+    the plain version's do, and the finite ones hold the dtype's limit."""
     from deeplearning4j_tpu_torch.nn.layers.convolution import (
         conv_taps,
         conv_taps_reference,
     )
 
-    x, w = _conv_case(gen, 64, CONV_K, CONV_HW, _BF16, _BF16, dev)
+    x = x.clone()
     x[3, 0, 10, 10] = float("inf")
-    x[7, 0, 0, CONV_HW - 1] = float("nan")
+    x[7, 0, 0, x.shape[3] - 1] = float("nan")
     got = conv_taps(x, w)
     torch.cuda.synchronize()
     want = conv_taps_reference(x, w)
@@ -1116,21 +1141,77 @@ def conv_nonfinite_check(gen, dev) -> None:
         ("-inf", torch.isneginf))}
     fin = torch.isfinite(want) & torch.isfinite(got)
     errs = _conv_errors(got[fin], want[fin])
-    log(f"conv_taps B=64 with an inf and a NaN: non-finite outputs "
+    name = _conv_name(x.shape[0], w.shape[1], x.shape[2], 0, x.dtype,
+                      w.dtype)
+    log(f"{name} with an inf and a NaN: non-finite outputs "
         f"{int((~torch.isfinite(want)).sum())}, positions as the plain "
-        f"version's {same}; finite outputs {errs['ulps']:.2f} bf16 ulps")
-    if not all(same.values()) or _conv_failed(errs, _BF16):
-        raise SystemExit(f"chip_smoke: conv_taps non-finite case: {same}, "
+        f"version's {same}; finite outputs {errs['ulps']:.2f} bf16 ulps, "
+        f"/ max|ref| {errs['rel']:.3e}")
+    if not all(same.values()) or _conv_failed(errs, x.dtype):
+        raise SystemExit(f"chip_smoke: {name} non-finite case: {same}, "
                          f"{errs}")
+
+
+def conv_main_checks(x, w, got, want) -> None:
+    """A main case rerun bit for bit, and the planted fault (the centre
+    tap zeroed) failing the dtype's limit; for f32, whether the kernel's
+    output equals the plain version's bit for bit (a report: the kernel
+    sums with fused multiply-adds, the plain version rounds each product)."""
+    from deeplearning4j_tpu_torch.nn.layers.convolution import conv_taps
+
+    name = _conv_name(x.shape[0], w.shape[1], x.shape[2], 0, x.dtype,
+                      w.dtype)
+    again = conv_taps(x, w)
+    rerun = bool(torch.equal(again, got))
+    bad_w = w.clone()
+    bad_w[:, CONV_FAULT_TAP[0], CONV_FAULT_TAP[1]] = 0.0
+    f_errs = _conv_errors(conv_taps(x, bad_w), want)
+    torch.cuda.synchronize()
+    caught = _conv_failed(f_errs, x.dtype)
+    log(f"{name}: rerun bit-identical {rerun}; output bit-equal to the "
+        f"plain version's {bool(torch.equal(got, want))}; planted fault "
+        f"(tap {CONV_FAULT_TAP} zeroed): {f_errs['ulps']:.1f} bf16 ulps, "
+        f"/ max|ref| {f_errs['rel']:.3e}, max_abs_err "
+        f"{f_errs['max_abs_err']:.3e}: caught {caught}")
+    if not rerun or not caught:
+        raise SystemExit(f"chip_smoke: K3 {name}: rerun identical {rerun}, "
+                         f"planted fault {f_errs}")
+
+
+def conv_pieces_check(gen, dev) -> None:
+    """The CUDA-core kernel at CONV_PIECE_CASES (more channels than its
+    two output buffers hold) against the plain version, at the dtype's
+    limit."""
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        conv_taps,
+        conv_taps_reference,
+    )
+
+    for b, o, k, hw, pad, dtype in CONV_PIECE_CASES:
+        x, w = _conv_case(gen, b, k, hw, dtype, _F32, dev, o=o)
+        mma0 = conv_taps.mma_launches
+        got = conv_taps(x, w, (pad, pad))
+        torch.cuda.synchronize()
+        errs = _conv_errors(got, conv_taps_reference(x, w, (pad, pad)))
+        name = f"{_conv_name(b, k, hw, pad, dtype, _F32)}, O={o}"
+        log(f"{name} (CUDA cores, staged in pieces): max_abs_err "
+            f"{errs['max_abs_err']:.3e}, / max|ref| {errs['rel']:.3e}, "
+            f"bf16 ulps {errs['ulps']:.2f}")
+        if (conv_taps.mma_launches != mma0 or _conv_failed(errs, dtype)
+                or not bool(torch.isfinite(got).all())):
+            raise SystemExit(f"chip_smoke: {name}: over the limit or on "
+                             f"the wrong route: {errs}")
 
 
 def conv_kernel_phase() -> list:
     """K3 held against its plain version in every CONV_CASES case, each
     on the route conv_taps must take (bf16 x with bf16 W: the tensor-
     core kernel; the rest: the CUDA-core kernel), plus an inf and a
-    NaN; the main case rerun bit for bit; the planted fault must fail
-    the bf16 limit; the CUDA-core kernel's guarded any-size path held to
-    the same limit. Times at B=2048: the tensor-core kernel, the
+    NaN in each route's main case (bf16 at B=64, f32 at B=2048); each
+    main case rerun bit for bit; the planted fault must fail the bf16
+    and the f32 limit; the CUDA-core kernel's guarded any-size path held
+    to the same limit, and its output staged in pieces (CONV_PIECE_CASES)
+    too. Times at B=2048: the tensor-core kernel, the
     CUDA-core kernel with f32 W (bf16 x, as the LeNet path ran it before
     the tensor-core kernel) and with f32 x and W, cuDNN's ``F.conv2d``,
     the plain version and the bound. Returns the kernels-line entries of
@@ -1140,6 +1221,7 @@ def conv_kernel_phase() -> list:
     from deeplearning4j_tpu_torch.nn.layers.convolution import (
         _conv_taps_launch,
         conv_taps,
+        conv_taps_plan,
         conv_taps_reference,
     )
 
@@ -1147,7 +1229,7 @@ def conv_kernel_phase() -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
     before = (conv_taps.launches, conv_taps.mma_launches)
-    entries, main_x = {}, None
+    entries, mains = {}, {}
     for b, k, hw, pad, dtype, w_dtype in CONV_CASES:
         x, w = _conv_case(gen, b, k, hw, dtype, w_dtype, dev)
         mma0 = conv_taps.mma_launches
@@ -1157,7 +1239,11 @@ def conv_kernel_phase() -> list:
         want = conv_taps_reference(x, w, (pad, pad))
         errs = _conv_errors(got, want)
         name = _conv_name(b, k, hw, pad, dtype, w_dtype)
-        log(f"{name} ({'tensor cores' if mma else 'CUDA cores'}): "
+        route = "tensor cores" if mma else (
+            "CUDA cores, ring stages and channel-rows a piece %s"
+            % (conv_taps_plan(CONV_O, hw, hw, k, k, pad, pad,
+                              x.element_size()),))
+        log(f"{name} ({route}): "
             f"max_abs_err {errs['max_abs_err']:.3e}, / max|ref| "
             f"{errs['rel']:.3e} (f32 tol {CONV_TOL_F32}), bf16 ulps "
             f"{errs['ulps']:.2f} (bf16 tol {CONV_TOL_ULPS})")
@@ -1184,11 +1270,9 @@ def conv_kernel_phase() -> list:
         entry = dict(max_abs_err=errs["max_abs_err"], ms=ms,
                      plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                      library_ms=lib_ms)
-        if mma:
-            entries["conv_taps"] = entry
-            main_x, main_w, main_got, main_want = x, w, got, want
-        elif dtype == _F32:
-            entries["conv_taps_f32"] = entry
+        if mma or dtype == _F32:
+            entries["conv_taps" if mma else "conv_taps_f32"] = entry
+            mains[dtype] = (x, w, got, want)
         else:
             guarded = _conv_taps_launch(x, w, (0, 0), guarded=True)
             g_errs = _conv_errors(guarded, want)
@@ -1203,21 +1287,12 @@ def conv_kernel_phase() -> list:
                 raise SystemExit(f"chip_smoke: {name}, guarded path: over "
                                  f"the limit: {g_errs}")
 
-    name = _conv_name(CONV_B, CONV_K, CONV_HW, 0, _BF16, _BF16)
-    again = conv_taps(main_x, main_w)
-    rerun = bool(torch.equal(again, main_got))
-    bad_w = main_w.clone()
-    bad_w[:, CONV_FAULT_TAP[0], CONV_FAULT_TAP[1]] = 0.0
-    f_errs = _conv_errors(conv_taps(main_x, bad_w), main_want)
-    torch.cuda.synchronize()
-    log(f"{name}: rerun bit-identical {rerun}; planted fault (tap "
-        f"{CONV_FAULT_TAP} zeroed): {f_errs['ulps']:.1f} bf16 ulps, "
-        f"max_abs_err {f_errs['max_abs_err']:.3e}: caught "
-        f"{_conv_failed(f_errs, _BF16)}")
-    if not rerun or not _conv_failed(f_errs, _BF16):
-        raise SystemExit(f"chip_smoke: K3 main case: rerun identical "
-                         f"{rerun}, planted fault {f_errs}")
-    conv_nonfinite_check(gen, dev)
+    for x, w, got, want in mains.values():
+        conv_main_checks(x, w, got, want)
+    conv_nonfinite_check(*_conv_case(gen, 64, CONV_K, CONV_HW, _BF16, _BF16,
+                                      dev))
+    conv_nonfinite_check(*mains[_F32][:2])
+    conv_pieces_check(gen, dev)
     conv_taps.launches, conv_taps.mma_launches = before
     src = "deeplearning4j_tpu_torch/csrc/conv_taps.cu"
     rep = "scripts/lenet_breakdown.py:148"
@@ -1682,9 +1757,12 @@ def serving_phase(card: str) -> int:
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
 # bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
 # windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
-# synthetic test images); then 2 timed windows
+# synthetic test images); then 2 timed windows. The same run in f32:
+# the zoo's default lenet5() (no compute dtype) at lr 0.01, where f32
+# LeNet converges at B=2048 (BENCHMARKS.md, mixed precision).
 LENET_B, LENET_WINDOW, LENET_SETUP, LENET_TIMED = 2048, 64, 7, 2
 LENET_N_TRAIN, LENET_N_TEST, LENET_EVAL_BATCH = 8 * 2048, 4096, 1024
+LENET_LR = {"bfloat16": 0.002, "float32": 0.01}
 ACCURACY_GATE = 0.97
 # card vs CPU: one set of params, 4 f32 fit steps at B=256, TF32 off;
 # losses within ROADMAP's 5e-3 relative, params within max |diff|
@@ -1705,12 +1783,13 @@ def _lenet(lr, compute_dtype=None, device=None):
     return MultiLayerNetwork(conf, device=device or DEVICE).init()
 
 
-def lenet_phase(card: str, k3_ms: float) -> int:
-    """Phase 7: train LeNet as bench.py does, time 2 windows, gate the
-    accuracy; every K3 launch of the bf16 training and evaluate path
-    must go to the tensor-core kernel. ``k3_ms`` is that kernel's time
-    at this shape (kernels phase). Returns its launches over the
-    training steps."""
+def lenet_phase(card: str, k3_ms: float, dtype: str = "bfloat16") -> int:
+    """Phases 7 and 8: train LeNet as bench.py does (bf16 compute) or as
+    the zoo builds it (f32: no compute dtype), time 2 windows, gate the
+    accuracy; every K3 launch of the training and evaluate path must go
+    to the route of the dtype (bf16: the tensor-core kernel; f32: the
+    CUDA-core kernel). ``k3_ms`` is that kernel's time at this shape
+    (kernels phase). Returns its launches over the training steps."""
     from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         flash_attention,
@@ -1718,7 +1797,8 @@ def lenet_phase(card: str, k3_ms: float) -> int:
     )
     from deeplearning4j_tpu_torch.nn.layers.convolution import conv_taps
 
-    net = _lenet(0.002, "bfloat16")
+    lr = LENET_LR[dtype]
+    net = _lenet(lr, dtype if dtype != "float32" else None)
     ds = mnist_dataset(train=True, num_examples=LENET_N_TRAIN)
     batches = ds.batch_by(LENET_B)
     reps = -(-LENET_WINDOW // len(batches))
@@ -1755,7 +1835,9 @@ def lenet_phase(card: str, k3_ms: float) -> int:
     accuracy = net.evaluate(test.batch_by(LENET_EVAL_BATCH)).accuracy()
     eval_launches, eval_mma = conv_taps.launches, conv_taps.mma_launches
     falling = np.mean(last_loss) < np.mean(first)
-    log(f"LeNet: lenet5(lr=0.002), bf16, B={LENET_B}; set-up "
+    mma = dtype == "bfloat16"
+    route = "on the tensor cores" if mma else "on the CUDA cores"
+    log(f"LeNet: lenet5(lr={lr}), {dtype}, B={LENET_B}; set-up "
         f"{LENET_SETUP} x {LENET_WINDOW} steps in {setup_s:.3f} s, first "
         f"window losses {first[0]:.6f} -> {first[-1]:.6f}, last timed "
         f"window {last_loss[0]:.6f} -> {last_loss[-1]:.6f}; timed windows "
@@ -1764,31 +1846,32 @@ def lenet_phase(card: str, k3_ms: float) -> int:
         f"peak memory {peak / 2**30:.3f} GiB; K3 launches {launches} over "
         f"{steps} steps ({mma_launches} on the tensor cores), "
         f"{eval_launches} over {LENET_N_TEST // LENET_EVAL_BATCH} evaluate "
-        f"batches ({eval_mma} on the tensor cores); K3 "
+        f"batches ({eval_mma} on the tensor cores); K3 {route} "
         f"{k3_ms:.4f} ms x 1 launch a step = {k3_ms / (step_s * 1e3):.1%} "
         f"of the step; synthetic test accuracy {accuracy:.4f} (gate "
         f"{ACCURACY_GATE}) [{card}]")
-    if (launches != steps or mma_launches != launches
-            or others != (0, 0, 0) or eval_mma != eval_launches
+    if (launches != steps or mma_launches != (launches if mma else 0)
+            or others != (0, 0, 0)
+            or eval_mma != (eval_launches if mma else 0)
             or eval_launches != LENET_N_TEST // LENET_EVAL_BATCH
             or not np.all(np.isfinite(first + last_loss)) or not falling
             or accuracy < ACCURACY_GATE):
         raise SystemExit(
-            f"chip_smoke: LeNet phase failed: K3 launches {launches} (want "
-            f"{steps}, tensor cores {mma_launches}), evaluate "
-            f"{eval_launches} (tensor cores {eval_mma}), other kernels "
-            f"{others}, "
+            f"chip_smoke: LeNet {dtype} phase failed: K3 launches "
+            f"{launches} (want {steps}, tensor cores {mma_launches}), "
+            f"evaluate {eval_launches} (tensor cores {eval_mma}), other "
+            f"kernels {others}, "
             f"losses {first} ... {last_loss}, accuracy {accuracy}")
     del net, feats, labels
     torch.cuda.empty_cache()
-    return mma_launches
+    return launches
 
 
-def lenet_parity_phase(card: str) -> int:
-    """Phase 8: one set of port params on the card and on the CPU, 4
-    f32 fit steps each at B=256: the card runs K3 (the CUDA-core kernel, the
-    f32 route) and cuDNN's conv2, the CPU the plain tap loop and its
-    conv2. Returns K3's launches on the card."""
+def lenet_parity_phase(card: str) -> None:
+    """Phase 9: one set of port params on the card and on the CPU, 4
+    f32 fit steps each at B=256: the card runs K3 (the CUDA-core kernel,
+    the f32 route, once a step) and cuDNN's conv2, the CPU the plain tap
+    loop and its conv2."""
     from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
     from deeplearning4j_tpu_torch.nn.layers.convolution import conv_taps
 
@@ -1819,7 +1902,6 @@ def lenet_parity_phase(card: str) -> int:
         raise SystemExit(f"chip_smoke: LeNet card vs CPU failed: rel {rel},"
                          f" param diff {pdiff}, K3 launches {launches} "
                          f"({mma_launches} on the tensor cores)")
-    return launches
 
 
 def main() -> int:
@@ -1833,9 +1915,11 @@ def main() -> int:
     launches = training_parity_phase(card)
     launches.update(training_long_phase(card, k1_long_ms))
     launches["paged_attention"] = serving_phase(card)
-    k3_ms = {k["name"]: k["ms"] for k in conv}["conv_taps"]
-    launches["conv_taps"] = lenet_phase(card, k3_ms)
-    launches["conv_taps_f32"] = lenet_parity_phase(card)
+    k3_ms = {k["name"]: k["ms"] for k in conv}
+    launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
+    launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],
+                                            "float32")
+    lenet_parity_phase(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(card)

@@ -24,6 +24,8 @@
 // 15.0 us at 3.35 TB/s, and does 2 * 2048 * 20 * 25 * 576 = 1.18 GFLOP,
 // 1.2 us at the bf16 tensor-core rate (17.6 us as f32 FMAs on the CUDA
 // cores). So the bound is the bytes, and the output is 15x the input.
+// In f32 (the zoo's default lenet5()) the bytes double: 6.42 MB of x and
+// 94.37 MB of out, 30.1 us, against the same 17.6 us of FMAs.
 //
 // The tensor-core kernel (bf16 x, bf16 W)
 // ---------------------------------------
@@ -92,18 +94,81 @@
 // formula (MmaLayout below is the same layout), which the wrapper
 // checks against the card's limit before launching.
 //
-// The CUDA-core kernel
-// ---------------------
-// One thread block per image. The block stages the zero-padded image
-// [Hp, Wp] and all weights [O, kh, kw] in shared memory as f32, then
-// each thread owns one output pixel at a time: it loads its kh*kw taps
-// into registers once and runs O accumulators over them, reading each
-// weight as a shared-memory broadcast (one LDS per FMA: its limit), in
-// the plain version's order, so it matches it bit for bit. LeNet's 5x5
-// is compiled with its tap count fixed; other sizes up to 7x7 take a
-// guarded path, unrolled to 7x7 under the run-time kh, kw. Its shared
-// memory is ``conv_taps_smem_bytes``: the padded image and the weights
-// in f32.
+// The CUDA-core kernel (f32 x, or bf16 x with an f32 W)
+// -----------------------------------------------------
+// At LeNet's shape in f32 it is bytes-bound (30.1 us, 94% of it the
+// output) as long as its 590 M fused multiply-adds issue at close to one
+// a lane a clock: 17.6 us at 67 TFLOP/s. A warp issues one instruction a
+// clock and an SM's four schedulers four FFMAs, so every other
+// instruction costs an FFMA's slot; one shared load per FFMA, as in a
+// thread-per-pixel layout, halves the rate at best and leaves the
+// kernel bound by the shared-memory pipe. So:
+//
+// Register blocking. A thread owns a strip of kStrip = 8 consecutive
+// output pixels of one row and a group of channels. It loads the strip's
+// input window (kh rows of 8 + kw - 1 floats) into registers once; for
+// each of its channels it reads the weights from shared memory as
+// 16-byte broadcasts of 4 taps (each channel's taps zero-padded to whole
+// float4s) and each weight serves the 8 pixels: at 5x5, 7 LDS.128 per 200
+// FFMA. Weights in the constant bank (an FFMA operand c[..], no load at
+// all) were weighed and not taken: W changes every training step and lives
+// on the card, so each launch would first copy it device to device into a
+// __constant__ symbol, one more operation on the stream, and two calls on
+// different streams would race for the one symbol (a kernel parameter
+// would need W on the host). The broadcasts cost about 4% of the issue
+// slots and share nothing between launches.
+//
+// Sums: each output is one fmaf chain over the taps from 0, dy-major and
+// dx-minor, as the thread-per-pixel kernel this one replaced summed. The
+// plain version (conv_taps_reference) multiplies, then adds, rounding
+// twice, so at f32 the two agree to within a few roundings of the sum,
+// not bit for bit (chip_smoke.py holds them to CONV_TOL_F32, relative to
+// the largest output); at bf16 x the f32 sum is rounded once to bf16,
+// within CONV_TOL_ULPS of the plain version's.
+//
+// Input: persistent blocks (kFfmaBlocksPerSM an SM) walk over the images,
+// each landing by one cp.async.bulk into an mbarrier ring of up to
+// kFfmaStages images (the tensor-core kernel's helpers): images are small
+// (3,136 bytes in f32), and under the output's write traffic a 2-deep
+// ring left the blocks waiting on their next image. f32 x without padding
+// is read where it lands; bf16 x, or padding > 0, is first copied as f32
+// into the interior of a zero-padded image whose halo is written once.
+// Every image buffer is followed by kSlack floats, so a strip that runs
+// past its row's end reads inside the buffer (its outputs past Wo are
+// never stored).
+//
+// Output: the block stages its output in shared memory in x's dtype, by
+// pieces of whole channel-rows [c, i, :], which lie one after another in
+// out: the whole image [O, Ho*Wo] at LeNet's shape (46,080 bytes a buffer
+// in f32), fewer channel-rows (at least one) where the image and the ring
+// leave less room. A thread stages its strip with 16-byte stores (the two
+// halves of an f32 strip in the order that puts the eight lanes of a store
+// phase on eight bank groups). Each piece goes out by one bulk async copy
+// from shared to global memory, two buffers, its group waited on before
+// the buffer is reused; where a piece's size or address is not a multiple
+// of 16 bytes, the block writes it with 16-byte vector stores instead, one
+// element at a time only at its two ends.
+//
+// The plan: the ring's depth (stages) and a piece's channel-rows
+// (piece_rows) are the launch's arguments, chosen by the wrapper
+// (conv_taps_plan in nn/layers/convolution.py) for the image at hand: the
+// deepest ring up to kFfmaStages, then the most rows up to 96 KB of both
+// buffers, that fit a block. An image too large for even one ring stage
+// and one row of each buffer (at 20 channels, 5x5: f32 from 239 x 239,
+// bf16 x from 196 x 196, f32 padded by 2 from 168 x 168) runs with
+// stages = 0, on the guarded path, in no more shared memory than the
+// zero-padded f32 image and W take: the block reads each image from
+// global memory itself into the padded image (no ring), W's rows are not
+// padded, a strip's window reads nothing past its row, and the strips
+// store to global memory from registers (no staging). So the kernel takes
+// every image whose padded f32 copy and W fit a block.
+//
+// LeNet's 5x5 is compiled with its tap count fixed; other sizes up to 7x7
+// take a guarded path in the same kernel (strips of kGuardedStrip = 4
+// pixels, the taps under the run-time kh, kw, one scalar weight load per
+// tap). Shared memory: ``conv_taps_smem_bytes`` in
+// nn/layers/convolution.py is its one formula (FfmaLayout below is the
+// same layout); the launch refuses less than the layout takes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -114,107 +179,10 @@
 namespace {
 
 constexpr int kMaxTaps = 7;
-constexpr int kMaxThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// KH = KW = 0: kh and kw at run time (<= kMaxTaps), guarded taps.
-template <typename T, int KH, int KW>
-__global__ void conv_taps_kernel(const T* __restrict__ x,
-                                 const float* __restrict__ w,
-                                 T* __restrict__ out, int O, int H, int W,
-                                 int kh_rt, int kw_rt, int ph, int pw) {
-  constexpr int MH = KH ? KH : kMaxTaps;
-  constexpr int MW = KW ? KW : kMaxTaps;
-  const int kh = KH ? KH : kh_rt;
-  const int kw = KW ? KW : kw_rt;
-  const int hp = H + 2 * ph;
-  const int wp = W + 2 * pw;
-  const int ho = hp - kh + 1;
-  const int wo = wp - kw + 1;
-  const int taps = kh * kw;
-
-  extern __shared__ float smem[];
-  float* img = smem;              // [hp, wp], zero-padded
-  float* ws = img + hp * wp;      // [O, kh, kw]
-
-  const int b = blockIdx.x;
-  const T* xb = x + (size_t)b * H * W;
-  for (int idx = threadIdx.x; idx < hp * wp; idx += blockDim.x) {
-    const int r = idx / wp - ph;
-    const int c = idx % wp - pw;
-    img[idx] = (r >= 0 && r < H && c >= 0 && c < W)
-                   ? to_f32(xb[r * W + c]) : 0.f;
-  }
-  for (int idx = threadIdx.x; idx < O * taps; idx += blockDim.x)
-    ws[idx] = w[idx];
-  __syncthreads();
-
-  T* ob = out + (size_t)b * O * ho * wo;
-  const int npix = ho * wo;
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-    const int i = p / wo;
-    const int j = p - i * wo;
-    float tap[MH * MW];
-#pragma unroll
-    for (int dy = 0; dy < MH; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < MW; ++dx)
-        tap[dy * MW + dx] =
-            (dy < kh && dx < kw) ? img[(i + dy) * wp + j + dx] : 0.f;
-    for (int o = 0; o < O; ++o) {
-      const float* wrow = ws + o * taps;
-      float acc = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < MH; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < MW; ++dx)
-          if (dy < kh && dx < kw)
-            acc = fmaf(wrow[dy * kw + dx], tap[dy * MW + dx], acc);
-      store(ob + (size_t)o * npix + p, acc);
-    }
-  }
-}
-
-// Threads per block: as few rounds over the output pixels as 256
-// threads allow, each round as full as a whole number of warps makes it.
-int block_threads(int npix) {
-  const int rounds = (npix + kMaxThreads - 1) / kMaxThreads;
-  const int per_round = (npix + rounds - 1) / rounds;
-  return ((per_round + 31) / 32) * 32;
-}
-
-template <typename T, int KH, int KW>
-cudaError_t launch(const void* x, const float* w, void* out, int B, int O,
-                   int H, int W, int kh, int kw, int ph, int pw,
-                   size_t smem, cudaStream_t stream) {
-  auto kern = conv_taps_kernel<T, KH, KW>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int npix = (H + 2 * ph - kh + 1) * (W + 2 * pw - kw + 1);
-  kern<<<B, block_threads(npix), smem, stream>>>(
-      static_cast<const T*>(x), w, static_cast<T*>(out), O, H, W, kh, kw,
-      ph, pw);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_taps(const void* x, const float* w, void* out, int B,
-                        int O, int H, int W, int kh, int kw, int ph,
-                        int pw, size_t smem, int guarded, cudaStream_t s) {
-  if (kh == 5 && kw == 5 && !guarded)
-    return launch<T, 5, 5>(x, w, out, B, O, H, W, kh, kw, ph, pw, smem, s);
-  return launch<T, 0, 0>(x, w, out, B, O, H, W, kh, kw, ph, pw, smem, s);
 }
 
 // ---------------------------------------------------------------------
@@ -674,31 +642,24 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   if (tid == 0) bulk_wait_all();
 }
 
-// A launch's configuration, kept from the last launch of the same
-// kernel, device, block and shared memory (the queries cost more than
-// the launch on a host-bound training step)
-struct MmaLaunchConfig {
+// A persistent kernel's grid: as many blocks an SM as registers and
+// shared memory allow, up to max_per_sm, on every SM, and no more than B.
+// The configuration is kept from the last launch of the same kernel,
+// device, block and shared memory (the queries cost more than the launch
+// on a host-bound training step).
+struct LaunchConfig {
   int dev = -1, threads = 0, sms = 0, per_sm = 0;
   size_t smem = 0;
 };
 
-template <int KS>
-cudaError_t launch_mma(const void* x, const void* w, void* out, int B,
-                       int O, int H, int W, int kh, int kw, int ph, int pw,
-                       int x_stride, size_t smem, cudaStream_t stream) {
-  auto kern = conv_taps_mma_kernel<KS>;
-  static MmaLaunchConfig cfg;
-  const int npix = (H + 2 * ph - kh + 1) * (W + 2 * pw - kw + 1);
-  // warps: as few rounds over the 64-pixel chunks as kMaxWarps allow,
-  // each round as full as a whole number of warps makes it
-  const int chunks = (npix + kChunk - 1) / kChunk;
-  const int rounds = (chunks + kMaxWarps - 1) / kMaxWarps;
-  const int threads = 32 * ((chunks + rounds - 1) / rounds);
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kern, LaunchConfig& cfg, int threads,
+                            size_t smem, int max_per_sm, int B, int* grid) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (cfg.dev != dev || cfg.threads != threads || cfg.smem != smem) {
-    MmaLaunchConfig c;
+    LaunchConfig c;
     c.dev = dev, c.threads = threads, c.smem = smem;
     if ((e = cudaFuncSetAttribute(
              kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -708,43 +669,470 @@ cudaError_t launch_mma(const void* x, const void* w, void* out, int B,
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &c.per_sm, kern, threads, smem)) != cudaSuccess)
       return e;
-    c.per_sm = c.per_sm < kMaxBlocksPerSM ? c.per_sm : kMaxBlocksPerSM;
+    c.per_sm = c.per_sm < max_per_sm ? c.per_sm : max_per_sm;
     if (c.per_sm < 1) return cudaErrorInvalidConfiguration;
     cfg = c;
   }
-  const long long grid = (long long)cfg.sms * cfg.per_sm;
-  kern<<<(int)(grid < B ? grid : B), threads, smem, stream>>>(
+  const long long g = (long long)cfg.sms * cfg.per_sm;
+  *grid = (int)(g < B ? g : B);
+  return cudaSuccess;
+}
+
+template <int KS>
+cudaError_t launch_mma(const void* x, const void* w, void* out, int B,
+                       int O, int H, int W, int kh, int kw, int ph, int pw,
+                       int x_stride, size_t smem, cudaStream_t stream) {
+  auto kern = conv_taps_mma_kernel<KS>;
+  static LaunchConfig cfg;
+  const int npix = (H + 2 * ph - kh + 1) * (W + 2 * pw - kw + 1);
+  // warps: as few rounds over the 64-pixel chunks as kMaxWarps allow,
+  // each round as full as a whole number of warps makes it
+  const int chunks = (npix + kChunk - 1) / kChunk;
+  const int rounds = (chunks + kMaxWarps - 1) / kMaxWarps;
+  const int threads = 32 * ((chunks + rounds - 1) / rounds);
+  int grid = 0;
+  const cudaError_t e =
+      persistent_grid(kern, cfg, threads, smem, kMaxBlocksPerSM, B, &grid);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<bf16*>(out), B, O, H, W, kh, kw, ph, pw, x_stride);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// The CUDA-core kernel
+// ---------------------------------------------------------------------
+
+constexpr int kFfmaStages = 4;       // images in flight a block, at most
+constexpr int kStrip = 8;            // pixels a strip (fixed 5x5)
+constexpr int kGuardedStrip = 4;     // pixels a strip (guarded)
+constexpr int kFfmaThreads = 288;    // threads a block, at most
+constexpr int kFfmaBlocksPerSM = 2;  // blocks an SM, at most
+constexpr int kSlack = 16;           // floats read past an image buffer
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
+
+// The shared-memory layout, in bytes from the (16-byte aligned) base, for
+// a ring of `stages` images and output buffers of `piece_rows`
+// channel-rows; the same as conv_taps_smem_bytes in
+// nn/layers/convolution.py. stages = 0: the zero-padded f32 image and W
+// alone (see the header).
+struct FfmaLayout {
+  bool direct;      // f32 x, no padding: strips read the landed image
+  int wrow;         // a channel's weights, zero-padded to whole float4s
+  int land_bytes;   // one ring stage: x's image stride (+ slack if direct)
+  int pimg_elems;   // the zero-padded f32 image + slack (unless direct)
+  int piece_rows;   // channel-rows [c, i, :] an output buffer holds
+  int out_bytes;    // one output buffer
+  int w_off, land_off, pimg_off, out_off, bytes;
+  __host__ __device__ FfmaLayout(int O, int H, int W, int kh, int kw,
+                                 int ph, int pw, int x_stride, int x_bytes,
+                                 int stages, int piece_rows_)
+      : piece_rows(piece_rows_) {
+    const int hp = H + 2 * ph, wp = W + 2 * pw;
+    const int wo = wp - kw + 1;
+    if (stages == 0) {
+      direct = false;
+      wrow = kh * kw;
+      land_bytes = out_bytes = 0;
+      pimg_elems = hp * wp;
+      pimg_off = 0;
+      w_off = 4 * pimg_elems;
+      land_off = out_off = bytes = w_off + 4 * O * wrow;
+      return;
+    }
+    direct = x_bytes == 4 && !(ph || pw);
+    wrow = round4(kh * kw);
+    land_bytes = x_bytes * x_stride + (direct ? 4 * kSlack : 0);
+    pimg_elems = direct ? 0 : round4(hp * wp) + kSlack;
+    out_bytes = round16(piece_rows * wo * x_bytes);
+    w_off = round16(8 * stages);    // an mbarrier a ring stage
+    land_off = w_off + 4 * O * wrow;
+    pimg_off = land_off + stages * land_bytes;
+    out_off = pimg_off + 4 * pimg_elems;
+    bytes = out_off + kOutBuffers * out_bytes;
+  }
+};
+
+template <typename T> struct Bits;
+template <> struct Bits<float> { using type = uint32_t; };
+template <> struct Bits<bf16> { using type = unsigned short; };
+
+// n elements from shared src to global dst: 16-byte stores where dst is
+// 16-byte aligned, one element at a time at the two ends
+template <typename U>
+__device__ void store_vectors(U* dst, const U* src, int n, int tid,
+                              int nthreads) {
+  constexpr int V = 16 / sizeof(U);
+  const int lead = (int)(((16 - reinterpret_cast<uintptr_t>(dst) % 16) % 16) /
+                         sizeof(U));
+  const int head = lead < n ? lead : n;
+  const int body = (n - head) / V;
+  for (int v = tid; v < body; v += nthreads) {
+    union {
+      uint4 u;
+      U e[V];
+    } pack;
+#pragma unroll
+    for (int k = 0; k < V; ++k) pack.e[k] = src[head + V * v + k];
+    *reinterpret_cast<uint4*>(dst + head + V * v) = pack.u;
+  }
+  for (int i = tid; i < n; i += nthreads)
+    if (i < head || i >= head + V * body) dst[i] = src[i];
+}
+
+// A strip's S outputs into its staged row at dst: 16-byte stores where
+// the strip is whole and its row allows them (vec), else up to n of them
+// one at a time. An f32 strip of 8 is two halves, stored in the order
+// `swap` gives (see the header).
+template <int S>
+__device__ __forceinline__ void stage_strip(float* dst, const float* acc,
+                                            int n, bool vec, int swap) {
+  if constexpr (S == 8) {
+    if (vec && n == S) {
+      const float4 lo = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      const float4 hi = make_float4(acc[4], acc[5], acc[6], acc[7]);
+      float4* d = reinterpret_cast<float4*>(dst);
+      d[swap] = swap ? hi : lo;
+      d[1 - swap] = swap ? lo : hi;
+      return;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < S; ++p)
+    if (p < n) dst[p] = acc[p];
+}
+
+template <int S>
+__device__ __forceinline__ void stage_strip(bf16* dst, const float* acc,
+                                            int n, bool vec, int) {
+  if constexpr (S == 8) {
+    if (vec && n == S) {
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(pack_bf16(acc[0], acc[1]), pack_bf16(acc[2], acc[3]),
+                     pack_bf16(acc[4], acc[5]), pack_bf16(acc[6], acc[7]));
+      return;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < S; ++p)
+    if (p < n) dst[p] = __float2bfloat16(acc[p]);
+}
+
+// KH = KW = 0: kh and kw at run time (<= kMaxTaps), guarded taps.
+template <typename T, int KH, int KW>
+__global__ void __launch_bounds__(kFfmaThreads, kFfmaBlocksPerSM)
+    conv_taps_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                     T* __restrict__ out, int B, int O, int H, int W,
+                     int kh_rt, int kw_rt, int ph, int pw, int x_stride,
+                     int stages, int piece_rows) {
+  constexpr bool kFixed = KH > 0;
+  constexpr int S = kFixed ? kStrip : kGuardedStrip;
+  constexpr int MH = kFixed ? KH : kMaxTaps;
+  constexpr int MW = kFixed ? KW : kMaxTaps;
+  constexpr int NC = S + MW - 1;          // a window row's floats
+  const int kh = kFixed ? KH : kh_rt;
+  const int kw = kFixed ? KW : kw_rt;
+  const int hp = H + 2 * ph, wp = W + 2 * pw;
+  const int ho = hp - kh + 1, wo = wp - kw + 1;
+  const int spr = (wo + S - 1) / S;       // strips a row
+  const int strips = ho * spr;
+  const int rows = O * ho;                // channel-rows [c, i, :]
+  const size_t n_out = (size_t)rows * wo;
+  const int taps = kh * kw;
+  const FfmaLayout L(O, H, W, kh, kw, ph, pw, x_stride, sizeof(T), stages,
+                     piece_rows);
+  // no ring and no staging (see the header); the launch takes the guarded
+  // path for it
+  const bool tight = !kFixed && stages == 0;
+
+  extern __shared__ __align__(16) uint8_t ffma_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ffma_smem);
+  float* ws = reinterpret_cast<float*>(ffma_smem + L.w_off);
+  uint8_t* land = ffma_smem + L.land_off;
+  float* pimg = reinterpret_cast<float*>(ffma_smem + L.pimg_off);
+  T* ostage = reinterpret_cast<T*>(ffma_smem + L.out_off);
+  const int out_elems = L.out_bytes / (int)sizeof(T);
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(full + s, 1);
+    mbar_init_fence();
+  }
+  for (int i = tid; i < O * L.wrow; i += nthreads) {
+    const int o = i / L.wrow, t = i - o * L.wrow;
+    ws[i] = t < taps ? w[o * taps + t] : 0.f;
+  }
+  // zeros that no copy overwrites: the slack after each landed image
+  // (direct), or the padded image's halo and slack
+  if (L.direct) {
+    for (int i = tid; i < stages * kSlack; i += nthreads)
+      reinterpret_cast<float*>(land + (i / kSlack) * L.land_bytes)
+          [x_stride + i % kSlack] = 0.f;
+  } else {
+    for (int i = tid; i < L.pimg_elems; i += nthreads) pimg[i] = 0.f;
+  }
+  __syncthreads();
+
+  const int first = blockIdx.x, step = gridDim.x;
+  const uint32_t img_bytes = sizeof(T) * x_stride;
+  // image n of this block into ring stage s (n % stages, which the
+  // caller keeps, so that no image pays a division by the run-time depth)
+  auto issue = [&](int n, int s) {
+    const int img = first + n * step;
+    if (img >= B) return;
+    mbar_expect_tx(full + s, img_bytes);
+    bulk_load(land + s * L.land_bytes, x + (size_t)img * x_stride,
+              img_bytes, full + s);
+  };
+  if (tid == 0)
+    for (int n = 0; n < stages; ++n) issue(n, n);
+
+  const int swap = (tid >> 2) & 1;
+  const bool vec_win = (wp & 3) == 0;   // window rows start on 16 bytes
+  const bool vec_out = wo % (16 / (int)sizeof(T)) == 0;
+  int piece = 0;                        // pieces this block has staged
+  int s = 0;                            // image n's ring stage
+  uint32_t phase = 0;                   // and that stage's phase
+  for (int n = 0, img = first; img < B; ++n, img += step) {
+    const float* src = pimg;
+    if (tight) {
+      // the block reads the image itself, once every strip of the last
+      // one is done with the padded image
+      __syncthreads();
+      const T* xi = x + (size_t)img * x_stride;
+      for (int i = tid; i < H * W; i += nthreads)
+        pimg[(i / W + ph) * wp + i % W + pw] = to_f32(xi[i]);
+    } else {
+      mbar_wait(full + s, phase);
+      if (L.direct) {
+        src = reinterpret_cast<const float*>(land + s * L.land_bytes);
+      } else {
+        const T* lp = reinterpret_cast<const T*>(land + s * L.land_bytes);
+        for (int i = tid; i < H * W; i += nthreads)
+          pimg[(i / W + ph) * wp + i % W + pw] = to_f32(lp[i]);
+      }
+    }
+    for (int q0 = 0; q0 < rows; q0 += L.piece_rows, ++piece) {
+      const int q1 = min(rows, q0 + L.piece_rows);
+      // tight: the strips store to out itself (one piece, the image)
+      T* ob = tight ? out + (size_t)img * n_out
+                    : ostage + (piece % kOutBuffers) * out_elems;
+      // the store that last read ob (kOutBuffers pieces ago) is done
+      if (!tight && tid == 0) bulk_wait_read<kOutBuffers - 1>();
+      __syncthreads();                  // (A) image ready, ob free
+      if (q0 == 0 && !L.direct && !tight && tid == 0) issue(n + stages, s);
+      // items: (channel group, strip); the piece's channels in groups
+      const int c_lo = q0 / ho, c_hi = (q1 - 1) / ho + 1;
+      const int groups = max(1, min(c_hi - c_lo, nthreads / strips));
+      const int per_group = (c_hi - c_lo + groups - 1) / groups;
+      for (int item = tid; item < groups * strips; item += nthreads) {
+        const int g = item / strips, r = item - g * strips;
+        const int i = r / spr, j0 = (r - i * spr) * S;
+        // the group's channels whose row i lies in the piece: q = c Ho + i
+        // in [q0, q1), a run of channels
+        const int c_first = q0 > i ? (q0 - i + ho - 1) / ho : 0;
+        const int c_end = q1 > i ? (q1 - i + ho - 1) / ho : 0;
+        const int cb = max(c_lo + g * per_group, c_first);
+        const int ce = min(min(c_hi, c_lo + (g + 1) * per_group), c_end);
+        if (cb >= ce) continue;
+        // the strip's input window: rows i .. i + kh - 1, columns
+        // j0 .. j0 + NC - 1 (past the row's end: never stored outputs)
+        float win[MH][NC];
+        const float* wsrc = src + i * wp + j0;
+#pragma unroll
+        for (int dy = 0; dy < MH; ++dy) {
+          if (!kFixed && dy >= kh) {
+#pragma unroll
+            for (int k = 0; k < NC; ++k) win[dy][k] = 0.f;
+            continue;
+          }
+          if constexpr (NC % 4 == 0) {
+            if (vec_win) {
+#pragma unroll
+              for (int k = 0; k < NC / 4; ++k) {
+                const float4 v =
+                    reinterpret_cast<const float4*>(wsrc + dy * wp)[k];
+                win[dy][4 * k] = v.x;
+                win[dy][4 * k + 1] = v.y;
+                win[dy][4 * k + 2] = v.z;
+                win[dy][4 * k + 3] = v.w;
+              }
+              continue;
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < NC; ++k)   // tight: nothing past the row
+            win[dy][k] = !tight || j0 + k < wp ? wsrc[dy * wp + k] : 0.f;
+        }
+        float acc[S];
+        if constexpr (kFixed) {
+          // weights as float4s of 4 taps, loaded two float4s ahead of
+          // their use, across channels too: a load's latency overlaps the
+          // FFMAs of the two before it
+          constexpr int T4 = round4(KH * KW) / 4;
+          static_assert(T4 >= 2, "the prefetch takes two float4s");
+          const float4* w4 = reinterpret_cast<const float4*>(ws);
+          const int row4 = L.wrow / 4;
+          float4 wq[T4];
+          wq[0] = w4[cb * row4];
+          wq[1] = w4[cb * row4 + 1];
+#pragma unroll 1
+          for (int c = cb; c < ce; ++c) {
+            const float4* wr = w4 + c * row4;
+            const float4* wn = w4 + min(c + 1, ce - 1) * row4;
+#pragma unroll
+            for (int p = 0; p < S; ++p) acc[p] = 0.f;
+            // one fmaf chain an output, taps dy-major, dx-minor
+#pragma unroll
+            for (int t4 = 0; t4 < T4; ++t4) {
+              if (t4 + 2 < T4)
+                wq[t4 + 2] = wr[t4 + 2];
+              else
+                wq[t4 + 2 - T4] = wn[t4 + 2 - T4];
+              const float4 v = wq[t4];
+              const float wt[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int t = 4 * t4 + e;
+                if (t < KH * KW) {
+#pragma unroll
+                  for (int p = 0; p < S; ++p)
+                    acc[p] = fmaf(wt[e], win[t / KW][p + t % KW], acc[p]);
+                }
+              }
+            }
+            stage_strip<S>(ob + (size_t)(c * ho + i - q0) * wo + j0, acc,
+                           min(S, wo - j0), vec_out, swap);
+          }
+        } else {
+#pragma unroll 1
+          for (int c = cb; c < ce; ++c) {
+            const float* wrow = ws + c * L.wrow;
+#pragma unroll
+            for (int p = 0; p < S; ++p) acc[p] = 0.f;
+#pragma unroll
+            for (int dy = 0; dy < MH; ++dy)
+#pragma unroll
+              for (int dx = 0; dx < MW; ++dx)
+                if (dy < kh && dx < kw) {
+                  const float wt = wrow[dy * kw + dx];
+#pragma unroll
+                  for (int p = 0; p < S; ++p)
+                    acc[p] = fmaf(wt, win[dy][p + dx], acc[p]);
+                }
+            stage_strip<S>(ob + (size_t)(c * ho + i - q0) * wo + j0, acc,
+                           min(S, wo - j0), vec_out, swap);
+          }
+        }
+      }
+      if (tight) continue;
+      fence_proxy_async();              // ob's writes, for the store
+      __syncthreads();                  // (B) piece staged
+      T* dst = out + (size_t)img * n_out + (size_t)q0 * wo;
+      const int n_piece = (q1 - q0) * wo;
+      const uint32_t bytes = sizeof(T) * n_piece;
+      if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+        if (tid == 0) bulk_store(dst, ob, bytes);
+      } else {
+        using U = typename Bits<T>::type;
+        store_vectors(reinterpret_cast<U*>(dst),
+                      reinterpret_cast<const U*>(ob), n_piece, tid,
+                      nthreads);
+      }
+    }
+    // the ring stage is free once every strip of the image is computed
+    if (L.direct && tid == 0) issue(n + stages, s);
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+}
+
+template <typename T, int KH, int KW>
+cudaError_t launch_ffma(const void* x, const float* w, void* out, int B,
+                        int O, int H, int W, int kh, int kw, int ph, int pw,
+                        int x_stride, int stages, int piece_rows,
+                        size_t smem, cudaStream_t stream) {
+  auto kern = conv_taps_kernel<T, KH, KW>;
+  static LaunchConfig cfg;
+  constexpr int S = KH ? kStrip : kGuardedStrip;
+  const int ho = H + 2 * ph - kh + 1, wo = W + 2 * pw - kw + 1;
+  const int strips = ho * ((wo + S - 1) / S);
+  // channel groups: as many as fill a block of kFfmaThreads with strips
+  int groups = kFfmaThreads / strips;
+  groups = groups < 1 ? 1 : groups > O ? O : groups;
+  const long long items = (long long)strips * groups;
+  const int threads =
+      items >= kFfmaThreads ? kFfmaThreads : (int)((items + 31) / 32 * 32);
+  int grid = 0;
+  const cudaError_t e =
+      persistent_grid(kern, cfg, threads, smem, kFfmaBlocksPerSM, B, &grid);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(x), w, static_cast<T*>(out), B, O, H, W, kh, kw,
+      ph, pw, x_stride, stages, piece_rows);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_taps(const void* x, const float* w, void* out, int B,
+                        int O, int H, int W, int kh, int kw, int ph, int pw,
+                        int x_stride, int stages, int piece_rows,
+                        size_t smem, int guarded, cudaStream_t s) {
+  if (kh == 5 && kw == 5 && !guarded && stages > 0)
+    return launch_ffma<T, 5, 5>(x, w, out, B, O, H, W, kh, kw, ph, pw,
+                                x_stride, stages, piece_rows, smem, s);
+  return launch_ffma<T, 0, 0>(x, w, out, B, O, H, W, kh, kw, ph, pw,
+                              x_stride, stages, piece_rows, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [B, 1, H, W] (dtype code 0 = float32, 1 = bfloat16), w f32
-// [O, kh, kw], out [B, O, Ho, Wo] in x's dtype; smem is the dynamic
-// shared memory the caller sized (see the note above); guarded != 0
-// takes the guarded path even for 5x5. Launches on ``stream`` and does
-// not synchronise; returns the launch's error.
+// The CUDA-core route: x [B, 1, H, W] (dtype code 0 = float32, 1 =
+// bfloat16), its images x_stride elements apart (x_stride >= H * W, a
+// whole number of 16 bytes; x 16-byte aligned), w f32 [O, kh, kw], out
+// [B, O, Ho, Wo] in x's dtype (16-byte aligned); a ring of `stages`
+// images (0..kFfmaStages; 0: none, and piece_rows = O * Ho) and output
+// pieces of `piece_rows` channel-rows (1..O * Ho), as conv_taps_plan
+// chooses them; smem as conv_taps_smem_bytes sizes it (at least
+// FfmaLayout's bytes); guarded != 0 takes the guarded path even for 5x5.
+// Launches on ``stream`` and does not synchronise; returns the launch's
+// error.
 cudaError_t dl4j_conv_taps(const void* x, const void* w, void* out, int B,
                            int O, int H, int W, int kh, int kw, int ph,
-                           int pw, int x_dtype, size_t smem, int guarded,
+                           int pw, int x_dtype, int x_stride, int stages,
+                           int piece_rows, size_t smem, int guarded,
                            void* stream) {
   if (B < 1 || O < 1 || H < 1 || W < 1 || kh < 1 || kw < 1 ||
       kh > kMaxTaps || kw > kMaxTaps || ph < 0 || pw < 0 ||
-      H + 2 * ph < kh || W + 2 * pw < kw)
+      H + 2 * ph < kh || W + 2 * pw < kw || (x_dtype != 0 && x_dtype != 1))
+    return cudaErrorInvalidValue;
+  const int x_bytes = x_dtype == 0 ? 4 : 2;
+  const int rows = O * (H + 2 * ph - kh + 1);
+  if (x_stride < H * W || (x_stride * x_bytes) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 || stages < 0 ||
+      stages > kFfmaStages || piece_rows < 1 || piece_rows > rows ||
+      (stages == 0 && piece_rows != rows))
+    return cudaErrorInvalidValue;
+  if (smem < (size_t)FfmaLayout(O, H, W, kh, kw, ph, pw, x_stride, x_bytes,
+                                stages, piece_rows)
+                 .bytes)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto wf = static_cast<const float*>(w);
   if (x_dtype == 0)
-    return launch_taps<float>(x, wf, out, B, O, H, W, kh, kw, ph, pw, smem,
-                              guarded, s);
-  if (x_dtype == 1)
-    return launch_taps<__nv_bfloat16>(x, wf, out, B, O, H, W, kh, kw, ph,
-                                      pw, smem, guarded, s);
-  return cudaErrorInvalidValue;
+    return launch_taps<float>(x, wf, out, B, O, H, W, kh, kw, ph, pw,
+                              x_stride, stages, piece_rows, smem, guarded, s);
+  return launch_taps<bf16>(x, wf, out, B, O, H, W, kh, kw, ph, pw, x_stride,
+                           stages, piece_rows, smem, guarded, s);
 }
 
 // The tensor-core route: x bf16, its images x_stride elements apart

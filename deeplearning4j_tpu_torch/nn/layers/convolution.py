@@ -56,12 +56,90 @@ def conv_taps_reference(x, w, padding=(0, 0)):
     return acc.to(x.dtype)
 
 
-def conv_taps_smem_bytes(o, h, w, kh, kw, ph, pw) -> int:
-    """Shared memory one K3 launch needs: the zero-padded image and the
-    weights in f32. The one formula for it: the wrapper refuses a shape
-    that needs more than a block has, and passes this size to the
-    kernel's launch."""
-    return 4 * ((h + 2 * ph) * (w + 2 * pw) + o * kh * kw)
+def conv_taps_image_stride(hw: int, x_bytes: int) -> int:
+    """Elements from one of x's images to the next as K3's kernels land
+    them: H*W rounded up to a whole number of 16 bytes (one bulk copy an
+    image, which needs 16-byte sizes and addresses)."""
+    per = 16 // x_bytes
+    return -(-hw // per) * per
+
+
+def _landed_images(x):
+    """Contiguous x [B, 1, H, W] as [B, stride] rows at
+    :func:`conv_taps_image_stride`, 16-byte aligned, and the stride: x
+    itself where H*W is a whole number of 16 bytes and x is aligned,
+    else a zero-padded or aligned copy."""
+    b, _, h, wd = x.shape
+    hw = h * wd
+    stride = conv_taps_image_stride(hw, x.element_size())
+    xs = x.reshape(b, hw)
+    if stride != hw:
+        xs = F.pad(xs, (0, stride - hw))
+    elif xs.data_ptr() % 16:
+        xs = xs.clone()
+    return xs, stride
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+#: the CUDA-core kernel's plan: at most this many images in its ring
+#: (``kFfmaStages`` in ``csrc/conv_taps.cu``), and at most this many
+#: bytes in its two output buffers together
+CONV_TAPS_STAGES = 4
+CONV_TAPS_OUT_BUDGET = 98304
+
+
+def conv_taps_smem_bytes(o, h, w, kh, kw, ph, pw, x_bytes, stages,
+                         piece_rows) -> int:
+    """Shared memory one launch of K3's CUDA-core kernel needs, in the
+    kernel's layout (``FfmaLayout`` in ``csrc/conv_taps.cu``) for x of
+    ``x_bytes`` an element, a ring of ``stages`` images and output
+    buffers of ``piece_rows`` channel-rows [c, i, :]: an mbarrier a
+    stage (to 16 bytes); W in f32, each channel's taps zero-padded to
+    whole float4s; the ring's landed images at
+    :func:`conv_taps_image_stride`, each followed by 16 zero floats when
+    the strips read it where it lands (f32 x, no padding), else the
+    zero-padded f32 image and 16 zero floats; and 2 output buffers in
+    x's dtype. With ``stages`` 0 (no ring, no staging) the zero-padded
+    f32 image and W alone. The one formula for it: :func:`conv_taps_plan`
+    fits it to a block, and the launch, passed this size, refuses less
+    than the layout takes."""
+    hp, wp = h + 2 * ph, w + 2 * pw
+    wo = wp - kw + 1
+    if stages == 0:
+        return 4 * (hp * wp + o * kh * kw)
+    direct = x_bytes == 4 and not (ph or pw)
+    land = (x_bytes * conv_taps_image_stride(h * w, x_bytes)
+            + (4 * 16 if direct else 0))
+    pimg = 0 if direct else 4 * (_round4(hp * wp) + 16)
+    return (_round16(8 * stages) + 4 * o * _round4(kh * kw) + stages * land
+            + pimg + 2 * _round16(piece_rows * wo * x_bytes))
+
+
+def conv_taps_plan(o, h, w, kh, kw, ph, pw, x_bytes):
+    """(stages, piece_rows) of K3's CUDA-core kernel for this image: the
+    deepest ring up to :data:`CONV_TAPS_STAGES` images, then the most
+    channel-rows an output buffer holds, up to the whole image and
+    :data:`CONV_TAPS_OUT_BUDGET` over both buffers, at which one block's
+    shared memory (``cuda_build.SMEM_PER_BLOCK``) still holds at least
+    one row. Where no ring does, ``(0, O * Ho)``: no ring and no staging,
+    in the bytes of the zero-padded f32 image and W alone."""
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    row = wo * x_bytes
+    cap = min(o * ho, max(1, CONV_TAPS_OUT_BUDGET // (2 * row)))
+    for stages in range(CONV_TAPS_STAGES, 0, -1):
+        free = cuda_build.SMEM_PER_BLOCK - conv_taps_smem_bytes(
+            o, h, w, kh, kw, ph, pw, x_bytes, stages, 0)
+        rows = min(cap, max(free, 0) // 2 // 16 * 16 // row)
+        if rows >= 1:
+            return stages, rows
+    return 0, o * ho
 
 
 def _round8(n: int) -> int:
@@ -125,10 +203,15 @@ def _conv_taps_problem(x, w, padding):
     if min(b, o, h, wd) < 1 or h + 2 * ph < kh or wd + 2 * pw < kw:
         return (f"x {tuple(x.shape)}, w {tuple(w.shape)}, padding "
                 f"{padding} give an empty output")
-    smem = conv_taps_smem_bytes(o, h, wd, kh, kw, ph, pw)
-    if smem > cuda_build.SMEM_PER_BLOCK:
-        return (f"padded image and weights need {smem} bytes of shared "
-                f"memory (limit {cuda_build.SMEM_PER_BLOCK})")
+    if conv_taps_route(x, w, padding) == "ffma":
+        el = x.element_size()
+        smem = conv_taps_smem_bytes(o, h, wd, kh, kw, ph, pw, el,
+                                    *conv_taps_plan(o, h, wd, kh, kw, ph,
+                                                    pw, el))
+        if smem > cuda_build.SMEM_PER_BLOCK:
+            return (f"the CUDA-core kernel's padded image and weights "
+                    f"need {smem} bytes of shared memory (limit "
+                    f"{cuda_build.SMEM_PER_BLOCK})")
     return None
 
 
@@ -149,7 +232,7 @@ def bind_conv_taps(lib):
     """Set the ctypes signatures of a loaded conv-taps library's
     functions; returns the library."""
     lib.dl4j_conv_taps.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
         + [ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p])
     lib.dl4j_conv_taps.restype = ctypes.c_int
     lib.dl4j_conv_taps_mma.argtypes = (
@@ -162,21 +245,25 @@ def bind_conv_taps(lib):
 
 
 def _conv_taps_launch(x, w, padding, guarded=False):
-    """K3's CUDA-core kernel on contiguous CUDA x and f32 w;
-    counted in ``conv_taps.launches``. ``guarded`` runs the any-size
-    path even where the source has a fixed-size one (5x5), so the two
-    can be timed against each other."""
+    """K3's CUDA-core kernel on contiguous CUDA x and f32 w; counted in
+    ``conv_taps.launches``. The kernel lands each image with one bulk
+    copy (:func:`_landed_images`). ``guarded`` runs the any-size path
+    even where the source has a fixed-size one (5x5), so the two can be
+    timed against each other."""
     b, _, h, wd = x.shape
     o, kh, kw = w.shape
     ph, pw = padding
+    xs, stride = _landed_images(x)
     lib = _conv_taps_lib()
     out = torch.empty((b, o, h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1),
                       dtype=x.dtype, device=x.device)
-    smem = conv_taps_smem_bytes(o, h, wd, kh, kw, ph, pw)
+    el = x.element_size()
+    plan = conv_taps_plan(o, h, wd, kh, kw, ph, pw, el)
+    smem = conv_taps_smem_bytes(o, h, wd, kh, kw, ph, pw, el, *plan)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.dl4j_conv_taps(x.data_ptr(), w.data_ptr(), out.data_ptr(), b,
+    err = lib.dl4j_conv_taps(xs.data_ptr(), w.data_ptr(), out.data_ptr(), b,
                              o, h, wd, kh, kw, ph, pw, _DTYPE_CODES[x.dtype],
-                             smem, int(guarded), stream)
+                             stride, *plan, smem, int(guarded), stream)
     _raise_on(lib, err, "conv_taps")
     conv_taps.launches += 1
     return out
@@ -192,20 +279,12 @@ def _raise_on(lib, err, name):
 def _conv_taps_mma_launch(x, w, padding):
     """K3's tensor-core kernel on contiguous CUDA bf16 x and bf16 w;
     counted in ``conv_taps.launches`` and ``conv_taps.mma_launches``.
-    The kernel lands each image with one bulk copy, which needs 16-byte
-    aligned images: where H*W is not a multiple of 8 (or x is not
-    16-byte aligned) x is copied to an image stride that is, zero-
-    padded."""
+    The kernel lands each image with one bulk copy
+    (:func:`_landed_images`)."""
     b, _, h, wd = x.shape
     o, kh, kw = w.shape
     ph, pw = padding
-    hw = h * wd
-    stride = _round8(hw)
-    xs = x.reshape(b, hw)
-    if stride != hw:
-        xs = F.pad(xs, (0, stride - hw))
-    elif xs.data_ptr() % 16:
-        xs = xs.clone()
+    xs, stride = _landed_images(x)
     lib = _conv_taps_lib()
     out = torch.empty((b, o, h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1),
                       dtype=x.dtype, device=x.device)
@@ -269,8 +348,8 @@ def conv_taps(x, w, padding=(0, 0)):
 
     x [B, 1, H, W] in float32 or bfloat16; w [O, kh, kw] in a floating
     dtype, kept (so a bf16 w reaches the tensor-core kernel and gets a
-    bf16 gradient), kh and kw <= 7, the padded image and the weights
-    within one block's shared memory for the CUDA-core kernel; anything
+    bf16 gradient), kh and kw <= 7, within one block's shared memory in
+    the layout of the kernel :func:`conv_taps_route` names; anything
     else raises. Output [B, O, Ho, Wo] in x's dtype, allocated per call;
     kernel launches go on the current stream and count in
     ``conv_taps.launches``, those of the tensor-core kernel also in

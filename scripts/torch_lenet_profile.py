@@ -1,11 +1,14 @@
 """Where a LeNet-5 training step's time goes in the PyTorch port.
 
-    python3 scripts/torch_lenet_profile.py
+    python3 scripts/torch_lenet_profile.py [--dtype float32]
 
-Needs a CUDA card. Builds the configuration ``chip_smoke.py``'s LeNet
-phase trains (bench.py's LeNet row: ``lenet5(lr=0.002)``, bf16 compute
-with an f32 head, B=2048 synthetic MNIST), warms up with one
-``fit_scan`` window, and profiles the next with ``torch.profiler``.
+Needs a CUDA card. Builds the configuration one of ``chip_smoke.py``'s
+LeNet phases trains (default bf16: bench.py's LeNet row,
+``lenet5(lr=0.002)``, bf16 compute with an f32 head; ``--dtype
+float32``: the zoo's default ``lenet5(lr=0.01)``, no compute dtype, so
+f32 throughout and K3 on its CUDA-core kernel), B=2048 synthetic MNIST,
+warms up with one ``fit_scan`` window, and profiles the next with
+``torch.profiler``.
 Prints the wall time per step, the device's busy and idle shares of
 that wall (the sum of kernel times over it: training runs on one
 stream), K3's (``conv_taps``) share of busy time, kernel launches per
@@ -15,6 +18,7 @@ of the same. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -41,9 +45,13 @@ from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
 )
 
 BATCH, WINDOW = 2048, 16
+LR = {"bfloat16": 0.002, "float32": 0.01}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=sorted(LR), default="bfloat16")
+    dtype = ap.parse_args(argv).dtype
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
@@ -52,9 +60,10 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    conf = lenet5(lr=0.002)
-    for c in conf.confs:
-        c.compute_dtype = "bfloat16"
+    conf = lenet5(lr=LR[dtype])
+    if dtype != "float32":
+        for c in conf.confs:
+            c.compute_dtype = dtype
     net = MultiLayerNetwork(conf, device="cuda").init()
     ds = mnist_dataset(train=True, num_examples=BATCH * WINDOW,
                        as_image=True)
@@ -82,22 +91,25 @@ def main() -> int:
     k3_s = sum(v for k, v in kernels.items() if "conv_taps" in k) * 1e-6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     summary = {
-        "card": card, "steps": WINDOW, "batch": BATCH,
+        "card": card, "dtype": dtype, "steps": WINDOW, "batch": BATCH,
         "ms_per_step": wall / WINDOW * 1e3,
         "examples_per_s": BATCH * WINDOW / wall,
         "device_busy_share": busy_s / wall,
         "device_idle_share": 1.0 - busy_s / wall,
         "busy_ms_per_step": busy_s / WINDOW * 1e3,
         "conv_taps_share_of_busy": k3_s / busy_s if busy_s else 0,
+        "conv_taps_ms_per_step": k3_s / WINDOW * 1e3,
         "kernels_per_step": n_kernels / WINDOW,
         "conv_taps_launches": conv_taps.launches - launches0,
         "top_kernels_ms": [(k[:80], v * 1e-3) for k, v in top],
     }
-    print(f"[{card}] {WINDOW} LeNet steps at B={BATCH} in {wall:.3f} s: "
+    print(f"[{card}] {WINDOW} LeNet {dtype} steps at B={BATCH} in "
+          f"{wall:.3f} s: "
           f"{summary['ms_per_step']:.3f} ms per step, device busy "
           f"{summary['device_busy_share']:.1%} (idle "
           f"{summary['device_idle_share']:.1%}, "
           f"{summary['busy_ms_per_step']:.3f} ms busy per step), conv_taps "
+          f"{summary['conv_taps_ms_per_step']:.4f} ms per step, "
           f"{summary['conv_taps_share_of_busy']:.1%} of busy, "
           f"{summary['kernels_per_step']:.0f} kernels per step")
     for name, ms in summary["top_kernels_ms"]:

@@ -13,12 +13,15 @@ autograd gradients against ``F.conv2d``'s (1e-5), the wrapper's refusals,
 the shared-memory size it launches with, and ``ConvolutionImpl``'s
 dispatch. For the two CUDA kernels (the tensor-core one for bf16 x with
 bf16 W, the CUDA-core one for the rest): which one the card-side
-dispatch launches, with fake libraries; the tensor-core kernel's
-shared-memory formula against the source's layout and the card's
-limits; each ctypes binding against its C prototype; and, in a model of
-the tensor cores' summation order, the ordered fix-up that holds the
-kernel to the plain version's bf16 rounding. The CUDA kernels themselves
-run only on the card (``chip_smoke.py``)."""
+dispatch launches, with fake libraries (the zoo's lenet5() reaches the
+CUDA-core kernel by default and the tensor-core one under a bf16
+compute dtype); each kernel's shared-memory formula against the
+source's layout and the card's limits; the CUDA-core kernel's partition
+of an image's output into pieces and strips, in a model of its index
+arithmetic; each ctypes binding against its C prototype; and, in a
+model of the tensor cores' summation order, the ordered fix-up that
+holds the kernel to the plain version's bf16 rounding. The CUDA kernels
+themselves run only on the card (``chip_smoke.py``)."""
 
 import ctypes
 import os
@@ -185,6 +188,34 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         conv_taps(x, w, padding)
 
 
+# (x dtype, image size, channels, padding) about the edge of a block:
+# the CUDA-core kernel takes exactly the images whose zero-padded f32 copy
+# and W fit one block's shared memory, as K3 did before its ring and
+# output staging (the plan shrinks both, down to none, to make room)
+EDGE = [(dt, n, o, p) for dt in (torch.float32, torch.bfloat16)
+        for n, o, p in ((100, 20, 0), (128, 20, 0), (200, 20, 0),
+                        (200, 20, 2), (238, 20, 0), (239, 20, 0),
+                        (240, 20, 0), (241, 20, 0), (241, 1, 0),
+                        (242, 1, 0), (237, 50, 0), (238, 50, 0))]
+
+
+@pytest.mark.parametrize("dtype,n,o,pad", EDGE)
+def test_wrapper_takes_every_image_whose_padded_copy_and_weights_fit(
+        dtype, n, o, pad):
+    x, w = torch.zeros((1, 1, n, n), dtype=dtype), torch.zeros((o, 5, 5))
+    fits = 4 * ((n + 2 * pad) ** 2 + o * 25) <= cuda_build.SMEM_PER_BLOCK
+    assert tconv.conv_taps_route(x, w, (pad, pad)) == "ffma"
+    assert tconv.takes_conv_taps(x, w, (pad, pad)) == fits
+    el = x.element_size()
+    stages, rows = tconv.conv_taps_plan(o, n, n, 5, 5, pad, pad, el)
+    smem = tconv.conv_taps_smem_bytes(o, n, n, 5, 5, pad, pad, el, stages,
+                                      rows)
+    assert (smem <= cuda_build.SMEM_PER_BLOCK) == fits
+    if stages == 0:     # no ring, no staging: the padded image and W alone
+        assert smem == 4 * ((n + 2 * pad) ** 2 + o * 25)
+        assert rows == o * (n + 2 * pad - 4)
+
+
 def test_wrapper_refuses_other_dtypes_and_devices():
     w = torch.zeros(4, 5, 5)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -219,12 +250,17 @@ def test_kernel_loader_builds_only_on_first_launch(monkeypatch):
 @pytest.mark.parametrize("xs,ws,padding", [
     ((3, 1, 28, 28), (20, 5, 5), (0, 0)),
     ((2, 1, 28, 28), (20, 5, 5), (2, 2)),
-    ((1, 1, 9, 13), (4, 3, 7), (1, 3))])
+    ((1, 1, 9, 13), (4, 3, 7), (1, 3)),
+    ((1, 1, 128, 128), (20, 5, 5), (0, 0)),
+    ((1, 1, 240, 240), (20, 5, 5), (0, 0))])
 def test_launch_passes_the_wrappers_shared_memory_size(monkeypatch, xs, ws,
                                                         padding):
-    """The kernel takes its dynamic shared memory from the wrapper, so the
-    size checked against the card's limit is the size launched with:
-    the padded image and the weights in f32."""
+    """The kernel takes its dynamic shared memory and its plan (ring
+    stages, channel-rows a piece) from the wrapper, so the size checked
+    against the card's limit is the size launched with: the CUDA-core
+    kernel's layout, rebuilt here from the source's constants. x reaches
+    it at an image stride of whole 16 bytes (9 x 13 f32: 117 elements,
+    padded to 120). 128 x 128 takes a 3-stage ring, 240 x 240 none."""
     seen = []
 
     class FakeLib:
@@ -244,9 +280,17 @@ def test_launch_passes_the_wrappers_shared_memory_size(monkeypatch, xs, ws,
     assert out.shape == (b, o, h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1)
     (args,) = seen
     assert args[3:12] == (b, o, h, wd, kh, kw, ph, pw, 0)
-    assert args[12] == 4 * ((h + 2 * ph) * (wd + 2 * pw) + o * kh * kw)
-    assert args[12] == tconv.conv_taps_smem_bytes(o, h, wd, kh, kw, ph, pw)
-    assert args[13] == 0        # the fixed-size path where the source has one
+    assert args[12] == -(-h * wd // 4) * 4
+    plan = tconv.conv_taps_plan(o, h, wd, kh, kw, ph, pw, 4)
+    assert args[13:15] == plan
+    assert plan[0] == {28: 4, 9: 4, 128: 3, 240: 0}[h]
+    src = (cuda_build.CSRC / "conv_taps.cu").read_text()
+    assert args[15] == _ffma_layout_bytes(src, o, h, wd, kh, kw, ph, pw, 4,
+                                          *plan)
+    assert args[15] == tconv.conv_taps_smem_bytes(o, h, wd, kh, kw, ph, pw,
+                                                  4, *plan)
+    assert args[15] <= cuda_build.SMEM_PER_BLOCK
+    assert args[16] == 0        # the fixed-size path where the source has one
     assert conv_taps.launches == 1
 
 
@@ -324,35 +368,85 @@ ROUTES = {
     "bf16, staging past shared memory": ((2, 1, 28, 28), (128, 5, 5),
                                          torch.bfloat16, torch.bfloat16,
                                          (0, 0), "ffma"),
+    # the CUDA-core kernel stages 128 channels in pieces
+    "f32, 128 channels": ((2, 1, 28, 28), (128, 5, 5), torch.float32,
+                          torch.float32, (0, 0), "ffma"),
+    # images that take a shallower ring, or none
+    "f32, 200x200": ((2, 1, 200, 200), (20, 5, 5), torch.float32,
+                     torch.float32, (0, 0), "ffma"),
+    "bf16 x, f32 W, 200x200": ((2, 1, 200, 200), (20, 5, 5),
+                               torch.bfloat16, torch.float32, (0, 0),
+                               "ffma"),
 }
+# conv1 of the zoo's lenet5() as the net calls it: its default (no
+# compute dtype: f32 throughout) and with compute_dtype="bfloat16"
+ZOO_ROUTES = {"zoo lenet5(), default f32": (None, "ffma"),
+              "zoo lenet5(), bf16 compute": ("bfloat16", "mma")}
 
 
-@pytest.mark.parametrize("case", sorted(ROUTES))
+def _zoo_conv1_operands(monkeypatch, compute_dtype):
+    """The x, w and padding that the zoo's ``lenet5()`` hands
+    ``conv_taps`` for conv1 in a forward on the CPU."""
+    from deeplearning4j_tpu_torch.models.zoo import lenet5
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = lenet5()
+    if compute_dtype is not None:
+        for c in conf.confs:
+            c.compute_dtype = compute_dtype
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    seen = []
+    real = tconv.conv_taps
+
+    def spy(x, w, padding=(0, 0)):
+        seen.append((x, w, padding))
+        return real(x, w, padding)
+
+    feats = np.random.default_rng(6).random((2, 1, 28, 28),
+                                            dtype=np.float32)
+    with monkeypatch.context() as m:
+        m.setattr(tconv, "conv_taps", spy)
+        net.output(feats)
+    ((x, w, padding),) = seen
+    return x.detach(), w.detach(), tuple(padding)
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES) + sorted(ZOO_ROUTES))
 def test_card_dispatch_picks_the_kernel_by_dtype_and_shape(monkeypatch,
                                                            case):
     """bf16 x with bf16 W at a shape whose staging fits goes to the
     tensor-core entry with W as it is; anything else to the CUDA-core entry
     with W upcast to float32. Decided before any launch, counted per
-    route."""
-    xs, ws, xd, wd, padding, route = ROUTES[case]
+    route. The zoo's lenet5() reaches the CUDA-core kernel by default and
+    the tensor-core kernel under a bf16 compute dtype."""
+    if case in ZOO_ROUTES:
+        compute_dtype, route = ZOO_ROUTES[case]
+        x, w, padding = _zoo_conv1_operands(monkeypatch, compute_dtype)
+    else:
+        xs, ws, xd, wd, padding, route = ROUTES[case]
+        x, w = torch.zeros(xs, dtype=xd), torch.zeros(ws, dtype=wd)
     calls = _fake_kernels(monkeypatch)
-    x, w = torch.zeros(xs, dtype=xd), torch.zeros(ws, dtype=wd)
     assert tconv.takes_conv_taps(x, w, padding)
     assert tconv.conv_taps_route(x, w, padding) == route
     out = tconv._conv_taps_kernel(x, w, padding)
-    (b, _, h, wd_), (o, kh, kw), (ph, pw) = xs, ws, padding
+    (b, _, h, wd_), (o, kh, kw), (ph, pw) = x.shape, w.shape, padding
     assert out.shape == (b, o, h + 2 * ph - kh + 1, wd_ + 2 * pw - kw + 1)
-    assert out.dtype == xd
+    assert out.dtype == x.dtype
     ((entry, args),) = calls
     assert entry == route
     assert conv_taps.launches == 1
     assert conv_taps.mma_launches == int(route == "mma")
-    if route == "ffma":
-        assert args[11] == tconv._DTYPE_CODES[xd]
-        assert args[12] == tconv.conv_taps_smem_bytes(o, h, wd_, kh, kw, ph,
-                                                      pw)
-        return
     assert args[3:11] == (b, o, h, wd_, kh, kw, ph, pw)
+    if route == "ffma":
+        el = x.element_size()
+        assert args[11] == tconv._DTYPE_CODES[x.dtype]
+        assert args[12] == -(-h * wd_ * el // 16) * 16 // el
+        plan = tconv.conv_taps_plan(o, h, wd_, kh, kw, ph, pw, el)
+        assert args[13:15] == plan
+        assert args[15] == tconv.conv_taps_smem_bytes(o, h, wd_, kh, kw, ph,
+                                                      pw, el, *plan)
+        assert len(args) == 18
+        return
     stride = -(-h * wd_ // 8) * 8       # images 16-byte aligned
     assert args[11] == stride
     assert args[12] == tconv.conv_taps_mma_smem_bytes(o, h, wd_, kh, kw, ph,
@@ -363,10 +457,7 @@ def test_card_dispatch_picks_the_kernel_by_dtype_and_shape(monkeypatch,
 def _mma_layout_bytes(src, o, h, w, kh, kw, ph, pw):
     """``MmaLayout::bytes`` of ``csrc/conv_taps.cu``, recomputed from
     the constants the source declares."""
-    import re
-
-    const = {n: int(v) for n, v in
-             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    const = _src_constants(src)
 
     def r8(n):
         return (n + 7) // 8 * 8
@@ -397,6 +488,156 @@ def test_mma_shared_memory_formula_matches_the_kernels_layout(o, h, w, kh,
     assert want % 16 == 0 and want <= cuda_build.SMEM_PER_BLOCK
     if (o, h, w, kh, kw, ph, pw) == (20, 28, 28, 5, 5, 0, 0):
         assert 4 * (want + 1024) <= 228 * 1024
+
+
+def _src_constants(src):
+    import re
+
+    return {n: int(v) for n, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def _ffma_layout_bytes(src, o, h, w, kh, kw, ph, pw, x_bytes, stages,
+                       piece_rows):
+    """``FfmaLayout::bytes`` of ``csrc/conv_taps.cu``, recomputed from
+    the constants the source declares."""
+    const = _src_constants(src)
+
+    def rnd(n, m):
+        return -(-n // m) * m
+
+    hp, wp = h + 2 * ph, w + 2 * pw
+    wo = wp - kw + 1
+    if stages == 0:
+        return 4 * hp * wp + 4 * o * kh * kw
+    direct = x_bytes == 4 and not (ph or pw)
+    stride = rnd(h * w, 16 // x_bytes)
+    land = x_bytes * stride + (4 * const["kSlack"] if direct else 0)
+    pimg = 0 if direct else rnd(hp * wp, 4) + const["kSlack"]
+    land_off = rnd(8 * stages, 16) + 4 * o * rnd(kh * kw, 4)
+    out_off = land_off + stages * land + 4 * pimg
+    return out_off + const["kOutBuffers"] * rnd(piece_rows * wo * x_bytes,
+                                                16)
+
+
+FFMA_SHAPES = {"lenet conv1": (20, 28, 28, 5, 5, 0, 0),
+               "padded": (20, 28, 28, 5, 5, 2, 2),
+               "3x3": (20, 28, 28, 3, 3, 0, 0),
+               "7x7 pad 3": (20, 28, 28, 7, 7, 3, 3),
+               "27x27": (20, 27, 27, 5, 5, 0, 0),
+               "O=1": (1, 28, 28, 5, 5, 0, 0),
+               "O=50": (50, 28, 28, 5, 5, 0, 0),
+               "128x128": (20, 128, 128, 5, 5, 0, 0),
+               "200x200": (20, 200, 200, 5, 5, 0, 0),
+               "240x240": (20, 240, 240, 5, 5, 0, 0)}
+
+
+@pytest.mark.parametrize("x_bytes", [4, 2])
+@pytest.mark.parametrize("case", sorted(FFMA_SHAPES))
+def test_ffma_shared_memory_formula_matches_the_kernels_layout(case,
+                                                               x_bytes):
+    """The wrapper's one formula for the CUDA-core kernel is the kernel's
+    layout, built from the source's own constants, at every ring depth
+    and piece size; the plan is the deepest ring, then the largest
+    pieces, that fit a block (one stage more, or one row more, does
+    not), up to the source's kFfmaStages. At LeNet's f32 shape the two
+    output buffers hold the whole image's [20, 576] f32 (46,080 bytes
+    each: one bulk store an image) in a 4-stage ring, and two blocks fit
+    an SM (228 KB, 1 KB reserved a block), the occupancy the kernel is
+    built for."""
+    o, h, w, kh, kw, ph, pw = FFMA_SHAPES[case]
+    src = (cuda_build.CSRC / "conv_taps.cu").read_text()
+    const = _src_constants(src)
+    assert tconv.CONV_TAPS_STAGES == const["kFfmaStages"]
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    limit = cuda_build.SMEM_PER_BLOCK
+
+    def size(stages, rows):
+        got = tconv.conv_taps_smem_bytes(o, h, w, kh, kw, ph, pw, x_bytes,
+                                         stages, rows)
+        assert got == _ffma_layout_bytes(src, o, h, w, kh, kw, ph, pw,
+                                         x_bytes, stages, rows)
+        return got
+
+    for stages in range(const["kFfmaStages"] + 1):
+        size(stages, 1)
+        size(stages, o * ho)
+    stages, rows = tconv.conv_taps_plan(o, h, w, kh, kw, ph, pw, x_bytes)
+    want = size(stages, rows)
+    assert want <= limit
+    if stages:
+        assert want % 16 == 0
+        cap = min(o * ho, tconv.CONV_TAPS_OUT_BUDGET // (2 * wo * x_bytes))
+        assert rows == cap or size(stages, rows + 1) > limit
+        assert stages == const["kFfmaStages"] or size(stages + 1, 1) > limit
+    else:
+        assert size(1, 1) > limit and rows == o * ho
+    if case == "lenet conv1" and x_bytes == 4:
+        assert (stages, rows) == (4, 20 * 24)
+        assert want >= 16 + 2 * 20 * 576 * 4
+        assert 2 * (want + 1024) <= 228 * 1024
+        assert const["kFfmaBlocksPerSM"] == 2
+    if case == "240x240":
+        assert stages == 0
+
+
+def _ffma_partition(src, o, h, w, kh, kw, ph, pw, x_bytes):
+    """{(c, i, j): times staged} for one image of the CUDA-core kernel:
+    its pieces of channel-rows, its block size as the launch picks it and
+    each thread's (channel group, strip) items, transcribed from
+    ``csrc/conv_taps.cu``."""
+    const = _src_constants(src)
+    stages, piece_rows = tconv.conv_taps_plan(o, h, w, kh, kw, ph, pw,
+                                              x_bytes)
+    fixed = (kh, kw) == (5, 5) and stages > 0
+    s = const["kStrip"] if fixed else const["kGuardedStrip"]
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    spr = -(-wo // s)
+    strips = ho * spr
+    groups = min(max(const["kFfmaThreads"] // strips, 1), o)
+    items = strips * groups
+    nthreads = min(const["kFfmaThreads"], -(-items // 32) * 32)
+    staged = {}
+    for q0 in range(0, o * ho, piece_rows):
+        q1 = min(o * ho, q0 + piece_rows)
+        c_lo, c_hi = q0 // ho, (q1 - 1) // ho + 1
+        g_n = max(1, min(c_hi - c_lo, nthreads // strips))
+        per_group = -(-(c_hi - c_lo) // g_n)
+        for item in range(g_n * strips):
+            g, r = divmod(item, strips)
+            i, j0 = r // spr, (r % spr) * s
+            c_first = (q0 - i + ho - 1) // ho if q0 > i else 0
+            c_end = (q1 - i + ho - 1) // ho if q1 > i else 0
+            cb = max(c_lo + g * per_group, c_first)
+            ce = min(c_hi, c_lo + (g + 1) * per_group, c_end)
+            for c in range(cb, ce):
+                assert q0 <= c * ho + i < q1
+                for j in range(j0, min(j0 + s, wo)):
+                    staged[c, i, j] = staged.get((c, i, j), 0) + 1
+    return staged, piece_rows
+
+
+@pytest.mark.parametrize("x_bytes", [4, 2])
+@pytest.mark.parametrize("o,h,w,kh,kw,ph,pw", [
+    (20, 28, 28, 5, 5, 0, 0), (128, 28, 28, 5, 5, 0, 0),
+    (50, 27, 27, 5, 5, 0, 0), (20, 28, 28, 3, 3, 0, 0),
+    (7, 13, 11, 7, 4, 3, 1), (1, 28, 28, 1, 1, 0, 0),
+    (4, 128, 128, 5, 5, 0, 0), (1, 241, 241, 5, 5, 0, 0)])
+def test_ffma_pieces_and_strips_stage_every_output_once(o, h, w, kh, kw, ph,
+                                                        pw, x_bytes):
+    """The CUDA-core kernel's partition of an image's output, in a model
+    of its index arithmetic: every output (c, i, j) is staged exactly
+    once, whether the image is one piece (LeNet's shape) or several
+    (128 channels, or a 128 x 128 image: pieces of whole channel-rows
+    that start and end inside a channel), or stored from registers with
+    no ring (241 x 241: the guarded path, one piece)."""
+    src = (cuda_build.CSRC / "conv_taps.cu").read_text()
+    staged, piece_rows = _ffma_partition(src, o, h, w, kh, kw, ph, pw,
+                                         x_bytes)
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    assert len(staged) == o * ho * wo and set(staged.values()) == {1}
+    if o == 128 or h == 128:
+        assert piece_rows % ho != 0 and piece_rows < o * ho
 
 
 def _c_prototypes():
