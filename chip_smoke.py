@@ -43,26 +43,50 @@ JAX or of the JAX package. Phases, each fatal on failure:
    1 warm-up and 2 timed ``fit`` steps through K1 in auto mode; tokens/s,
    s/step, peak memory, finite losses, K1's launches and its share of
    the step.
-6. serving — the flagship served by the paged-KV ``DecodeEngine``: every
-   request finishes, K2 launched once per layer per decode step, and one
-   decode step's forward runs with no host sync. Then the serving gate
+6. serving — the flagship served by the paged-KV ``DecodeEngine``, its
+   decode round replayed from one captured CUDA graph
+   (``compile_counts()["decode"] == 1``): every request finishes, K2
+   launched once per layer per decode step, and one decode step's
+   forward runs with no host sync; tokens/s beside the same engine on
+   eager rounds, and the graph's memory. Then the serving gate
    against an engine on the plain gather program: at f32 the greedy ids
    are identical on every request, a right program (the plain one with
    reordered score sums) passes that check and planted faults in the
    plain engine's attention fail it. At bf16 the free-running id
    agreement at prompt seed 0 is printed as a report, with each
    divergence's f32 log-probability gap; it has no bar.
-7. LeNet — bench.py's ``mnist_lenet5_train_throughput`` row:
+7. decode B=1 — bench.py's ``bench_decode`` shape (the serving net, B=1,
+   a 128-token prompt, 128 new tokens), at f32 and bf16: the
+   ``rnn_time_step`` loop's p50 per token over 32 tokens; ``generate``
+   from its captured graphs (tokens/s, median of 3 after a warm run, and
+   the graph's memory); its ids against the loop's (identical at f32,
+   >= 0.9 at bf16, bench.py's gate); one graph per pow2 bucket over
+   n_tokens 5, 100, 128 and 129 and none more on a repeat; at f32 the
+   graph against the eager body, ids identical and the final rnn state
+   bit-equal. Then ``generate`` after an unmasked 2048-token prompt:
+   K1's forward prefills it (one launch per layer) and the window slides
+   while it generates; at f32 its ids are identical to the same run with
+   the prefill forced dense (``use_flash=False``), at bf16 the agreement
+   is printed.
+8. dense engine — bench.py's ``bench_decode_batched`` shape: the
+   default ``DecodeEngine`` (dense slots) at 8 slots, ``decode_chunk=32``,
+   8 x 128-token prompts, 128 new tokens. bf16: aggregate tokens/s,
+   median of 3 runs after a warm run, above the B=1 rate;
+   ``compile_counts()`` unchanged across the timed runs with ``decode``
+   1; ids against B=1 ``generate`` >= 0.9; sampled requests of one
+   prompt from the same graph differ. f32: ids identical to B=1
+   ``generate``, and the graph round against the eager round identical.
+9. LeNet — bench.py's ``mnist_lenet5_train_throughput`` row:
    ``lenet5(lr=0.002)``, bf16 compute, B=2048 synthetic MNIST, 7
    ``fit_scan`` windows of 64 steps, then 2 timed windows (examples/s,
    s/step, peak memory, K3's launches == steps, every one of them and
    of ``evaluate``'s on the tensor-core kernel, and its share of the
    step), falling losses, and ``evaluate`` on 4096 test images at
    bench.py's 0.97 accuracy gate.
-8. LeNet f32 — the same run of the zoo's default ``lenet5(lr=0.01)``
+10. LeNet f32 — the same run of the zoo's default ``lenet5(lr=0.01)``
    (no compute dtype: f32 throughout), every K3 launch of training and
    ``evaluate`` on the CUDA-core kernel.
-9. LeNet card vs CPU — one set of port params, 4 f32 ``fit`` steps at
+11. LeNet card vs CPU — one set of port params, 4 f32 ``fit`` steps at
    B=256 on the card (K3 on the CUDA-core kernel, the f32 route, and
    cuDNN's conv2) and on the CPU (the plain versions): loss trajectories
    and params agree.
@@ -73,8 +97,9 @@ read just after (comparison launches do not count).
 The line before the last is ``{"kernels": [...]}`` (K1's bf16 entries
 at training B's shape, its f32 entries ``flash_attention_f32`` and
 ``flash_attention_f32_bwd`` at training A's, their launches from phase
-A's f32 run; K3's ``conv_taps`` and ``conv_taps_f32`` with their
-launches from phases 7 and 8; every f32 operations bound at the
+A's f32 run, each plus its prefill launches in phase 7 at its dtype;
+K3's ``conv_taps`` and ``conv_taps_f32`` with their launches from
+phases 9 and 10; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when any phase fails or no card is present.
@@ -1669,8 +1694,10 @@ def serving_phase(card: str) -> int:
     prompts = serving_prompts(0)
 
     eng = DecodeEngine(net, **geometry)
+    r0 = _reserved()
     eng.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))   # warm-up
-    eng.run()
+    eng.run()                    # captures the decode round's graph
+    graph_mem = _reserved() - r0 - _tree_bytes(eng._pool)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps0 = eng.stats["decode_steps"]
@@ -1687,13 +1714,33 @@ def serving_phase(card: str) -> int:
         raise SystemExit(
             f"chip_smoke: paged_attention launched {launches} times for "
             f"{steps} decode steps x {N_LAYERS} layers")
+    counts = eng.compile_counts()
+    if counts["decode"] != 1 or eng._graphs.captures != 1:
+        raise SystemExit(f"chip_smoke: the paged decode round is not one "
+                         f"captured graph: {counts}, "
+                         f"{eng._graphs.captures} captures")
     ttft = float(np.median([r.ttft_s for r in results]))
+    rate = N_REQUESTS * N_GEN / wall
     log(f"serving (kernel): {N_REQUESTS} requests x {N_GEN} tokens, "
-        f"{N_REQUESTS * N_GEN / wall:.1f} tokens/s aggregate, median TTFT "
+        f"{rate:.1f} tokens/s aggregate, median TTFT "
         f"{ttft * 1e3:.1f} ms, peak memory {peak / 2**30:.3f} GiB, "
-        f"{steps} decode steps, {launches} kernel launches [{card}]")
+        f"{steps} decode steps, {launches} kernel launches; the decode "
+        f"round one captured graph ({counts}), its memory "
+        f"{graph_mem / 2**20:.1f} MiB [{card}]")
     decode_forward_sync_check(eng, prompts)
     del eng
+    eager = DecodeEngine(net, **geometry)
+    eager._graphs = None          # the round body, eagerly
+    eager.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))
+    eager.run()
+    eager_res, eager_wall = serve_ids(eager, prompts)
+    eager_rate = N_REQUESTS * N_GEN / eager_wall
+    same = [r.tokens for r in eager_res] == [r.tokens for r in results]
+    log(f"serving (kernel), graph rounds against eager rounds: "
+        f"{rate:.1f} against {eager_rate:.1f} tokens/s "
+        f"({rate / eager_rate:.2f}x); ids "
+        f"identical {same} [{card}]")
+    del eager
 
     net32 = _serving_net("float32")
     for key, p in net.param_table().items():
@@ -1752,6 +1799,251 @@ def serving_phase(card: str) -> int:
             f"{identical}, right program identical {right32}, planted "
             f"faults rejected {caught}")
     return launches
+
+
+def _reserved() -> int:
+    """The card's reserved memory after freeing the allocator's unused
+    cache: what live tensors and captured graphs' pools hold."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def _tree_bytes(tree) -> int:
+    from deeplearning4j_tpu_torch.nn.streaming import tree_leaves
+
+    return sum(a.numel() * a.element_size() for a in tree_leaves(tree))
+
+
+# streaming decode: bench.py's bench_decode shape (the serving net, B=1,
+# a 128-token prompt, 128 new tokens; 32 timed rnn_time_step tokens) and
+# bench_decode_batched's (the dense engine, 8 slots, decode_chunk 32, 8
+# prompts). At bf16 the ids are held at bench.py's 0.9 agreement; at f32
+# they are identical.
+DECODE_LOOP_TOKENS = 32
+DECODE_BUCKET_NS = (5, 100, 128, 129)
+DECODE_AGREEMENT = 0.9
+# the K1 prefill: an unmasked prompt of a whole window (K1 from
+# FLASH_MIN_T = 512 on), so the window slides while it generates
+K1_PREFILL_T = WINDOW
+
+
+def _one_hot_ids(ids):
+    x = torch.zeros((1, VOCAB, len(ids)), dtype=torch.float32)
+    x[0, torch.as_tensor(list(ids)), torch.arange(len(ids))] = 1.0
+    return x.to(DEVICE)
+
+
+def _generate_ids(net, prompt, n, graphs=True):
+    """``generate`` from an empty state: the captured graphs, or with
+    ``graphs=False`` the private eager body; returns the ids as a list
+    and the wall seconds (synchronised)."""
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if graphs:
+        ids = net.generate(prompt, n)
+    else:
+        ids = net._generate(prompt, n, None)
+    ids = ids[0].tolist()
+    return ids, time.perf_counter() - t0
+
+
+def _states_equal(a, b) -> bool:
+    from deeplearning4j_tpu_torch.nn.streaming import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def decode_b1_phase(card: str, cd: str) -> tuple:
+    """Phase 7 at one dtype: the rnn_time_step loop, ``generate`` from
+    its captured graphs, their agreement, the graph count per bucket, and
+    at f32 the graph against the eager body. Returns the net and
+    ``generate``'s tokens/s."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.streaming import scan_length_bucket
+
+    net = _serving_net(cd)
+    prompt = _one_hot_ids(serving_prompts(0, n=1)[0])
+    net.rnn_clear_previous_state()
+    flash_attention.launches = paged_attention.launches = 0
+    out = net.rnn_time_step(prompt)
+    tok = int(out[0, :, -1].argmax())
+    loop_ids, lat = [tok], []
+    for _ in range(DECODE_LOOP_TOKENS):
+        t0 = time.perf_counter()
+        out = net.rnn_time_step(_one_hot_ids([tok]))
+        tok = int(out[0, :, 0].argmax())
+        lat.append(time.perf_counter() - t0)
+        loop_ids.append(tok)
+    r0 = _reserved()
+    ids, _ = _generate_ids(net, prompt, N_GEN)      # captures bucket 128
+    graph_mem = _reserved() - r0 - _tree_bytes(net._rnn_state)
+    walls = [_generate_ids(net, prompt, N_GEN)[1] for _ in range(3)]
+    rate = N_GEN / float(np.median(walls))
+    match = request_agreement(ids[:len(loop_ids)], loop_ids)
+    launches = (flash_attention.launches, paged_attention.launches)
+    counts = {}
+    for _ in range(2):
+        for n in DECODE_BUCKET_NS:
+            _generate_ids(net, prompt, n)
+        counts[len(counts)] = (len(net.generate_graphs),
+                               net.generate_graphs.captures)
+    buckets = sorted({scan_length_bucket(n - 1) for n in DECODE_BUCKET_NS})
+    log(f"decode B=1 [{cd}]: rnn_time_step loop p50 "
+        f"{float(np.median(lat)) * 1e3:.3f} ms per token over "
+        f"{DECODE_LOOP_TOKENS}; generate {N_GEN} tokens from the captured "
+        f"graph {rate:.1f} tokens/s (median of 3 after a warm run, walls "
+        f"{[round(w, 4) for w in walls]} s); ids agree with the loop "
+        f"{match:.4f}; the bucket-{scan_length_bucket(N_GEN - 1)} graph's "
+        f"memory {graph_mem / 2**20:.1f} MiB; graphs after n_tokens "
+        f"{DECODE_BUCKET_NS} (buckets {buckets}): {counts[0][0]} "
+        f"({counts[0][1]} captures), after a repeat {counts[1][0]} "
+        f"({counts[1][1]}); "
+        f"K1 / K2 launches {launches} [{card}]")
+    bar = 1.0 if cd == "float32" else DECODE_AGREEMENT
+    if (match < bar or counts[0][0] != len(buckets)
+            or counts[1] != counts[0] or launches != (0, 0)):
+        raise SystemExit(
+            f"chip_smoke: decode B=1 [{cd}] failed: loop agreement {match} "
+            f"(bar {bar}), graphs {counts} for buckets {buckets}, K1/K2 "
+            f"launches {launches} (a 128-token prefill is dense)")
+    if cd == "float32":
+        g_ids, _ = _generate_ids(net, prompt, N_GEN)
+        g_state = net._rnn_state
+        e_ids, e_wall = _generate_ids(net, prompt, N_GEN, graphs=False)
+        same_state = _states_equal(g_state, net._rnn_state)
+        log(f"decode B=1 [{cd}]: the captured graph against the eager body "
+            f"({N_GEN / e_wall:.1f} tokens/s): ids identical {g_ids == e_ids},"
+            f" final rnn state bit-equal {same_state} [{card}]")
+        if g_ids != e_ids or not same_state:
+            raise SystemExit("chip_smoke: generate's graph differs from its "
+                             "eager body")
+    return net, rate
+
+
+def decode_k1_prefill_phase(card: str, net, cd: str) -> int:
+    """Phase 7's K1 prefill at one dtype: ``generate`` after an unmasked
+    K1_PREFILL_T-token prompt (K1's forward, one launch per layer), then
+    the same run with the prefill forced dense. Identical ids at f32;
+    at bf16 the agreement is printed. Returns K1's forward launches."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+
+    prompt = _one_hot_ids(serving_prompts(1, n=1, length=K1_PREFILL_T)[0])
+    flash_attention.launches = paged_attention.launches = 0
+    k1_ids, wall = _generate_ids(net, prompt, N_GEN)
+    launches = (flash_attention.launches, paged_attention.launches)
+    beans = [c.layer for c in net.conf.confs if hasattr(c.layer,
+                                                         "use_flash")]
+    for bean in beans:
+        bean.use_flash = False
+    try:
+        dense_ids, _ = _generate_ids(net, prompt, N_GEN)
+    finally:
+        for bean in beans:
+            bean.use_flash = None
+    match = request_agreement(k1_ids, dense_ids)
+    log(f"decode K1 prefill [{cd}]: a {K1_PREFILL_T}-token prompt then "
+        f"{N_GEN} tokens ({wall:.3f} s with the prefill); K1 / K2 launches "
+        f"{launches}; ids agree with the dense prefill's {match:.4f} "
+        f"[{card}]")
+    if (launches != (N_LAYERS, 0)
+            or (cd == "float32" and k1_ids != dense_ids)):
+        raise SystemExit(
+            f"chip_smoke: K1 prefill [{cd}] failed: launches {launches} "
+            f"(want ({N_LAYERS}, 0)), agreement {match}")
+    return launches[0]
+
+
+def dense_engine_phase(card: str, nets: dict, b1_rate: float) -> None:
+    """Phase 8: the dense-slot engine at bench_decode_batched's shape,
+    bf16 timed and gated at 0.9 against B=1 ``generate``, f32 identical
+    to it and to the engine on eager rounds."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
+
+    prompts = serving_prompts(0, n=N_SLOTS)
+    for cd in ("bfloat16", "float32"):
+        net = nets[cd]
+        solo = [_generate_ids(net, _one_hot_ids(p), N_GEN)[0]
+                for p in prompts]
+        eng = DecodeEngine(net, n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK)
+        r0 = _reserved()
+        flash_attention.launches = paged_attention.launches = 0
+        res, _ = serve_ids(eng, prompts)            # warm: captures
+        graph_mem = _reserved() - r0 - _tree_bytes(eng._pool)
+        ids = [r.tokens for r in res]
+        per = agreement(ids, solo)
+        counts0 = eng.compile_counts()
+        walls = [serve_ids(eng, prompts)[1] for _ in range(3)]
+        counts1 = eng.compile_counts()
+        launches = (flash_attention.launches, paged_attention.launches)
+        rate = N_SLOTS * N_GEN / float(np.median(walls))
+        log(f"dense engine [{cd}]: {N_SLOTS} slots x {N_GEN} tokens, "
+            f"{rate:.1f} tokens/s aggregate (median of 3 after a warm run, "
+            f"walls {[round(w, 4) for w in walls]} s; B=1 bf16 generate "
+            f"{b1_rate:.1f}); ids agree with B=1 generate {np.mean(per):.4f} "
+            f"(per request {[round(x, 4) for x in per]}); compile_counts "
+            f"{counts0} -> {counts1}; the round graph's memory "
+            f"{graph_mem / 2**20:.1f} MiB; K1 / K2 launches {launches} "
+            f"[{card}]")
+        ok = (counts0 == counts1 and counts1["decode"] == 1
+              and launches == (0, 0))
+        if cd == "bfloat16":
+            ok = ok and np.mean(per) >= DECODE_AGREEMENT and rate > b1_rate
+            # the graph captured on greedy batches samples the rows that
+            # ask for it: one prompt, N_SLOTS sampled requests
+            rids = [eng.submit(Request(prompts[0], DECODE_CHUNK + 1,
+                                       temperature=1.0, top_k=8))
+                    for _ in range(N_SLOTS)]
+            res = eng.run()
+            runs = {tuple(res[i].tokens) for i in rids}
+            log(f"dense engine [{cd}]: {N_SLOTS} sampled requests of one "
+                f"prompt (temperature 1, top-k 8) from the same graph: "
+                f"{len(runs)} distinct runs; compile_counts "
+                f"{eng.compile_counts()} [{card}]")
+            ok = (ok and len(runs) > 1
+                  and eng.compile_counts()["decode"] == 1)
+        else:
+            eager = DecodeEngine(net, n_slots=N_SLOTS,
+                                 decode_chunk=DECODE_CHUNK)
+            eager._graphs = None
+            eager_ids = [r.tokens for r in serve_ids(eager, prompts)[0]]
+            log(f"dense engine [{cd}]: ids identical to B=1 generate "
+                f"{ids == solo}, graph rounds to eager rounds "
+                f"{ids == eager_ids} [{card}]")
+            ok = ok and ids == solo and ids == eager_ids
+            del eager
+        if not ok:
+            raise SystemExit(f"chip_smoke: dense engine [{cd}] failed: "
+                             f"agreement {per}, rate {rate} (B=1 "
+                             f"{b1_rate}), counts {counts0} -> {counts1}, "
+                             f"launches {launches}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def decode_phases(card: str) -> dict:
+    """Phases 7 and 8. Returns K1's prefill launches by kernels-line
+    entry (bf16 ``flash_attention``, f32 ``flash_attention_f32``)."""
+    nets, rates, k1 = {}, {}, {}
+    for cd, entry in (("float32", "flash_attention_f32"),
+                      ("bfloat16", "flash_attention")):
+        nets[cd], rates[cd] = decode_b1_phase(card, cd)
+        k1[entry] = decode_k1_prefill_phase(card, nets[cd], cd)
+    dense_engine_phase(card, nets, rates["bfloat16"])
+    return k1
 
 
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
@@ -1915,6 +2207,8 @@ def main() -> int:
     launches = training_parity_phase(card)
     launches.update(training_long_phase(card, k1_long_ms))
     launches["paged_attention"] = serving_phase(card)
+    for name, n in decode_phases(card).items():
+        launches[name] += n
     k3_ms = {k["name"]: k["ms"] for k in conv}
     launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],

@@ -3,11 +3,12 @@ wrappers of the two attention kernels.
 
 Port of ``deeplearning4j_tpu/nn/layers/attention.py``: ``AttentionImpl``
 (``apply``, ``_attend_core``, the masked dense attention, the flash
-attention of training and long prefill, the prefill KV cache and the
-paged block-pool attend) and ``TransformerBlockImpl``, over the same
-``[N, C, T]`` activations and ``[B, H, T, dh]`` heads. Ring/Ulysses
-sequence parallelism, tensor parallel head sharding and the dense-slot
-streaming attend belong to later slices.
+attention of training and long prefill, the prefill KV cache, the
+dense-slot streaming attend of ``rnn_time_step``/``generate`` and the
+dense engine, and the paged block-pool attend), ``guard_streamable`` and
+``TransformerBlockImpl``, over the same ``[N, C, T]`` activations and
+``[B, H, T, dh]`` heads. Ring/Ulysses sequence parallelism and tensor
+parallel head sharding belong to later slices.
 
 Two hand-written CUDA kernels, each with its plain PyTorch version:
 
@@ -152,10 +153,7 @@ class AttentionImpl(LayerImplBase):
         if state is not None:
             if isinstance(state, dict) and "pk" in state:
                 return cls._paged_attend(lc, q, k, v, state, mask)
-            raise NotImplementedError(
-                "dense-slot streaming (_stream_attend: rnn_time_step, "
-                "generate, the dense DecodeEngine) is not ported to the "
-                "torch package yet; serve with paged_kv=True")
+            return cls._stream_attend(lc, q, k, v, state, mask)
         if lc.ring_axis:
             raise NotImplementedError(
                 f"ring_axis={lc.ring_axis!r}: sequence-parallel attention "
@@ -205,6 +203,73 @@ class AttentionImpl(LayerImplBase):
         ck = torch.cat([zk, k], dim=2)[:, :, -tm:, :]
         cv = torch.cat([zk, v], dim=2)[:, :, -tm:, :]
         return {"k": ck, "v": cv, "filled": filled}
+
+    @classmethod
+    def _stream_attend(cls, lc, q, k, v, cache, mask=None):
+        """Dense attention of the current chunk's queries over cache +
+        chunk (``rnn_time_step``, ``generate`` and the dense-slot
+        engine). The cache ``{k, v: [N, H, tm, dh], filled: [N] int32}``
+        stays ``stream_max_t`` long (static shapes: one captured decode
+        step whatever has streamed); the oldest tokens slide out when
+        the window is exceeded.
+
+        The JAX program, kept as it is: attend over the FULL ``[cache |
+        chunk]`` extension (length ``tm + t``) and slice only the
+        returned cache (slicing before attending would drop cached keys
+        still inside the window of the chunk's early queries). Each row's
+        ``filled`` masks its cache positions, so slots at different fill
+        levels share one batched step. ``mask`` ([N, t] 1/0, right
+        padded) marks each row's valid chunk prefix: pad keys get no
+        weight, ``filled`` advances by each row's true chunk length, and
+        the pad is rotated out of view (:meth:`_right_align`) before the
+        cache is sliced.
+
+        Plain torch with no kernel behind it, so its numerics are the
+        JAX package's: scores divided by ``sqrt(dh)`` rounded to q's
+        dtype, masked to ``-1e30`` in q's dtype, softmax over the last
+        axis, in the promoted dtype of q and the cache (float32 for a
+        bf16 net: the carried cache is at the master dtype)."""
+        _check_streamable(lc)
+        tm = lc.stream_max_t
+        t = q.shape[2]
+        if t > tm:
+            raise ValueError(
+                f"rnn_time_step continuation chunk of {t} steps exceeds "
+                f"stream_max_t={tm}: raise stream_max_t or stream "
+                "smaller chunks")
+        ek = torch.cat([cache["k"], k], dim=2)            # [N,H,tm+t,dh]
+        ev = torch.cat([cache["v"], v], dim=2)
+        prev = cache["filled"]                            # [N]
+        if mask is None:
+            lengths = torch.full((q.shape[0],), t, dtype=torch.int32,
+                                 device=q.device)
+        else:
+            lengths = (mask > 0).sum(dim=1).to(torch.int32)
+        filled = torch.clamp(prev + lengths, max=tm).to(torch.int32)
+        ct = torch.promote_types(q.dtype, ek.dtype)
+        # scalars made on the device (fill kernels), never copied from
+        # the host: the body is captured into a CUDA graph
+        div = torch.full((), float(q.shape[-1]), dtype=q.dtype,
+                         device=q.device).sqrt()
+        scores = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), ek.to(ct)) / div
+        j = torch.arange(tm + t, device=q.device)         # extension pos
+        i = torch.arange(t, device=q.device)              # query i at tm+i
+        ok = ((j[None, :] <= tm + i[:, None])             # causal
+              & (j[None, :] >= i[:, None] + 1))           # last-tm window
+        # per-row validity: cache zeros (an idle or evicted slot's rows:
+        # filled == 0 masks the whole cache) never receive weight
+        ok = ok[None] & (j[None, None, :] >= tm - prev[:, None, None])
+        if mask is not None:
+            ok = ok & ((j[None, None, :] < tm)
+                       | (j[None, None, :] - tm < lengths[:, None, None]))
+        neg = torch.full((), -1e30, dtype=q.dtype, device=q.device)
+        scores = torch.where(ok[:, None], scores, neg)
+        w = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", w, ev.to(ct))
+        if mask is not None:
+            ek, ev = cls._right_align(t - lengths, ek, ev)
+        return o, {"k": ek[:, :, -tm:, :], "v": ev[:, :, -tm:, :],
+                   "filled": filled}
 
     @classmethod
     def _paged_attend(cls, lc, q, k, v, cache, mask=None):
@@ -349,6 +414,19 @@ class TransformerBlockImpl(LayerImplBase):
         if mask is not None:
             out = out * mask[:, None, :]
         return out, state
+
+
+def guard_streamable(named_layer_beans) -> None:
+    """Raise if any layer bean carries ``ring_axis``: ``rnn_time_step``
+    streams on a single device, and sequence-parallel attention cannot."""
+    for name, lc in named_layer_beans:
+        if getattr(lc, "ring_axis", None):
+            raise ValueError(
+                f"rnn_time_step streams on a single device; layer "
+                f"{name} is configured with ring_axis="
+                f"{lc.ring_axis!r} (sequence parallelism) and cannot "
+                "stream — rebuild the conf with ring_axis=None for "
+                "serving")
 
 
 def _dense_attention(q, k, v, causal, mask):
@@ -748,7 +826,9 @@ def paged_attention_reference(q, pk, pv, bid, bval, lo_blk, floor,
           & (kpos[:, None, :] <= qpos[:, :, None])
           & (kpos[:, None, :] > qpos[:, :, None] - tm)
           & (kpos[:, None, :] >= floor[:, None, None]))
-    neg = torch.tensor(-1e30, dtype=q.dtype, device=dev).to(ct)
+    # made on the device (a fill kernel): the paged decode round that
+    # calls this is captured into a CUDA graph
+    neg = torch.full((), -1e30, dtype=q.dtype, device=dev).to(ct)
     scores = torch.where(ok[:, None], scores, neg)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, ev).to(q.dtype)

@@ -3,10 +3,13 @@
 Port of ``deeplearning4j_tpu/nn/multilayer.py``: ``init`` (params and
 updater state), the mixed-precision forward ``_forward_fn`` (with
 ``remat`` as activation checkpointing), ``output``, ``param_table``,
-``set_param``, ``feed_forward``, ``predict``, ``evaluate``, and
-training: ``fit`` (a ``DataSet``, features and labels, or an iterator
-of ``DataSet``), ``fit_scan`` (K steps over stacked batches), ``score``
-and ``compute_gradient_and_score``.
+``set_param``, ``feed_forward``, ``predict``, ``evaluate``, training:
+``fit`` (a ``DataSet``, features and labels, or an iterator of
+``DataSet``), ``fit_scan`` (K steps over stacked batches), ``score``
+and ``compute_gradient_and_score``, and streaming: ``rnn_time_step``,
+``rnn_clear_previous_state`` and ``generate``, whose decode scan runs on
+the card as one captured CUDA graph per pow2 bucket
+(``nn/cuda_graphs.py``).
 Parameters are plain ``{layer_index: {name: Tensor}}`` dicts with the
 JAX package's keys, on the net's ``device``.
 
@@ -23,8 +26,7 @@ dropout 0 (the flagship) trajectories match the JAX package; with
 dropout they match only in distribution.
 
 Still out of this slice: truncated BPTT, the second-order ``Solver``,
-``fit_stream``, ``pretrain`` and the streaming
-``rnn_time_step``/``generate``.
+``fit_stream`` and ``pretrain``.
 """
 
 from __future__ import annotations
@@ -45,8 +47,16 @@ from deeplearning4j_tpu_torch.nn.conf.enums import (
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration,
 )
+from deeplearning4j_tpu_torch.nn.cuda_graphs import GraphRunner
 from deeplearning4j_tpu_torch.nn.gradient import Gradient
 from deeplearning4j_tpu_torch.nn.layers import get_impl
+from deeplearning4j_tpu_torch.nn.layers.attention import guard_streamable
+from deeplearning4j_tpu_torch.nn.streaming import (
+    make_bucketed_generate,
+    reset_streaming_state,
+    scan_length_bucket,
+    tree_map,
+)
 from deeplearning4j_tpu_torch.nn.updater.updaters import (
     make_layer_updater,
     normalize_gradients,
@@ -163,6 +173,12 @@ class MultiLayerNetwork:
         #: seeds each step's per-layer dropout generators
         self._gen = torch.Generator()
         self._gen.manual_seed(int(conf.seed))
+        #: the carried streaming state of ``rnn_time_step``/``generate``
+        self._rnn_state: Dict[str, Any] = {}
+        #: ``generate``'s captured decode graphs, one per (bucket, batch,
+        #: dtype, params version); dropped when ``params_version`` moves
+        self.generate_graphs = GraphRunner()
+        self._graphs_version = self.params_version
 
     def init(self) -> "MultiLayerNetwork":
         """Draw every layer's parameters from one ``torch.Generator`` on
@@ -543,6 +559,90 @@ class MultiLayerNetwork:
             else:
                 ev.eval(ds.labels, out)
         return ev
+
+    # ------------------------------------------------------------------
+    # Streaming (reference rnnTimeStep, rnnClearPreviousState)
+    # ------------------------------------------------------------------
+    def _stream_step(self, x, rnn):
+        """(out, new_rnn) of one streaming forward from ``rnn``."""
+        out, _, new_rnn = self._forward_fn(self.params, self.state, x, None,
+                                           False, rnn_state=rnn or None)
+        return out, new_rnn
+
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Stateful single/multi-step inference carrying the attention
+        KV caches between calls (reference rnnTimeStep). ``x`` is [N, C]
+        (one step) or [N, C, T]; returns the output [N, n_out, T]. A
+        first call prefills (K1 for an unmasked T >= ``FLASH_MIN_T`` on
+        the card); later calls continue through
+        ``AttentionImpl._stream_attend``."""
+        self.init()
+        guard_streamable(
+            (str(i), c.layer) for i, c in enumerate(self.conf.confs))
+        x = torch.as_tensor(x, dtype=self._dtype, device=self.device)
+        if x.ndim == 2:
+            x = x[:, :, None]
+        with torch.no_grad():
+            out, self._rnn_state = self._stream_step(x, self._rnn_state)
+        return out
+
+    def rnn_clear_previous_state(self, slots=None) -> None:
+        """Reset streaming state (reference rnnClearPreviousState).
+        ``slots=None`` wipes the whole batch; ``slots=[...]`` zeroes only
+        those batch rows, in place (``nn/streaming.py``: a zeroed
+        attention row is the empty-cache state)."""
+        self._rnn_state = reset_streaming_state(self._rnn_state, slots)
+
+    def generate(self, prompt, n_tokens: int) -> torch.Tensor:
+        """Greedy autoregressive generation: prefill the one-hot prompt
+        [B, V, Tp] through ``rnn_time_step``, take the first token by
+        argmax, then decode the rest in one scan of
+        ``scan_length_bucket(n_tokens - 1)`` steps with the true
+        remaining length a device tensor (steps past it freeze the
+        carry). On the card the scan is one captured CUDA graph per
+        (bucket, batch, dtype, params version), so the graph count stays
+        O(log max_tokens); on the CPU the same body runs eagerly. The
+        per-token equivalent is an ``rnn_time_step`` loop, with the same
+        ids.
+
+        Requires an LM-shaped net (n_classes == n_in, one-hot io).
+        Returns int32 ids [B, n_tokens]; leaves the rnn state at the
+        post-generation position."""
+        return self._generate(prompt, n_tokens, self.generate_graphs)
+
+    def _generate(self, prompt, n_tokens: int, graphs):
+        """``generate`` through ``graphs`` (a :class:`GraphRunner`), or
+        the eager body on any device when ``graphs`` is None."""
+        if n_tokens < 1:
+            raise ValueError(f"n_tokens {n_tokens} < 1")
+        self.init()
+        vocab = self.conf.confs[0].layer.n_in
+        out = self.rnn_time_step(prompt)   # prefill (guards streamable)
+        tok0 = torch.argmax(out[:, :, -1], dim=1).to(torch.int32)
+        if n_tokens == 1:
+            return tok0[:, None]
+        n_rem = n_tokens - 1
+        bucket = scan_length_bucket(n_rem)
+        body = make_bucketed_generate(self._stream_step, vocab,
+                                      self._dtype, bucket)
+        ops = {"rnn": self._rnn_state, "tok": tok0,
+               "n_rem": torch.full((), n_rem, dtype=torch.int32,
+                                   device=self.device)}
+        with torch.no_grad():
+            if graphs is None:
+                res = body(ops)
+            else:
+                if self._graphs_version != self.params_version:
+                    # a captured graph reads the params (and the cast
+                    # copy) it was captured with
+                    graphs.drop()
+                    self._graphs_version = self.params_version
+                key = (bucket, int(tok0.shape[0]), self._dtype,
+                       self.params_version)
+                res = graphs.run(key, body, ops)
+            # the graph's outputs are overwritten by its next replay
+            self._rnn_state = tree_map(torch.clone, res["rnn"])
+            return torch.cat([tok0[:, None], res["toks"][:, :n_rem]], dim=1)
 
     def param_table(self) -> Dict[str, torch.Tensor]:
         """Flat "idx_name" -> tensor view (reference paramTable())."""

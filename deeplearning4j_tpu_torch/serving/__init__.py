@@ -1,5 +1,6 @@
-"""Serving: the continuous-batching decode engine over the paged KV
-block pool (port of ``deeplearning4j_tpu/serving``'s engine core)."""
+"""Serving: the continuous-batching decode engine over a dense slot pool
+or the paged KV block pool (port of ``deeplearning4j_tpu/serving``'s
+engine core)."""
 
 from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
 from deeplearning4j_tpu_torch.serving.scheduler import (

@@ -1,43 +1,59 @@
-"""Continuous-batching decode engine over the paged KV block pool.
+"""Continuous-batching decode engine over a dense slot pool or the paged
+KV block pool.
 
-Port of the ``paged_kv=True`` core of ``deeplearning4j_tpu/serving/
-engine.py:DecodeEngine``. A fixed set of ``n_slots`` decode slots is
-multiplexed across many requests; their KV lives in one block pool per
-attention layer (``[kv_blocks + 1, block_tokens, H, dh]``, the master
-dtype; the last block, named ``scratch`` in each layer's pool dict, is
-the scratch block of the fixed-shape K/V scatter, which no table maps),
-addressed through per-slot host block tables (serving/block_pool.py).
+Port of the core of ``deeplearning4j_tpu/serving/engine.py:
+DecodeEngine``, in both of its KV layouts. A fixed set of ``n_slots``
+decode slots is multiplexed across many requests:
+
+- ``paged_kv=False`` (the default, as in JAX): the dense slot pool, per
+  attention layer ``{k, v: [n_slots, H, window, dh], filled:
+  [n_slots]}`` at the master dtype, one row per slot, attended by
+  ``AttentionImpl._stream_attend``. Eviction zeroes the slot's rows
+  (``nn.streaming.clear_state_rows``: a zeroed row is the empty cache).
+- ``paged_kv=True``: one block pool per attention layer
+  (``[kv_blocks + 1, block_tokens, H, dh]``, the master dtype; the last
+  block, named ``scratch`` in each layer's pool dict, is the scratch
+  block of the fixed-shape K/V scatter, which no table maps), addressed
+  through per-slot host block tables (serving/block_pool.py) and
+  attended by ``AttentionImpl._paged_attend`` (K2 on the card).
 
 One scheduling round (``step()``):
 
 1. **Admit** — while a slot is free and requests are queued, prefill
    the next prompt at batch 1, right-padded to its pow2 length bucket
    and masked (``AttentionImpl._prefill_cache``: a padded prefill
-   streams exactly like an unpadded one), then scatter the resulting
-   window of K/V into freshly allocated blocks at their absolute
-   positions (``_scatter_row``) and take the first token.
-2. **Reserve** — make every running slot's table writable for the
-   round's ``decode_chunk`` appends, allocating blocks as ``filled``
+   streams exactly like an unpadded one), then write the resulting
+   window of K/V into the slot's pool rows (dense) or into freshly
+   allocated blocks at their absolute positions (paged,
+   ``_scatter_row``), and take the first token.
+2. **Reserve** (paged) — make every running slot's table writable for
+   the round's ``decode_chunk`` appends, allocating blocks as ``filled``
    crosses block boundaries; under pool pressure the youngest slot is
    preempted and its request requeued (greedy ids regenerate
    identically).
-3. **Decode** — ``decode_chunk`` batched forward steps over all slots:
-   each layer's ``_paged_attend`` scatters the step's K/V into the pool
-   and attends through the block tables (the CUDA paged-attention
-   kernel on the card). Where the JAX engine runs one ``lax.scan``, this
-   is a Python loop with one host sync per round, when the round's
-   tokens are fetched.
-4. **Land** — advance the host tables, free blocks that slid out of
-   every window, append tokens, and finish requests that reached
-   ``max_new_tokens`` or their ``eos_id`` (the slot's blocks return to
-   the free list).
+3. **Decode** — ``decode_chunk`` batched steps over all slots (one-hot,
+   forward, ``sample_tokens``), JAX's ``decode`` scan. On the card the
+   round is ONE captured CUDA graph per engine (``nn/cuda_graphs.py``):
+   the pool and the token vector are its static buffers, and what moves
+   from round to round (the paged tables, base, floor and filled; the
+   temperatures and top-k) is copied into its static buffers without a
+   host sync before each replay. Temperatures and top-k ride as device
+   tensors, so the graph always carries the sampled branch; greedy rows
+   stay ``argmax``. On the CPU the same round body runs eagerly. The
+   round's tokens are fetched once, the round's one host sync.
+4. **Land** — advance the host tables and free blocks that slid out of
+   every window (paged), append tokens, and finish requests that reached
+   ``max_new_tokens`` or their ``eos_id``.
 
-The pool tensors are updated in place (the JAX engine threads a new
-pool through each executable). Knobs of the JAX engine that this port
-does not carry yet (the dense-slot layout, the prefix caches, chunked
-prefill, speculative decoding, fault handling, tenancy, async and fused
-rounds, KV tiers, tensor parallelism, incremental delivery, tracing)
-raise ``NotImplementedError`` when set to anything but their default.
+The pools are updated in place (the JAX engine threads a new pool
+through each executable). ``compile_counts()`` has the JAX engine's keys
+for the layout, each the number of graphs captured for that path: the
+decode round's is 1 once a round has run on the card, and the eager
+paths read 0. Knobs of the JAX engine that this port does not carry yet
+(the prefix caches, chunked prefill, speculative decoding, fault
+handling, tenancy, async and fused rounds, KV tiers, tensor
+parallelism, incremental delivery, tracing) raise
+``NotImplementedError`` when set to anything but their default.
 """
 
 from __future__ import annotations
@@ -52,7 +68,12 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseRecurrentLayer
+from deeplearning4j_tpu_torch.nn.cuda_graphs import GraphRunner
 from deeplearning4j_tpu_torch.nn.layers.attention import ATTENTION_BEANS
+from deeplearning4j_tpu_torch.nn.streaming import (
+    clear_state_rows,
+    tree_map,
+)
 from deeplearning4j_tpu_torch.serving.block_pool import BlockPool, BlockTable
 from deeplearning4j_tpu_torch.serving.sampler import sample_tokens
 from deeplearning4j_tpu_torch.serving.scheduler import (
@@ -97,15 +118,16 @@ class DecodeEngine:
     ``submit`` requests, then ``run()`` drains queue and slots and
     returns ``{request_id: GenerationResult}``, or drive one round at a
     time with ``step()``. ``decode_chunk`` tokens are decoded per round.
+    ``paged_kv`` picks the KV layout (dense slot pool by default, as in
+    JAX); ``block_tokens`` and ``kv_blocks`` size the paged pool.
     ``use_flash_paged`` selects the paged attention path (see
     ``nn.layers.attention._should_use_flash_paged``); like the JAX
     engine, a non-None value is stamped onto the net's attention beans.
-    ``seed`` seeds the ``torch.Generator`` sampled requests draw from.
-    Only ``paged_kv=True`` is ported."""
+    ``seed`` seeds the ``torch.Generator`` sampled requests draw from."""
 
     def __init__(self, net, n_slots: int = 8, decode_chunk: int = 8,
                  min_prompt_bucket: int = 8, seed: int = 0,
-                 paged_kv: bool = True, block_tokens: int = 16,
+                 paged_kv: bool = False, block_tokens: int = 16,
                  kv_blocks: Optional[int] = None, use_flash_paged=None,
                  **unported):
         for name, value in unported.items():
@@ -116,10 +138,6 @@ class DecodeEngine:
                 raise NotImplementedError(
                     f"DecodeEngine({name}={value!r}) is not ported to the "
                     f"torch package yet (only {_UNPORTED[name]!r})")
-        if not paged_kv:
-            raise NotImplementedError(
-                "the dense-slot engine (paged_kv=False) is not ported to "
-                "the torch package yet; use paged_kv=True")
         if n_slots < 1:
             raise ValueError(f"n_slots {n_slots} < 1")
         if decode_chunk < 1:
@@ -164,9 +182,44 @@ class DecodeEngine:
             for bean in attn:
                 bean.use_flash_paged = use_flash_paged
         self.scheduler = Scheduler(self.window, min_bucket=min_prompt_bucket)
-        # -- block pool sizing (the JAX engine's, with no spec/fused
-        # writes and no prefix pool) -------------------------------------
-        bt = self.block_tokens = int(block_tokens)
+        self.paged_kv = bool(paged_kv)
+        self.block_tokens = int(block_tokens)
+        self.kv_blocks = None
+        self.block_pool = None
+        if self.paged_kv:
+            self._size_block_pool(kv_blocks)
+        self._kv_tabs: List[Optional[BlockTable]] = [None] * self.n_slots
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        #: the decode round's captured graph (None: eager rounds, a
+        #: private switch for checks on the card)
+        self._graphs: Optional[GraphRunner] = GraphRunner([self._gen])
+        self._graphs_version = net.params_version
+        self._slots: List[Optional[_Slot]] = [None] * self.n_slots
+        self._submit_t: Dict[int, float] = {}
+        self._pool: Optional[Dict[str, Dict[str, Any]]] = None
+        self._toks: Optional[torch.Tensor] = None   # [B] current tokens
+        self._temps = np.zeros(self.n_slots, np.float32)
+        self._top_ks = np.full(self.n_slots, self.vocab, np.int64)
+        #: the round's static device inputs besides the pool and tokens,
+        #: written from the host arrays before each round
+        self._round_bufs: Dict[str, torch.Tensor] = {}
+        self._round = 0
+        self._terminal: Dict[int, GenerationResult] = {}
+        self._requeue: List[Tuple[int, Request]] = []
+        self.stats: Dict[str, Any] = {
+            "tokens_generated": 0, "requests_finished": 0,
+            "decode_time_s": 0.0, "chunks": 0, "decode_steps": 0,
+            "occupancy_sum": 0.0, "admitted": 0, "evicted": 0,
+            "prefill_tokens": 0, "blocks_free": self.kv_blocks or 0,
+            "blocks_used": 0, "frag_tokens": 0, "preempted": 0,
+            "paged_admit_deferred": 0,
+        }
+
+    def _size_block_pool(self, kv_blocks: Optional[int]) -> None:
+        """Block pool sizing (the JAX engine's, with no spec/fused writes
+        and no prefix pool)."""
+        bt = self.block_tokens
         if bt < 1 or (bt & (bt - 1)):
             raise ValueError(f"block_tokens {bt} must be a power of two")
         if bt > self.window:
@@ -194,26 +247,6 @@ class DecodeEngine:
                 f"+ one round of writes ({slot_worst} blocks of {bt} "
                 "tokens)")
         self.block_pool = BlockPool(self.kv_blocks, bt)
-        self._kv_tabs: List[Optional[BlockTable]] = [None] * self.n_slots
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
-        self._slots: List[Optional[_Slot]] = [None] * self.n_slots
-        self._submit_t: Dict[int, float] = {}
-        self._pool: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
-        self._toks: Optional[torch.Tensor] = None   # [B] current tokens
-        self._temps = np.zeros(self.n_slots, np.float32)
-        self._top_ks = np.full(self.n_slots, self.vocab, np.int64)
-        self._round = 0
-        self._terminal: Dict[int, GenerationResult] = {}
-        self._requeue: List[Tuple[int, Request]] = []
-        self.stats: Dict[str, Any] = {
-            "tokens_generated": 0, "requests_finished": 0,
-            "decode_time_s": 0.0, "chunks": 0, "decode_steps": 0,
-            "occupancy_sum": 0.0, "admitted": 0, "evicted": 0,
-            "prefill_tokens": 0, "blocks_free": self.kv_blocks,
-            "blocks_used": 0, "frag_tokens": 0, "preempted": 0,
-            "paged_admit_deferred": 0,
-        }
 
     # -- forward -------------------------------------------------------
     def _forward(self, x, mask, rnn):
@@ -284,11 +317,17 @@ class DecodeEngine:
         self._evict_slot(slot)
 
     def _evict_slot(self, slot: int) -> None:
-        """Release the slot's block references (its blocks return to the
-        free list) and free the slot."""
-        tab = self._kv_tabs[slot]
-        self._kv_tabs[slot] = None
-        self._free_table(tab)
+        """Free the slot: paged, its block references are released (its
+        blocks return to the free list); dense, its pool rows are zeroed
+        in place, the whole-pool analogue of
+        ``rnn_clear_previous_state(slots=[slot])``, so stale K/V is
+        never observable."""
+        if self.paged_kv:
+            tab = self._kv_tabs[slot]
+            self._kv_tabs[slot] = None
+            self._free_table(tab)
+        else:
+            clear_state_rows(self._pool, [slot])
         self._slots[slot] = None
         self._temps[slot] = 0.0
         self._top_ks[slot] = self.vocab
@@ -379,11 +418,24 @@ class DecodeEngine:
             tab.blocks[g] = self.block_pool.alloc()
         return tab
 
+    def _round_buffer(self, name: str, host: np.ndarray) -> torch.Tensor:
+        """The round's static device buffer ``name``, written from
+        ``host`` without a host sync (an asynchronous copy; pageable
+        host memory is staged before the copy returns)."""
+        buf = self._round_bufs.get(name)
+        if buf is None:
+            buf = self._round_bufs[name] = torch.empty(
+                host.shape, dtype=torch.from_numpy(host).dtype,
+                device=self.device)
+        buf.copy_(torch.from_numpy(host), non_blocking=True)
+        return buf
+
     def _paged_rnn_rows(self, tabs):
         """The paged rnn-state operand for a dispatch: each layer's pool
         tensors plus every row's ring-projected block table (None rows —
         idle slots — map nothing; their writes drop and their keys all
-        mask). The table operands are shared by every layer."""
+        mask). The table operands are the round's static buffers, shared
+        by every layer."""
         b, s_ring = len(tabs), self._ring_slots
         table = np.full((b, s_ring), -1, np.int32)
         base = np.full((b, s_ring), -1, np.int32)
@@ -395,22 +447,29 @@ class DecodeEngine:
             table[i], base[i] = tab.arrays(s_ring)
             floor[i] = tab.floor
             filled[i] = tab.length
-        dev = self.device
-        ops = {"table": torch.as_tensor(table).to(dev),
-               "base": torch.as_tensor(base).to(dev),
-               "floor": torch.as_tensor(floor).to(dev),
-               "filled": torch.as_tensor(filled).to(dev)}
+        ops = {name: self._round_buffer(name, arr) for name, arr in
+               (("table", table), ("base", base), ("floor", floor),
+                ("filled", filled))}
         return {name: dict(st, **ops) for name, st in self._pool.items()}
 
-    def _ensure_paged_pool(self, rnn1) -> None:
-        """Create the device block pool lazily from the first B=1
-        prefill state (per layer ``[kv_blocks + 1, block_tokens, H, dh]``
-        in the state's dtype, the net's master dtype). The last block is
-        the scratch block that fixed-shape scatters send dropped rows to
+    def _ensure_pool(self, rnn1) -> None:
+        """Create the device pool and token vector lazily from the first
+        B=1 prefill state, in the state's dtype (the net's master dtype).
+        Dense: per layer ``{k, v: [n_slots, H, W, dh], filled:
+        [n_slots]}``, zeros (every slot empty). Paged: per layer
+        ``[kv_blocks + 1, block_tokens, H, dh]``; the last block is the
+        scratch block that fixed-shape scatters send dropped rows to
         (``AttentionImpl._paged_attend``), named by the layer's
         ``scratch`` entry: ``block_pool`` never hands it out, so no table
         maps it."""
         if self._pool is not None:
+            return
+        self._toks = torch.zeros(self.n_slots, dtype=torch.int32,
+                                 device=self.device)
+        if not self.paged_kv:
+            self._pool = tree_map(
+                lambda a: torch.zeros((self.n_slots,) + a.shape[1:],
+                                      dtype=a.dtype, device=a.device), rnn1)
             return
         bt = self.block_tokens
 
@@ -423,8 +482,6 @@ class DecodeEngine:
                     "scratch": int(self.kv_blocks)}
 
         self._pool = {name: make(st) for name, st in rnn1.items()}
-        self._toks = torch.zeros(self.n_slots, dtype=torch.int32,
-                                 device=self.device)
 
     def _scatter_row(self, rnn1, table_row: np.ndarray, length: int):
         """Cold admission: write a B=1 prefill row's valid window tokens
@@ -465,8 +522,9 @@ class DecodeEngine:
 
     def _admit(self, request: Request, slot: int) -> None:
         """Cold admission into ``slot``: bucketed masked prefill at B=1,
-        the scatter into fresh blocks, and the first token. Deferred to
-        the next round when the pool cannot hold it."""
+        the row written into the slot's pool rows (dense) or scattered
+        into fresh blocks (paged; deferred to the next round when the
+        pool cannot hold it), and the first token."""
         prompt = [int(t) for t in request.prompt]
         width = self.scheduler.bucket_of(len(prompt))
         x, mask = self._one_hot_prompt(prompt, width)
@@ -476,16 +534,19 @@ class DecodeEngine:
             probs, np.asarray([request.temperature], np.float32),
             np.asarray([request.top_k or self.vocab]), self._gen)
         self.stats["prefill_tokens"] += len(prompt)
-        self._ensure_paged_pool(rnn1)
-        tab = self._alloc_window_tab(len(prompt))
-        if tab is None:
-            self.stats["paged_admit_deferred"] += 1
-            self._requeue.append((self._round + 1, request))
-            return
-        table_row, _ = tab.arrays(self._ring_slots)
-        self._scatter_row(rnn1, table_row, tab.length)
+        self._ensure_pool(rnn1)
+        if self.paged_kv:
+            tab = self._alloc_window_tab(len(prompt))
+            if tab is None:
+                self.stats["paged_admit_deferred"] += 1
+                self._requeue.append((self._round + 1, request))
+                return
+            table_row, _ = tab.arrays(self._ring_slots)
+            self._scatter_row(rnn1, table_row, tab.length)
+            self._kv_tabs[slot] = tab
+        else:
+            tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool, rnn1)
         self._toks[slot] = tok[0]
-        self._kv_tabs[slot] = tab
         # the value fetch is the sync point that makes TTFT honest
         first = int(tok[0])
         submit_t = self._submit_t.get(request.id)
@@ -501,39 +562,70 @@ class DecodeEngine:
             self._finish(state, slot)
 
     # -- the scheduling round ------------------------------------------
-    def _decode_round(self, active: List[int]) -> None:
-        chunk = self.decode_chunk
-        ensured: set = set()
-        for slot in list(active):
-            if self._slots[slot] is None:
-                continue   # preempted by an earlier reservation
-            if self._ensure_tab(self._kv_tabs[slot], chunk,
-                                protect=ensured | {slot}):
-                ensured.add(slot)
-            else:
-                self._preempt_slot(slot)
-        active = [s for s in active if self._slots[s] is not None]
-        if not active:
-            return
-        t0 = time.perf_counter()
-        rnn = self._paged_rnn_rows(self._kv_tabs)
-        tok = self._toks
+    def _round_body(self, ops) -> torch.Tensor:
+        """The decode round, JAX's ``decode`` scan: ``decode_chunk``
+        steps of one-hot, forward and ``sample_tokens`` over every slot,
+        from ``ops`` = {"rnn": the round's rnn state (the dense pool, or
+        the paged pool with the round's tables), "toks": [B] int32,
+        "temps": [B] f32, "top_ks": [B] int64}. Writes the dense pool
+        (the paged pool is written by each step's scatter) and the token
+        vector back in place and returns the round's tokens [B, chunk].
+        The graph the engine captures on the card, and what runs on the
+        CPU; no step reads a value back to the host."""
+        rnn, tok = ops["rnn"], ops["toks"]
         steps = []
-        for _ in range(chunk):
+        for _ in range(self.decode_chunk):
             x = F.one_hot(tok.long(), self.vocab).to(
                 self.net._dtype)[:, :, None]
             out, rnn = self._forward(x, None, rnn)
-            tok = sample_tokens(out[:, :, -1], self._temps, self._top_ks,
+            tok = sample_tokens(out[:, :, -1], ops["temps"], ops["top_ks"],
                                 self._gen)
             steps.append(tok)
-        self._toks = tok
-        seq = torch.stack(steps, dim=1).cpu().numpy()   # the round's sync
+        if not self.paged_kv:
+            tree_map(lambda dst, src: dst.copy_(src), ops["rnn"], rnn)
+        ops["toks"].copy_(tok)
+        return torch.stack(steps, dim=1)
+
+    def _run_round(self, ops) -> torch.Tensor:
+        """One decode round: a replay of the round's captured graph on
+        the card (captured at the first round, and again after a move of
+        the net's ``params_version``), the eager body on the CPU."""
+        if self._graphs is None:
+            return self._round_body(ops)
+        if self._graphs_version != self.net.params_version:
+            self._graphs.drop()
+            self._graphs_version = self.net.params_version
+        return self._graphs.run("decode", self._round_body, ops)
+
+    def _decode_round(self, active: List[int]) -> None:
+        chunk = self.decode_chunk
+        if self.paged_kv:
+            ensured: set = set()
+            for slot in list(active):
+                if self._slots[slot] is None:
+                    continue   # preempted by an earlier reservation
+                if self._ensure_tab(self._kv_tabs[slot], chunk,
+                                    protect=ensured | {slot}):
+                    ensured.add(slot)
+                else:
+                    self._preempt_slot(slot)
+            active = [s for s in active if self._slots[s] is not None]
+            if not active:
+                return
+        t0 = time.perf_counter()
+        rnn = (self._paged_rnn_rows(self._kv_tabs) if self.paged_kv
+               else self._pool)
+        ops = {"rnn": rnn, "toks": self._toks,
+               "temps": self._round_buffer("temps", self._temps),
+               "top_ks": self._round_buffer("top_ks", self._top_ks)}
+        seq = self._run_round(ops).cpu().numpy()   # the round's sync
         dt = time.perf_counter() - t0
         emitted = 0
         for slot in active:
-            tab = self._kv_tabs[slot]
-            tab.length += chunk
-            self._free_expired_blocks(tab)
+            if self.paged_kv:
+                tab = self._kv_tabs[slot]
+                tab.length += chunk
+                self._free_expired_blocks(tab)
             state = self._slots[slot]
             for t in seq[slot]:
                 state.tokens.append(int(t))
@@ -547,6 +639,19 @@ class DecodeEngine:
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += chunk
         self.stats["occupancy_sum"] += len(active) / self.n_slots
+
+    def compile_counts(self) -> Dict[str, int]:
+        """The JAX engine's ``compile_counts`` keys for this layout, each
+        the number of CUDA graphs captured for that path: ``decode`` is 1
+        once a round has run on the card and stays 1 (the JAX engine's
+        no-retrace guarantee); the paths that run eagerly (prefill,
+        admission, the paged movers) and every path on the CPU read 0."""
+        counts = {"prefill": 0, "chunk_prefill": 0, "admit": 0,
+                  "decode": len(self._graphs) if self._graphs else 0}
+        if self.paged_kv:
+            counts.update(paged_scatter=0, paged_tok=0, kv_import=0,
+                          kv_gather=0, paged_copy=0, paged_zero=0)
+        return counts
 
     def step(self, results: Optional[Dict[int, GenerationResult]] = None
              ) -> Dict[int, GenerationResult]:
@@ -565,9 +670,11 @@ class DecodeEngine:
             if active:
                 self._decode_round(active)
         pool = self.block_pool
-        self.stats["blocks_free"] = pool.free_blocks
-        self.stats["blocks_used"] = pool.used_blocks
-        self.stats["frag_tokens"] = pool.fragmentation_tokens(self._kv_tabs)
+        if pool is not None:
+            self.stats["blocks_free"] = pool.free_blocks
+            self.stats["blocks_used"] = pool.used_blocks
+            self.stats["frag_tokens"] = pool.fragmentation_tokens(
+                self._kv_tabs)
         self._round += 1
         self._drain_terminal(results)
         return results

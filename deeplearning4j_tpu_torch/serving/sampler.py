@@ -9,6 +9,7 @@ sampling matches the JAX package in distribution, never bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # probability floor before the log: the output layer emits exact zeros
@@ -33,16 +34,22 @@ def sample_tokens(probs, temps, top_ks, gen=None):
     """One token per slot from softmax rows.
 
     probs: [B, V] class probabilities; temps: [B] float (0 = greedy);
-    top_ks: [B] int (V = unfiltered) — both host arrays or tensors
-    (host arrays let an all-greedy batch skip sampling without waiting
-    for the device); gen: ``torch.Generator`` on ``probs``' device for
-    the sampled rows. Greedy rows take ``argmax(probs)``, first index
-    on ties, as ``jnp.argmax`` does. Returns int32 [B]."""
+    top_ks: [B] int (V = unfiltered); gen: ``torch.Generator`` on
+    ``probs``' device for the sampled rows. Greedy rows take
+    ``argmax(probs)``, first index on ties, as ``jnp.argmax`` does.
+    Returns int32 [B].
+
+    ``temps`` and ``top_ks`` as host arrays let an all-greedy batch skip
+    the sampled branch without waiting for the device. As tensors (the
+    captured decode round's static buffers) the sampled branch always
+    runs, as in JAX's traced sampler, so a graph captured on a greedy
+    batch still samples the rows that ask for it (``torch.multinomial``
+    reads nothing back to the host, so it captures into a graph)."""
     greedy = torch.argmax(probs, dim=1).to(torch.int32)
-    temps = torch.as_tensor(temps, dtype=torch.float32)
-    if not bool((temps > 0).any()):
+    if not isinstance(temps, torch.Tensor) and not (
+            np.asarray(temps) > 0).any():
         return greedy
-    temps = temps.to(probs.device)
+    temps = torch.as_tensor(temps, dtype=torch.float32).to(probs.device)
     top_ks = torch.as_tensor(top_ks).to(probs.device)
     scaled = _scaled_filtered_logits(probs.float(), temps, top_ks)
     sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,

@@ -1,12 +1,15 @@
 """Where a decode round's time goes in the PyTorch port's serving path.
 
-    python3 scripts/torch_serving_profile.py
+    python3 scripts/torch_serving_profile.py [--layout paged|dense] [--eager]
 
 Needs a CUDA card. Builds the serving configuration ``chip_smoke.py``
 drives (the width-1024, 8-block transformer flagship at bf16 compute
 with a 2048-token window; random weights from seed 11), fills the
-paged-KV engine's 8 slots with 128-token prompts, and profiles the
-decode of their last 32 new tokens with ``torch.profiler``. Prints the
+engine's 8 slots with 128-token prompts (the paged-KV layout by
+default, ``--layout dense`` for the dense slot pool), and profiles the
+decode of their last 32 new tokens, one round, with ``torch.profiler``:
+one replay of the round's captured CUDA graph, or with ``--eager`` the
+round body run eagerly (the engine's private switch). Prints the
 wall time per decode step (and, from one unprofiled round before the
 profiled one, the wall per step and the slots' tokens/s without the
 profiler), the device's busy and idle shares of that wall
@@ -16,14 +19,16 @@ paged-attention kernels' share (K2's two passes, both named
 take the most device time, then one JSON line of the same. Before that
 window, one more round runs under ``torch.cuda.set_sync_debug_mode
 ("warn")`` to count the host synchronisations per decode step (each sync
-PyTorch sees warns once). ``paged_attention_calls`` counts calls of the
-``paged_attention`` wrapper (one per layer per step); each call launches
-the two CUDA kernels that ``paged_attention_kernels`` counts. Imports
-nothing of JAX.
+PyTorch sees warns once). ``paged_attention_calls`` counts the
+``paged_attention`` wrapper's launches (one per layer per step; a graph
+replay adds the ones its capture holds); each launches the two CUDA
+kernels that ``paged_attention_kernels`` counts. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -74,6 +79,11 @@ def syncs_per_step(eng) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layout", choices=("paged", "dense"), default="paged")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode round eagerly, not as its graph")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
@@ -90,8 +100,11 @@ def main() -> int:
         if hasattr(c.layer, "stream_max_t"):
             c.layer.stream_max_t = WINDOW
     net = MultiLayerNetwork(conf, device="cuda").init()
-    eng = DecodeEngine(net, paged_kv=True, block_tokens=16,
-                       n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK)
+    eng = DecodeEngine(net, paged_kv=args.layout == "paged",
+                       block_tokens=16, n_slots=N_SLOTS,
+                       decode_chunk=DECODE_CHUNK)
+    if args.eager:
+        eng._graphs = None
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
                for _ in range(N_SLOTS)]
@@ -113,8 +126,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        while eng.has_work():
-            eng.step()
+        eng.step()      # one round: one replay of the captured graph
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = eng.stats["decode_steps"] - steps0
@@ -131,7 +143,9 @@ def main() -> int:
                   if "paged_attention" in k) * 1e-6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     summary = {
-        "card": card, "decode_steps": steps,
+        "card": card, "layout": args.layout,
+        "round": "eager" if args.eager else "graph",
+        "compile_counts": eng.compile_counts(), "decode_steps": steps,
         "ms_per_step": wall / steps * 1e3,
         "unprofiled_ms_per_step": plain_wall / plain_steps * 1e3,
         "unprofiled_tokens_per_s": N_SLOTS * plain_steps / plain_wall,
@@ -144,7 +158,8 @@ def main() -> int:
         "host_syncs_per_step": syncs,
         "top_kernels_ms": [(k[:80], v * 1e-3) for k, v in top],
     }
-    print(f"[{card}] {steps} decode steps of {N_SLOTS} slots in "
+    print(f"[{card}] {args.layout}, {summary['round']} round: "
+          f"{steps} decode steps of {N_SLOTS} slots in "
           f"{wall:.3f} s: {summary['ms_per_step']:.2f} ms per step "
           f"({summary['unprofiled_ms_per_step']:.2f} ms, "
           f"{summary['unprofiled_tokens_per_s']:.1f} tokens/s unprofiled), "
