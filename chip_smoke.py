@@ -38,7 +38,12 @@ JAX or of the JAX package. Phases, each fatal on failure:
    K1 and on dense attention from the same params, 4 ``fit`` steps each
    at B=2, T=2048 on the Markov task, f32 and bf16: loss trajectories
    agree (and at f32 the params), K1 launched 8 times per step forward
-   and backward.
+   and backward. Then the 4 batches as ``fit_scan`` windows on a net
+   that replays its captured train step and on a net from the same
+   params that runs the step eagerly: params and updater state
+   bit-identical after each window, K1 launched 8 times forward and
+   backward per step through the replays; s/step of both and the
+   graph's memory.
 5. training B — bench.py's 32k long-context row (bf16, B=2, T=32768):
    1 warm-up and 2 timed ``fit`` steps through K1 in auto mode; tokens/s,
    s/step, peak memory, finite losses, K1's launches and its share of
@@ -54,8 +59,19 @@ JAX or of the JAX package. Phases, each fatal on failure:
    reordered score sums) passes that check and planted faults in the
    plain engine's attention fail it. At bf16 the free-running id
    agreement at prompt seed 0 is printed as a report, with each
-   divergence's f32 log-probability gap; it has no bar.
-7. decode B=1 — bench.py's ``bench_decode`` shape (the serving net, B=1,
+   divergence's f32 log-probability gap; it has no bar. Then the same
+   run with ``fused_rounds=4`` and ``async_rounds=True``: every request
+   finishes, K2 launched once per layer per decode step the device ran,
+   at most 1 stepped and 3 fused graphs and none more on a repeat,
+   tokens/s beside the stepped graph rounds', each graph's memory; at
+   f32 the ids identical to stepped graph rounds, and with 4 sampled
+   requests identical to a stepped engine's from the same seed.
+7. fused decode — bench.py's ``bench_fused_decode`` row 1 (the serving
+   net, the dense engine at ``n_slots=1``, ``decode_chunk=1``, a
+   16-token prompt, 129 new tokens), ``fused_rounds=8`` against stepped
+   rounds at bf16 and f32: ids bit-identical, one fused graph (K=8) and
+   none more on repeats; tokens/s of both (median of 3 interleaved).
+8. decode B=1 — bench.py's ``bench_decode`` shape (the serving net, B=1,
    a 128-token prompt, 128 new tokens), at f32 and bf16: the
    ``rnn_time_step`` loop's p50 per token over 32 tokens; ``generate``
    from its captured graphs (tokens/s, median of 3 after a warm run, and
@@ -68,7 +84,7 @@ JAX or of the JAX package. Phases, each fatal on failure:
    while it generates; at f32 its ids are identical to the same run with
    the prefill forced dense (``use_flash=False``), at bf16 the agreement
    is printed.
-8. dense engine — bench.py's ``bench_decode_batched`` shape: the
+9. dense engine — bench.py's ``bench_decode_batched`` shape: the
    default ``DecodeEngine`` (dense slots) at 8 slots, ``decode_chunk=32``,
    8 x 128-token prompts, 128 new tokens. bf16: aggregate tokens/s,
    median of 3 runs after a warm run, above the B=1 rate;
@@ -76,17 +92,23 @@ JAX or of the JAX package. Phases, each fatal on failure:
    1; ids against B=1 ``generate`` >= 0.9; sampled requests of one
    prompt from the same graph differ. f32: ids identical to B=1
    ``generate``, and the graph round against the eager round identical.
-9. LeNet — bench.py's ``mnist_lenet5_train_throughput`` row:
+10. LeNet — bench.py's ``mnist_lenet5_train_throughput`` row:
    ``lenet5(lr=0.002)``, bf16 compute, B=2048 synthetic MNIST, 7
-   ``fit_scan`` windows of 64 steps, then 2 timed windows (examples/s,
-   s/step, peak memory, K3's launches == steps, every one of them and
-   of ``evaluate``'s on the tensor-core kernel, and its share of the
-   step), falling losses, and ``evaluate`` on 4096 test images at
-   bench.py's 0.97 accuracy gate.
-10. LeNet f32 — the same run of the zoo's default ``lenet5(lr=0.01)``
+   ``fit_scan`` windows of 64 steps (the first captures the train
+   step; the launch counts start after it), then 2 timed windows
+   replayed from the graph (examples/s, s/step, peak memory, K3's
+   launches == steps, every one of them and of ``evaluate``'s on the
+   tensor-core kernel, and its share of the step), falling losses, and
+   ``evaluate`` on 4096 test images at bench.py's 0.97 accuracy gate.
+   Beside the timed windows, 2 eager windows (``train_graphs = None``)
+   from a copy of the same params, and ms/step of both; then, under
+   cuDNN's deterministic mode (f32's default conv2 weight gradient sums
+   with atomics), a copy that captures its own graph and an eager copy,
+   2 windows each: params and updater state bit-identical.
+11. LeNet f32 — the same run of the zoo's default ``lenet5(lr=0.01)``
    (no compute dtype: f32 throughout), every K3 launch of training and
    ``evaluate`` on the CUDA-core kernel.
-11. LeNet card vs CPU — one set of port params, 4 f32 ``fit`` steps at
+12. LeNet card vs CPU — one set of port params, 4 f32 ``fit`` steps at
    B=256 on the card (K3 on the CUDA-core kernel, the f32 route, and
    cuDNN's conv2) and on the CPU (the plain versions): loss trajectories
    and params agree.
@@ -97,9 +119,10 @@ read just after (comparison launches do not count).
 The line before the last is ``{"kernels": [...]}`` (K1's bf16 entries
 at training B's shape, its f32 entries ``flash_attention_f32`` and
 ``flash_attention_f32_bwd`` at training A's, their launches from phase
-A's f32 run, each plus its prefill launches in phase 7 at its dtype;
-K3's ``conv_taps`` and ``conv_taps_f32`` with their launches from
-phases 9 and 10; every f32 operations bound at the
+A's f32 ``fit`` and counted ``fit_scan`` graph window, each plus its
+prefill launches in phase 8 at its dtype; K2's from phase 6's stepped
+and fused runs; K3's ``conv_taps`` and ``conv_taps_f32`` with their
+launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when any phase fails or no card is present.
@@ -1420,12 +1443,87 @@ def training_parity_phase(card: str) -> dict:
                 f"param diff {pdiff}, K1 launches {fwd}/{bwd} (want "
                 f"{want}), dense net's {dense_launches}, paged "
                 f"{paged_attention.launches}")
-        if cd == "float32":
-            launches = {"flash_attention_f32": fwd,
-                        "flash_attention_f32_bwd": bwd}
         del k1, dense
         torch.cuda.empty_cache()
+        s_fwd, s_bwd = training_scan_check(card, cd, kw, batches)
+        if cd == "float32":
+            launches = {"flash_attention_f32": fwd + s_fwd,
+                        "flash_attention_f32_bwd": bwd + s_bwd}
     return launches
+
+
+def _nets_equal(a, b) -> bool:
+    """Whether two nets hold the same params and updater state, bit for
+    bit."""
+    from deeplearning4j_tpu_torch.nn.streaming import tree_leaves
+
+    la = tree_leaves(a.params) + tree_leaves(a.updater_state)
+    lb = tree_leaves(b.params) + tree_leaves(b.updater_state)
+    return (len(la) == len(lb) and a.iteration == b.iteration
+            and all(torch.equal(x, y) for x, y in zip(la, lb)))
+
+
+def _timed_scan(net, feats, labels) -> float:
+    """One fit_scan window, synchronised; its seconds per step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit_scan(feats, labels)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / feats.shape[0]
+
+
+def training_scan_check(card: str, cd: str, kw: dict, batches) -> tuple:
+    """Phase A's ``fit_scan``: the 4 batches as one window, on a net
+    that replays its captured train step and on a net from the same
+    params that runs the step eagerly (``train_graphs = None``, the
+    private switch); after each of 2 windows their params and updater
+    state are bit-identical. The first window captures the graph (its
+    warm-up runs the step once more on copies); over the second K1
+    launches 8 times forward and backward per step, all through the
+    replays. Returns those launches (forward, backward)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import flash_attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    feats = torch.as_tensor(np.stack([f for f, _ in batches]),
+                            device=DEVICE)
+    labels = torch.as_tensor(np.stack([y for _, y in batches]),
+                             device=DEVICE)
+    graph = MultiLayerNetwork(_flagship(cd, True, **kw),
+                              device=DEVICE).init()
+    eager = MultiLayerNetwork(_flagship(cd, True, **kw),
+                              device=DEVICE).init()
+    eager.train_graphs = None
+    same = [_nets_equal(graph, eager)]
+    t0 = time.perf_counter()
+    graph.fit_scan(feats, labels)                 # captures the step
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    eager.fit_scan(feats, labels)
+    same.append(_nets_equal(graph, eager))
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    g_s = _timed_scan(graph, feats, labels)
+    fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+    e_s = _timed_scan(eager, feats, labels)
+    same.append(_nets_equal(graph, eager))
+    runner = graph.train_graphs
+    log(f"training A [{cd}]: fit_scan, {PARITY_STEPS} steps a window, from "
+        f"its captured graph against the eager loop from the same params: "
+        f"params and updater state bit-identical {same} (start, after "
+        f"each window); graph {g_s:.4f} s/step, eager {e_s:.4f} s/step "
+        f"({e_s / g_s:.3f}x); first window with the capture "
+        f"{capture_s:.3f} s; {len(runner)} graph ({runner.captures} "
+        f"capture; {_graph_memory(runner)}); K1 launches over "
+        f"the second graph window fwd {fwd}, bwd {bwd} [{card}]")
+    want = N_LAYERS * PARITY_STEPS
+    if (not all(same) or fwd != want or bwd != want or len(runner) != 1
+            or runner.captures != 1):
+        raise SystemExit(
+            f"chip_smoke: training phase A [{cd}] fit_scan failed: "
+            f"bit-identical {same}, K1 launches {fwd}/{bwd} (want {want}),"
+            f" graphs {len(runner)} ({runner.captures} captures)")
+    del graph, eager
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def training_long_phase(card: str, k1_ms: float) -> dict:
@@ -1798,7 +1896,203 @@ def serving_phase(card: str) -> int:
             f"chip_smoke: serving gate failed: f32 ids identical "
             f"{identical}, right program identical {right32}, planted "
             f"faults rejected {caught}")
+    return launches + fused_serving_check(card, net, net32, results, rate)
+
+
+# fused and async rounds at the serving shape: 4 rounds of 32 tokens
+# cover one request's 128 new tokens
+FUSED_ROUNDS = 4
+SAMPLED_REQUESTS, SAMPLED = 4, dict(temperature=0.9, top_k=4)
+
+
+def _graph_counts(counts) -> tuple:
+    return counts["decode"], counts["fused_decode"]
+
+
+def _graph_memory(runner) -> str:
+    """Each graph's reserved-memory growth and capture seconds (warm-up
+    and instantiation included)."""
+    return ", ".join(f"{k}: {v / 2**20:.1f} MiB, {runner.seconds[k]:.3f} s"
+                     for k, v in runner.memory.items())
+
+
+def serve_requests(engine, prompts, kws) -> list:
+    """Serve ``prompts`` (N_GEN new tokens each, ``kws[i]`` the i-th
+    request's sampling) and return their ids in submission order."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    rids = [engine.submit(Request(list(p), N_GEN, **kw))
+            for p, kw in zip(prompts, kws)]
+    res = engine.run()
+    return [res[i].tokens for i in rids]
+
+
+def fused_serving_check(card: str, net, net32, stepped, stepped_rate
+                        ) -> int:
+    """Phase 6's fused and async rounds: the same paged run with
+    ``fused_rounds=4`` and ``async_rounds=True`` (bf16, timed after a
+    run that captures its graphs): every request finishes, K2 launched
+    once per layer per decode step the device ran (K * chunk a fused
+    window), ``decode`` <= 1 and ``fused_decode`` <= 3 graphs and none
+    more on the timed repeat; tokens/s against a stepped engine on graph
+    rounds (medians of 3 interleaved runs), beside the main run's
+    ``stepped_rate``, and ids against its bf16 ids ``stepped`` (a
+    report). At f32 the
+    ids equal the stepped engine's on graph rounds; with 4 sampled
+    requests the fused engine's ids equal a stepped engine's from the
+    same seed. Returns K2's launches over the timed run."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
+
+    geometry = dict(paged_kv=True, block_tokens=BLOCK_TOKENS,
+                    n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                    use_flash_paged=True)
+    knobs = dict(fused_rounds=FUSED_ROUNDS, async_rounds=True)
+    prompts = serving_prompts(0)
+    eng = DecodeEngine(net, **geometry, **knobs)
+    ref = DecodeEngine(net, **geometry)          # stepped, for the timing
+    for e in (eng, ref):
+        e.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))
+        e.run()
+    t0 = time.perf_counter()
+    serve_ids(eng, prompts)                      # captures the rest
+    capture_run_s = time.perf_counter() - t0
+    serve_ids(ref, prompts)
+    counts0 = eng.compile_counts()
+    steps0, chunks0 = eng.stats["decode_steps"], eng.stats["chunks"]
+    paged_attention.launches = 0
+    results, wall = serve_ids(eng, prompts)
+    launches = paged_attention.launches
+    steps = eng.stats["decode_steps"] - steps0
+    chunks = eng.stats["chunks"] - chunks0
+    walls = {"fused": [wall], "stepped": []}
+    for name, e in (("stepped", ref), ("stepped", ref), ("fused", eng),
+                    ("fused", eng), ("stepped", ref)):
+        walls[name].append(serve_ids(e, prompts)[1])
+    counts1 = eng.compile_counts()
+    rate = N_REQUESTS * N_GEN / float(np.median(walls["fused"]))
+    ref_rate = N_REQUESTS * N_GEN / float(np.median(walls["stepped"]))
+    del ref
+    fused_k = eng.histograms["serving_fused_rounds"]
+    host = eng.histograms["serving_host_step_s"]
+    same16 = [r.tokens for r in results] == [r.tokens for r in stepped]
+    bad = [(r.id, r.finish_reason, len(r.tokens)) for r in results
+           if r.finish_reason != "length" or len(r.tokens) != N_GEN]
+    log(f"serving fused+async (fused_rounds={FUSED_ROUNDS}): {rate:.1f} "
+        f"tokens/s aggregate against {ref_rate:.1f} on stepped graph "
+        f"rounds ({rate / ref_rate:.3f}x; medians of 3 interleaved runs, "
+        f"walls {({k: [round(w, 4) for w in v] for k, v in walls.items()})}"
+        f" s; the main run's stepped rate {stepped_rate:.1f}); "
+        f"{chunks} dispatches for "
+        f"{steps} decode steps, {launches} K2 launches; decode / "
+        f"fused_decode graphs {_graph_counts(counts0)} -> "
+        f"{_graph_counts(counts1)}; graphs "
+        f"{{{_graph_memory(eng._graphs)}}}; "
+        f"fused K observed {fused_k.count} times (mean "
+        f"{fused_k.sum / max(fused_k.count, 1):.2f}); host step p50 "
+        f"{host.quantile(0.5) * 1e3:.3f} ms over {host.count}; the first "
+        f"run with its captures {capture_run_s:.3f} s; bf16 ids identical "
+        f"to stepped graph rounds {same16} (a report) [{card}]")
+    if (bad or launches != N_LAYERS * steps or launches == 0
+            or counts1 != counts0 or counts1["decode"] > 1
+            or not 1 <= counts1["fused_decode"] <= 3):
+        raise SystemExit(
+            f"chip_smoke: fused serving failed: unfinished {bad}, K2 "
+            f"launches {launches} for {steps} steps x {N_LAYERS} layers, "
+            f"compile_counts {counts0} -> {counts1}")
+    del eng
+
+    ids = {}
+    for name, kw in (("stepped", {}), ("fused", knobs)):
+        e = DecodeEngine(net32, **geometry, **kw)
+        ids[name] = [r.tokens for r in serve_ids(e, prompts)[0]]
+        del e
+    kws = [SAMPLED if i < SAMPLED_REQUESTS else {}
+           for i in range(N_REQUESTS)]
+    sampled = {}
+    for name, kw in (("stepped", {}), ("fused", knobs)):
+        e = DecodeEngine(net, seed=5, **geometry, **kw)
+        sampled[name] = serve_requests(e, prompts, kws)
+        del e
+    same32 = ids["fused"] == ids["stepped"]
+    same_sampled = sampled["fused"] == sampled["stepped"]
+    moved = sum(a != b for a, b in zip(sampled["fused"][:SAMPLED_REQUESTS],
+                                       [r.tokens for r in stepped]))
+    log(f"serving fused+async: f32 ids identical to stepped graph rounds "
+        f"{same32}; {SAMPLED_REQUESTS} sampled requests (temperature "
+        f"{SAMPLED['temperature']}, top-k {SAMPLED['top_k']}) identical to "
+        f"a stepped engine's from the same seed {same_sampled} ({moved} of "
+        f"them differ from their greedy run) [{card}]")
+    if not same32 or not same_sampled:
+        raise SystemExit(f"chip_smoke: fused serving failed: f32 ids "
+                         f"identical {same32}, sampled {same_sampled}")
+    torch.cuda.empty_cache()
     return launches
+
+
+def fused_decode_phase(card: str) -> None:
+    """bench.py's ``bench_fused_decode`` row 1 (width 1024, 8 blocks, 8
+    heads, window 2048; the default dense engine at ``n_slots=1``,
+    ``decode_chunk=1``; a 16-token prompt from default_rng(0), 129 new
+    tokens), ``fused_rounds=8`` against stepped rounds, at bf16 and f32:
+    ids bit-identical, exactly one fused graph (K=8) and none more on
+    the repeats; tokens/s of both, median of 3 interleaved runs after a
+    warm run."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
+
+    prompt = np.random.default_rng(0).integers(0, VOCAB, 16).tolist()
+    n_gen, fuse_k = 129, 8
+    for cd in ("bfloat16", "float32"):
+        net = _serving_net(cd)
+        engines = {"stepped": DecodeEngine(net, n_slots=1, decode_chunk=1),
+                   "fused": DecodeEngine(net, n_slots=1, decode_chunk=1,
+                                         fused_rounds=fuse_k)}
+
+        def one(eng):
+            rid = eng.submit(Request(list(prompt), n_gen))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = eng.run()[rid].tokens
+            torch.cuda.synchronize()
+            return tokens, n_gen / (time.perf_counter() - t0)
+
+        flash_attention.launches = paged_attention.launches = 0
+        warm = {name: one(e)[0] for name, e in engines.items()}
+        counts0 = engines["fused"].compile_counts()
+        keys = engines["fused"]._graphs.keys()
+        rates = {name: [] for name in engines}
+        same = warm["fused"] == warm["stepped"]
+        for _ in range(3):
+            for name, e in engines.items():
+                ids, r = one(e)
+                rates[name].append(r)
+                same = same and ids == warm["stepped"]
+        counts1 = engines["fused"].compile_counts()
+        launches = (flash_attention.launches, paged_attention.launches)
+        med = {name: float(np.median(r)) for name, r in rates.items()}
+        log(f"fused decode [{cd}] (bench_fused_decode row 1): stepped "
+            f"{med['stepped']:.1f} tokens/s, fused_rounds={fuse_k} "
+            f"{med['fused']:.1f} tokens/s ({med['fused'] / med['stepped']:.3f}"
+            f"x; median of 3 interleaved after a warm run, runs "
+            f"{ {k: [round(x, 1) for x in v] for k, v in rates.items()} }); "
+            f"ids bit-identical {same}; fused graphs {keys}, decode / "
+            f"fused_decode graphs {_graph_counts(counts0)} -> "
+            f"{_graph_counts(counts1)}; graphs "
+            f"{{{_graph_memory(engines['fused']._graphs)}}}; K1 / K2 "
+            f"launches "
+            f"{launches} [{card}]")
+        if (not same or keys != [("fused", fuse_k)] or counts1 != counts0
+                or len(warm["fused"]) != n_gen or launches != (0, 0)):
+            raise SystemExit(
+                f"chip_smoke: fused decode [{cd}] failed: ids identical "
+                f"{same}, fused graphs {keys}, compile_counts {counts0} -> "
+                f"{counts1}, K1/K2 launches {launches}")
+        del engines, net
+        torch.cuda.empty_cache()
 
 
 def _reserved() -> int:
@@ -1858,7 +2152,7 @@ def _states_equal(a, b) -> bool:
 
 
 def decode_b1_phase(card: str, cd: str) -> tuple:
-    """Phase 7 at one dtype: the rnn_time_step loop, ``generate`` from
+    """Phase 8 at one dtype: the rnn_time_step loop, ``generate`` from
     its captured graphs, their agreement, the graph count per bucket, and
     at f32 the graph against the eager body. Returns the net and
     ``generate``'s tokens/s."""
@@ -1928,7 +2222,7 @@ def decode_b1_phase(card: str, cd: str) -> tuple:
 
 
 def decode_k1_prefill_phase(card: str, net, cd: str) -> int:
-    """Phase 7's K1 prefill at one dtype: ``generate`` after an unmasked
+    """Phase 8's K1 prefill at one dtype: ``generate`` after an unmasked
     K1_PREFILL_T-token prompt (K1's forward, one launch per layer), then
     the same run with the prefill forced dense. Identical ids at f32;
     at bf16 the agreement is printed. Returns K1's forward launches."""
@@ -1964,7 +2258,7 @@ def decode_k1_prefill_phase(card: str, net, cd: str) -> int:
 
 
 def dense_engine_phase(card: str, nets: dict, b1_rate: float) -> None:
-    """Phase 8: the dense-slot engine at bench_decode_batched's shape,
+    """Phase 9: the dense-slot engine at bench_decode_batched's shape,
     bf16 timed and gated at 0.9 against B=1 ``generate``, f32 identical
     to it and to the engine on eager rounds."""
     from deeplearning4j_tpu_torch.nn.layers.attention import (
@@ -2035,7 +2329,7 @@ def dense_engine_phase(card: str, nets: dict, b1_rate: float) -> None:
 
 
 def decode_phases(card: str) -> dict:
-    """Phases 7 and 8. Returns K1's prefill launches by kernels-line
+    """Phases 8 and 9. Returns K1's prefill launches by kernels-line
     entry (bf16 ``flash_attention``, f32 ``flash_attention_f32``)."""
     nets, rates, k1 = {}, {}, {}
     for cd, entry in (("float32", "flash_attention_f32"),
@@ -2062,6 +2356,11 @@ ACCURACY_GATE = 0.97
 LENET_PARITY_B, LENET_PARITY_STEPS = 256, 4
 LENET_PARITY_RTOL = 5e-3
 LENET_PARITY_PARAM_ATOL = 1e-6
+# the unprofiled ms/step of the eager fit_scan loop before the train step
+# was captured (this script, two runs on an H100 80GB HBM3 at 700 W, a
+# step without the health scalars), printed beside this run's
+LENET_EAGER_BEFORE_MS = {"bfloat16": "3.0863-3.1344",
+                         "float32": "2.8778-3.1289"}
 
 
 def _lenet(lr, compute_dtype=None, device=None):
@@ -2076,7 +2375,7 @@ def _lenet(lr, compute_dtype=None, device=None):
 
 
 def lenet_phase(card: str, k3_ms: float, dtype: str = "bfloat16") -> int:
-    """Phases 7 and 8: train LeNet as bench.py does (bf16 compute) or as
+    """Phases 10 and 11: train LeNet as bench.py does (bf16 compute) or as
     the zoo builds it (f32: no compute dtype), time 2 windows, gate the
     accuracy; every K3 launch of the training and evaluate path must go
     to the route of the dtype (bf16: the tensor-core kernel; f32: the
@@ -2100,13 +2399,20 @@ def lenet_phase(card: str, k3_ms: float, dtype: str = "bfloat16") -> int:
                             device=DEVICE)
     labels = torch.as_tensor(labels, device=DEVICE)
     torch.cuda.synchronize()
+    # the first window captures the train step (its warm-up launches K3
+    # once more, on copies): the count starts after it
+    t0 = time.perf_counter()
+    first = [float(x) for x in net.fit_scan(feats, labels)]
+    capture_s = time.perf_counter() - t0
     conv_taps.launches = conv_taps.mma_launches = 0
     flash_attention.launches = flash_attention.bwd_launches = 0
     paged_attention.launches = 0
     t0 = time.perf_counter()
-    scores = [net.fit_scan(feats, labels) for _ in range(LENET_SETUP)]
-    first = [float(s) for s in scores[0]]
+    for _ in range(LENET_SETUP - 1):
+        net.fit_scan(feats, labels)
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    twin = _lenet_twin(net, lr, dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls = []
@@ -2117,10 +2423,34 @@ def lenet_phase(card: str, k3_ms: float, dtype: str = "bfloat16") -> int:
         walls.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     launches, mma_launches = conv_taps.launches, conv_taps.mma_launches
-    steps = (LENET_SETUP + LENET_TIMED) * LENET_WINDOW
+    steps = (LENET_SETUP - 1 + LENET_TIMED) * LENET_WINDOW
     others = (flash_attention.launches, flash_attention.bwd_launches,
               paged_attention.launches)
     step_s = float(np.mean(walls)) / LENET_WINDOW
+    eager_walls = []
+    for _ in range(LENET_TIMED):
+        t0 = time.perf_counter()
+        [float(x) for x in twin.fit_scan(feats, labels)]
+        eager_walls.append(time.perf_counter() - t0)
+    eager_step_s = float(np.mean(eager_walls)) / LENET_WINDOW
+    same = lenet_identity_check(net, lr, dtype, feats, labels)
+    runner = net.train_graphs
+    log(f"LeNet [{dtype}]: fit_scan from its captured graph "
+        f"{step_s * 1e3:.4f} ms/step, the eager loop from a copy of the "
+        f"same params {eager_step_s * 1e3:.4f} ms/step "
+        f"({eager_step_s / step_s:.3f}x; the eager loop before capture, "
+        f"unprofiled: {LENET_EAGER_BEFORE_MS[dtype]}); under cuDNN's "
+        f"deterministic mode, a "
+        f"copy that captures its own graph and a copy that runs eagerly, "
+        f"{LENET_TIMED} windows each: params and updater state "
+        f"bit-identical {same}; {len(runner)} graph ({runner.captures} "
+        f"capture; {_graph_memory(runner)}); the capture window "
+        f"{capture_s:.3f} s [{card}]")
+    if not same or len(runner) != 1 or runner.captures != 1:
+        raise SystemExit(f"chip_smoke: LeNet {dtype}: the captured fit_scan "
+                         f"differs from the eager loop ({same}) or holds "
+                         f"{len(runner)} graphs ({runner.captures} captures)")
+    del twin
     test = mnist_dataset(train=False, num_examples=LENET_N_TEST,
                          as_image=True)
     conv_taps.launches = conv_taps.mma_launches = 0
@@ -2130,7 +2460,8 @@ def lenet_phase(card: str, k3_ms: float, dtype: str = "bfloat16") -> int:
     mma = dtype == "bfloat16"
     route = "on the tensor cores" if mma else "on the CUDA cores"
     log(f"LeNet: lenet5(lr={lr}), {dtype}, B={LENET_B}; set-up "
-        f"{LENET_SETUP} x {LENET_WINDOW} steps in {setup_s:.3f} s, first "
+        f"{LENET_SETUP} x {LENET_WINDOW} steps (the first captures; the "
+        f"other {LENET_SETUP - 1} in {setup_s:.3f} s), first "
         f"window losses {first[0]:.6f} -> {first[-1]:.6f}, last timed "
         f"window {last_loss[0]:.6f} -> {last_loss[-1]:.6f}; timed windows "
         f"{[round(w, 4) for w in walls]} s: "
@@ -2159,8 +2490,44 @@ def lenet_phase(card: str, k3_ms: float, dtype: str = "bfloat16") -> int:
     return launches
 
 
+def _lenet_twin(net, lr, dtype, eager=True):
+    """A LeNet from a copy of ``net``'s params, updater state and
+    iteration; with ``eager`` its ``fit_scan`` runs eagerly
+    (``train_graphs = None``, the private switch)."""
+    from deeplearning4j_tpu_torch.nn.streaming import tree_map
+
+    twin = _lenet(lr, dtype if dtype != "float32" else None)
+    for key, p in net.param_table().items():
+        twin.set_param(key, p)
+    twin.updater_state = tree_map(torch.clone, net.updater_state)
+    twin.iteration = net.iteration
+    if eager:
+        twin.train_graphs = None
+    return twin
+
+
+def lenet_identity_check(net, lr, dtype, feats, labels) -> bool:
+    """Whether a copy of ``net`` that captures its own ``fit_scan`` graph
+    and a copy that runs the step eagerly hold bit-identical params and
+    updater state after LENET_TIMED windows, under cuDNN's deterministic
+    mode. Without it f32 LeNet's conv2 weight gradient
+    (``wgrad_alg0_engine``) sums with atomics: two eager runs from the
+    same params differ (max |diff| 8.4e-6 after 2 windows on the H100),
+    so no check could hold the graph to the eager loop bit for bit."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        graph = _lenet_twin(net, lr, dtype, eager=False)
+        eager = _lenet_twin(net, lr, dtype)
+        for _ in range(LENET_TIMED):
+            graph.fit_scan(feats, labels)
+            eager.fit_scan(feats, labels)
+        return _nets_equal(graph, eager) and len(graph.train_graphs) == 1
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
 def lenet_parity_phase(card: str) -> None:
-    """Phase 9: one set of port params on the card and on the CPU, 4
+    """Phase 12: one set of port params on the card and on the CPU, 4
     f32 fit steps each at B=256: the card runs K3 (the CUDA-core kernel,
     the f32 route, once a step) and cuDNN's conv2, the CPU the plain tap
     loop and its conv2."""
@@ -2207,6 +2574,7 @@ def main() -> int:
     launches = training_parity_phase(card)
     launches.update(training_long_phase(card, k1_long_ms))
     launches["paged_attention"] = serving_phase(card)
+    fused_decode_phase(card)
     for name, n in decode_phases(card).items():
         launches[name] += n
     k3_ms = {k["name"]: k["ms"] for k in conv}

@@ -433,10 +433,12 @@ def _dense_attention(q, k, v, causal, mask):
     """softmax(QKᵀ/√dh)·V with an optional causal mask and [N, T] key
     mask; masked scores are -1e30 in q's dtype."""
     t = q.shape[2]
-    div = torch.sqrt(torch.tensor(float(q.shape[-1]), dtype=q.dtype,
-                                  device=q.device))
+    # scalars made on the device (fill kernels), never copied from the
+    # host: a train step is captured into a CUDA graph
+    div = torch.full((), float(q.shape[-1]), dtype=q.dtype,
+                     device=q.device).sqrt()
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / div
-    neg = torch.tensor(-1e30, dtype=scores.dtype, device=q.device)
+    neg = torch.full((), -1e30, dtype=scores.dtype, device=q.device)
     if causal:
         cm = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                    device=q.device))
@@ -510,7 +512,7 @@ def flash_attention_reference(q, k, v, causal: bool):
         cm = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                    device=q.device))
         scores = torch.where(cm, scores,
-                             torch.tensor(-1e30, device=q.device))
+                             torch.full((), -1e30, device=q.device))
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 

@@ -5,7 +5,8 @@ updater state), the mixed-precision forward ``_forward_fn`` (with
 ``remat`` as activation checkpointing), ``output``, ``param_table``,
 ``set_param``, ``feed_forward``, ``predict``, ``evaluate``, training:
 ``fit`` (a ``DataSet``, features and labels, or an iterator of
-``DataSet``), ``fit_scan`` (K steps over stacked batches), ``score``
+``DataSet``), ``fit_scan`` (K steps over stacked batches, replayed on
+the card from one captured CUDA graph of the train step), ``score``
 and ``compute_gradient_and_score``, and streaming: ``rnn_time_step``,
 ``rnn_clear_previous_state`` and ``generate``, whose decode scan runs on
 the card as one captured CUDA graph per pow2 bucket
@@ -17,13 +18,16 @@ A train step is the JAX step written eagerly: forward and loss under
 autograd (the compute-dtype cast of the f32 master params happens inside
 autograd every step, so gradients land in f32 as through JAX's cast
 transpose), ``torch.autograd.grad``, then per layer normalize -> updater
--> ``params - updates`` (new tensors, as JAX returns new arrays). Every
-parameter write bumps ``params_version``.
+-> ``params - updates`` (new tensors, as JAX returns new arrays), and
+the step's gradient-health scalars (``optimize/telemetry.py:
+grad_health``). Every parameter write bumps ``params_version``.
 
-Dropout draws from one ``torch.Generator`` per layer per step, seeded
-from the net's host generator (JAX splits one key per layer): with
-dropout 0 (the flagship) trajectories match the JAX package; with
-dropout they match only in distribution.
+Dropout in ``fit`` draws from one ``torch.Generator`` per layer per
+step, seeded from the net's host generator (JAX splits one key per
+layer); ``fit_scan`` draws from one persistent generator per layer on
+the net's device, which its captured graph registers. With dropout 0
+(the flagship) trajectories match the JAX package; with dropout they
+match only in distribution.
 
 Still out of this slice: truncated BPTT, the second-order ``Solver``,
 ``fit_stream`` and ``pretrain``.
@@ -64,8 +68,10 @@ from deeplearning4j_tpu_torch.nn.updater.updaters import (
 )
 from deeplearning4j_tpu_torch.optimize.listeners import fire_crossed
 from deeplearning4j_tpu_torch.optimize.telemetry import (
+    HEALTH_KEYS,
     TrainTelemetry,
     batch_counts,
+    grad_health,
     window_counts,
 )
 
@@ -133,14 +139,25 @@ def layer_reg_score(c, layer_params):
     return reg
 
 
-def layer_update(c, updater, grads, upd_state, iteration: int):
-    """normalize -> updater rule for ONE layer; returns (updates,
-    new_state) and the caller applies ``params - updates``."""
+def layer_update(c, updater, grads, upd_state, iteration: int,
+                 grad_scale=1.0, scalars=None):
+    """normalize -> scale -> updater rule for ONE layer; returns
+    (updates, new_state) and the caller applies ``params - updates``.
+
+    ``grad_scale`` multiplies the normalized gradients, as in JAX (the
+    data-parallel ACCUM_GRADIENT sum; 1.0 normally, and then skipped:
+    a product with 1 changes no bit); a float32 0-dim tensor in a
+    captured step. ``scalars`` are the rule's per-step scalars
+    (``LayerUpdater.step_scalars``); None computes them on the host from
+    ``iteration`` and the lr schedule."""
     g = normalize_gradients(
         c.resolved("gradient_normalization"), grads,
         float(c.resolved("gradient_normalization_threshold")))
-    lr = resolve_lr(c, iteration)
-    return updater.update(g, upd_state, lr, iteration)
+    if isinstance(grad_scale, torch.Tensor) or grad_scale != 1.0:
+        g = tree_map(lambda a: a * grad_scale, g)
+    if scalars is None:
+        scalars = updater.step_scalars(resolve_lr(c, iteration), iteration)
+    return updater.apply(g, upd_state, scalars)
 
 
 class MultiLayerNetwork:
@@ -179,6 +196,13 @@ class MultiLayerNetwork:
         #: dtype, params version); dropped when ``params_version`` moves
         self.generate_graphs = GraphRunner()
         self._graphs_version = self.params_version
+        #: ``fit_scan``'s captured train steps, one per (batch shapes,
+        #: dtype, masks, updater layout); None runs the step eagerly on
+        #: any device (a private switch for checks on the card)
+        self.train_graphs: Optional[GraphRunner] = GraphRunner()
+        #: ``fit_scan``'s per-layer dropout generators on the device,
+        #: made at its first call
+        self._scan_gens: Optional[List[torch.Generator]] = None
 
     def init(self) -> "MultiLayerNetwork":
         """Draw every layer's parameters from one ``torch.Generator`` on
@@ -247,11 +271,13 @@ class MultiLayerNetwork:
         bfloat16 under ``compute_dtype="bfloat16"``).
 
         ``rng`` (training only) is a host ``torch.Generator`` that seeds
-        one dropout generator per layer. With ``conf.remat`` each
-        layer's apply runs under ``torch.utils.checkpoint`` (its
-        activations are recomputed in the backward; the layer's
-        generator is rebuilt from its seed, so the rerun draws the same
-        dropout mask)."""
+        one dropout generator per layer (``fit``), or a list of one
+        persistent generator per layer on the device (``fit_scan``).
+        With ``conf.remat`` each layer's apply runs under
+        ``torch.utils.checkpoint`` (its activations are recomputed in
+        the backward; the layer's generator is rebuilt from its seed, or
+        a persistent one rewound to its state before the layer, so the
+        rerun draws the same dropout mask)."""
         cd = self._compute_dtype
         out_f32 = self._out_f32()
         last_si = str(self.n_layers - 1)
@@ -259,9 +285,12 @@ class MultiLayerNetwork:
         if cd is not None:
             x = _cast_floating(x, cd)
         seeds = [None] * self.n_layers
-        if train and rng is not None:
+        gens = [None] * self.n_layers
+        if train and isinstance(rng, torch.Generator):
             seeds = torch.randint(0, 2 ** 62, (self.n_layers,),
                                   generator=rng).tolist()
+        elif train and rng is not None:
+            gens = list(rng)
         remat = bool(self.conf.remat) and train and torch.is_grad_enabled()
         acts = []
         new_state = dict(state) if state else {}
@@ -271,8 +300,8 @@ class MultiLayerNetwork:
             pp = self.conf.preprocessor_for(i)
             if pp is not None:
                 x = pp.pre_process(
-                    x, _layer_generator(seeds[i], x.device) if train
-                    else None)
+                    x, gens[i] or _layer_generator(seeds[i], x.device)
+                    if train else None)
             layer_state = None
             if state and si in state:
                 layer_state = state[si]
@@ -283,11 +312,24 @@ class MultiLayerNetwork:
             if out_f32 and si == last_si:
                 x = _cast_floating(x, self._dtype)
 
+            gen_state = None
+            if remat and gens[i] is not None and impl.dropout_of(c) > 0:
+                if (gens[i].device.type == "cuda"
+                        and torch.cuda.is_current_stream_capturing()):
+                    raise NotImplementedError(
+                        "fit_scan with remat and dropout is not captured "
+                        "into a CUDA graph (a persistent generator cannot "
+                        "be rewound for the recompute under capture)")
+                gen_state = gens[i].get_state()
+
             def apply(p, xin, _c=c, _impl=impl, _lst=layer_state,
-                      _seed=seeds[i], _mask=mask):
+                      _seed=seeds[i], _gen=gens[i], _gst=gen_state,
+                      _mask=mask):
+                if _gst is not None:
+                    _gen.set_state(_gst)   # the recompute redraws
+                gen = _gen or _layer_generator(_seed, xin.device)
                 return _impl.apply(_c, p, xin, state=_lst, train=train,
-                                   rng=_layer_generator(_seed, xin.device),
-                                   mask=_mask)
+                                   rng=gen, mask=_mask)
 
             if remat:
                 x, st = checkpoint(apply, params[si], x, use_reentrant=False)
@@ -351,29 +393,36 @@ class MultiLayerNetwork:
                 grads[si][k] = torch.zeros_like(p) if g is None else g
         return score.detach(), grads, _detach_tree(new_state)
 
-    def _apply_updates(self, params, upd_state, grads, iteration: int):
-        """Per-layer normalize -> updater -> subtract."""
+    def _apply_updates(self, params, upd_state, grads, iteration,
+                       grad_scale=1.0, scalars=None):
+        """Per-layer normalize -> scale -> updater -> subtract;
+        ``scalars`` is None (each layer's from ``iteration``) or one
+        dict per layer (see :func:`layer_update`)."""
         new_params, new_upd = {}, {}
         with torch.no_grad():
             for i, (c, upd) in enumerate(zip(self.conf.confs,
                                              self._updaters)):
                 si = str(i)
                 updates, new_upd[si] = layer_update(
-                    c, upd, grads[si], upd_state[si], iteration)
+                    c, upd, grads[si], upd_state[si], iteration,
+                    grad_scale, None if scalars is None else scalars[i])
                 new_params[si] = {k: p - updates[k]
                                   for k, p in params[si].items()}
         return new_params, new_upd
 
     def _step_body(self, params, state, upd_state, iteration, rng,
-                   features, labels, feature_mask, label_mask):
+                   features, labels, feature_mask, label_mask,
+                   grad_scale=1.0, scalars=None):
         """One SGD step; returns (new_params, new_state, new_upd_state,
-        score). The JAX step also returns gradient-health scalars; they
-        join with the tracing listener that reads them."""
+        score, health): the gradient-health scalars come out of every
+        step (:func:`grad_health`), fetched only by a consumer."""
         score, grads, new_state = self._value_and_grad(
             params, state, rng, features, labels, feature_mask, label_mask)
         new_params, new_upd = self._apply_updates(
-            params, upd_state, grads, iteration)
-        return new_params, new_state, new_upd, score
+            params, upd_state, grads, iteration, grad_scale, scalars)
+        with torch.no_grad():
+            health = grad_health(grads, params, new_params)
+        return new_params, new_state, new_upd, score, health
 
     def _tensor(self, a, dtype=None):
         if a is None:
@@ -430,13 +479,13 @@ class MultiLayerNetwork:
         for _ in range(n_iter):
             t0 = time.perf_counter()
             (self.params, self.state, self.updater_state,
-             score) = self._step_body(
+             score, health) = self._step_body(
                 self.params, self.state, self.updater_state,
                 self.iteration, self._gen, feats, labels, fm, lm)
             self.params_version += 1
             self.train_telemetry.record_step(
                 dispatch_s=time.perf_counter() - t0, examples=examples,
-                tokens=tokens)
+                tokens=tokens, health=health)
             self.score_value = score
             self.iteration += 1
             for listener in self.listeners:
@@ -445,13 +494,27 @@ class MultiLayerNetwork:
                     listener.iteration_done(self, self.iteration)
 
     def fit_scan(self, features_stacked, labels_stacked,
-                 features_mask_stacked=None, labels_mask_stacked=None
-                 ) -> torch.Tensor:
+                 features_mask_stacked=None, labels_mask_stacked=None,
+                 grad_scale: float = 1.0) -> torch.Tensor:
         """K train steps over pre-stacked batches ([K, B, ...] features
         and labels, optional [K, B, T] masks), one after another on the
         device with no host sync; returns the K per-step scores as one
-        tensor. Listeners fire once per call (``fire_crossed``). The
-        SGD path only: tBPTT and second-order solvers raise."""
+        tensor. ``grad_scale`` multiplies the normalized gradients (JAX's
+        ACCUM_GRADIENT sum; see :func:`layer_update`). The K steps' health
+        scalars go to ``train_telemetry`` as [K] tensors. Listeners fire
+        once per call (``fire_crossed``). The SGD path only: tBPTT and
+        second-order solvers raise.
+
+        On the card the step replays one captured CUDA graph per key
+        (batch shapes, dtype, masks present, updater layout), held in
+        ``train_graphs``: each step copies its batch into the graph's
+        static inputs, and the window's per-step scalars (learning
+        rate, Adam's lr times bias correction, momentum) go up once, as
+        a float32 [K, S] table computed on the host in float64 exactly
+        as ``fit`` computes them, so the params after a window are those
+        of the eager loop bit for bit. On the CPU the same step runs
+        eagerly. A graph holds the conf as it was captured: after
+        changing a conf bean, ``train_graphs.drop()``."""
         self._check_sgd("fit_scan")
         self.init()
         feats = self._tensor(features_stacked, self._dtype)
@@ -459,26 +522,122 @@ class MultiLayerNetwork:
         fms = self._tensor(features_mask_stacked)
         lms = self._tensor(labels_mask_stacked)
         start = self.iteration
+        k = int(feats.shape[0])
         t0 = time.perf_counter()
-        scores = []
-        for j in range(feats.shape[0]):
-            (self.params, self.state, self.updater_state,
-             score) = self._step_body(
-                self.params, self.state, self.updater_state,
-                self.iteration, self._gen, feats[j], labels[j],
-                None if fms is None else fms[j],
-                None if lms is None else lms[j])
-            self.params_version += 1
-            self.iteration += 1
-            scores.append(score)
-        scores = torch.stack(scores)
+        layout, table = self._window_scalars(start, k)
+        gens = self._scan_generators()
+        graphs = self.train_graphs
+        key = (tuple(feats.shape[1:]), tuple(labels.shape[1:]),
+               feats.dtype, None if fms is None else tuple(fms.shape[1:]),
+               None if lms is None else tuple(lms.shape[1:]),
+               tuple(tuple(names) for names in layout))
+        ops = {"params": self.params, "state": self.state,
+               "upd": self.updater_state, "grad_scale": torch.full(
+                   (), float(grad_scale), dtype=torch.float32,
+                   device=self.device)}
+        fresh = graphs is not None and key not in graphs
+        scores = health = None
+
+        def body(o):
+            return self._scan_step(o, layout, gens)
+
+        with torch.no_grad():
+            for j in range(k):
+                ops.update(x=feats[j], y=labels[j],
+                           fm=None if fms is None else fms[j],
+                           lm=None if lms is None else lms[j],
+                           scalars=table[j])
+                if fresh:
+                    # a capture's tensors become the graph's static
+                    # inputs, which later steps overwrite: never the
+                    # net's params or the caller's batches
+                    ops, fresh = tree_map(torch.clone, ops), False
+                res = (body(ops) if graphs is None
+                       else graphs.run(key, body, ops))
+                if scores is None:
+                    scores = torch.empty((k,), dtype=res["score"].dtype,
+                                         device=self.device)
+                    health = torch.empty((k, len(HEALTH_KEYS)),
+                                         dtype=torch.float32,
+                                         device=self.device)
+                scores[j].copy_(res["score"])
+                health[j].copy_(res["health"])
+                ops.update(params=res["params"], state=res["state"],
+                           upd=res["upd"])
+                self.params_version += 1
+                self.iteration += 1
+        carry = {"params": ops["params"], "state": ops["state"],
+                 "upd": ops["upd"]}
+        if graphs is not None and key in graphs:
+            # the graph's outputs are overwritten by its next replay
+            carry = tree_map(torch.clone, carry)
+        self.params, self.state, self.updater_state = (
+            carry["params"], carry["state"], carry["upd"])
         k, examples, tokens = window_counts(feats.shape)
         self.train_telemetry.record_step(
             dispatch_s=time.perf_counter() - t0, steps=k,
-            examples=examples, tokens=tokens)
+            examples=examples, tokens=tokens,
+            health={name: health[:, i] for i, name in
+                    enumerate(HEALTH_KEYS)})
         self.score_value = scores[-1]
         fire_crossed(self.listeners, self, start, self.iteration)
         return scores
+
+    def _scan_step(self, ops, layout, gens):
+        """One ``fit_scan`` step over ``ops`` = {params, state, upd, x,
+        y, fm, lm, scalars: the step's [S] row of the window table,
+        grad_scale: f32 0-dim}, the body of the captured graph and of
+        the eager run alike: it reads nothing back to the host. Returns
+        the new params, state and updater state, the score and the [4]
+        health row."""
+        row = ops["scalars"]
+        scalars, col = [], 0
+        for names in layout:
+            scalars.append({name: row[col + n]
+                            for n, name in enumerate(names)})
+            col += len(names)
+        params, state, upd, score, health = self._step_body(
+            ops["params"], ops["state"], ops["upd"], None, gens,
+            ops["x"], ops["y"], ops["fm"], ops["lm"], ops["grad_scale"],
+            scalars)
+        return {"params": params, "state": state, "upd": upd,
+                "score": score,
+                "health": torch.stack([health[n] for n in HEALTH_KEYS])}
+
+    def _window_scalars(self, start: int, k: int):
+        """The per-step updater scalars of steps ``start`` .. ``start +
+        k - 1``: (layout, one list of names per layer; table, float32
+        [k, S] on the device, row j the names' values at step start + j
+        in layout order), computed on the host as ``fit`` computes them
+        and uploaded in one copy."""
+        layout, rows = None, []
+        for it in range(start, start + k):
+            per = [upd.step_scalars(resolve_lr(c, it), it)
+                   for c, upd in zip(self.conf.confs, self._updaters)]
+            if layout is None:
+                layout = [list(sc) for sc in per]
+            rows.append([v for sc in per for v in sc.values()])
+        host = torch.from_numpy(np.asarray(rows, dtype=np.float32))
+        if self.device.type == "cuda":
+            # pinned, so the copy neither waits for the device nor
+            # races a later window (the caching host allocator keeps the
+            # block until the copy has run)
+            return layout, host.pin_memory().to(self.device,
+                                                non_blocking=True)
+        return layout, host.to(self.device)
+
+    def _scan_generators(self) -> List[torch.Generator]:
+        """``fit_scan``'s per-layer dropout generators on the net's
+        device, seeded once from the net's host generator and registered
+        with ``train_graphs``, so a replay draws fresh masks."""
+        if self._scan_gens is None:
+            seeds = torch.randint(0, 2 ** 62, (self.n_layers,),
+                                  generator=self._gen).tolist()
+            self._scan_gens = [_layer_generator(sd, self.device)
+                               for sd in seeds]
+        if self.train_graphs is not None:
+            self.train_graphs.generators = tuple(self._scan_gens)
+        return self._scan_gens
 
     def score(self, ds=None) -> float:
         """The last training score, or the loss (plus regularization) of

@@ -7,7 +7,9 @@ and the six gradient-normalization modes, over ``{name: Tensor}`` dicts.
 
 Schedules are host floats computed from the Python iteration count (the
 JAX package computes them inside the jitted step from a traced counter;
-the values agree to float32 rounding).
+the values agree to float32 rounding). :meth:`LayerUpdater.step_scalars`
+gives the per-step ones a rule reads, so that a captured train step can
+take them as device tensors instead of baking in one step's floats.
 """
 
 from __future__ import annotations
@@ -61,21 +63,46 @@ class LayerUpdater:
             return {"m": _tree_zeros(params), "v": _tree_zeros(params)}
         raise ValueError(f"Unsupported updater {self.rule}")
 
+    def step_scalars(self, lr: float, iteration: int) -> dict:
+        """The per-step scalars this rule reads, as host floats computed
+        exactly as before (float64): ``lr``; NESTEROVS adds ``mu`` and
+        ``mu1`` = 1 + mu; ADAM adds ``lr_bias`` = lr times the bias
+        correction. ``fit_scan`` uploads a window of them as float32
+        tensors, which round to the same float32 values these floats
+        take as operands of float32 tensors."""
+        sc = {"lr": lr}
+        if self.rule == Updater.NESTEROVS:
+            mu = _resolve_schedule(self.hp["momentum"],
+                                   self.hp.get("momentum_schedule"),
+                                   iteration)
+            sc.update(mu=mu, mu1=1.0 + mu)
+        elif self.rule == Updater.ADAM:
+            b1, b2 = self.hp["adam_mean_decay"], self.hp["adam_var_decay"]
+            t = iteration + 1
+            sc["lr_bias"] = lr * (math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t))
+        return sc
+
     def update(self, grads, state, lr: float, iteration: int):
         """-> (updates, new_state); caller applies ``params -= updates``."""
+        return self.apply(grads, state, self.step_scalars(lr, iteration))
+
+    def apply(self, grads, state, sc):
+        """The rule with its per-step scalars ``sc`` (see
+        :meth:`step_scalars`: host floats, or float32 0-dim device
+        tensors, which read nothing back to the host)."""
         hp = self.hp
+        lr = sc["lr"]
         if self.rule == Updater.SGD:
             return _tree_map(lambda g: lr * g, grads), state
         if self.rule == Updater.NONE:
             return grads, state
         if self.rule == Updater.NESTEROVS:
-            mu = _resolve_schedule(hp["momentum"],
-                                   hp.get("momentum_schedule"), iteration)
+            mu, mu1 = sc["mu"], sc["mu1"]
             v_prev = state["v"]
             v_new = _tree_map(lambda v, g: mu * v - lr * g, v_prev, grads)
             # params += -mu*v_prev + (1+mu)*v_new  (Sutskever NAG, as in
             # the reference NesterovsUpdater)
-            updates = _tree_map(lambda vp, vn: mu * vp - (1.0 + mu) * vn,
+            updates = _tree_map(lambda vp, vn: mu * vp - mu1 * vn,
                                 v_prev, v_new)
             return updates, {"v": v_new}
         if self.rule == Updater.ADAGRAD:
@@ -104,15 +131,13 @@ class LayerUpdater:
         if self.rule == Updater.ADAM:
             b1, b2 = hp["adam_mean_decay"], hp["adam_var_decay"]
             eps = hp["epsilon"]
-            t = iteration + 1
+            lr_bias = sc["lr_bias"]
             m = _tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g,
                           state["m"], grads)
             v = _tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g,
                           state["v"], grads)
-            bias = math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
             updates = _tree_map(
-                lambda m_, v_: (lr * bias) * m_ / (torch.sqrt(v_) + eps),
-                m, v)
+                lambda m_, v_: lr_bias * m_ / (torch.sqrt(v_) + eps), m, v)
             return updates, {"m": m, "v": v}
         raise ValueError(f"Unsupported updater {self.rule}")
 

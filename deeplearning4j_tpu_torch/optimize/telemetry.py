@@ -3,15 +3,59 @@
 
 Port of the parts of ``deeplearning4j_tpu/optimize/telemetry.py`` that
 fit uses: :class:`TrainTelemetry` (the host-side phase accumulator every
-network owns) and the batch/window counters. The gradient-health
-scalars, the tracing listener that reads them and the JSONL sink belong
-to a later slice.
+network owns), the batch/window counters and the gradient-health
+scalars every train step returns (:func:`grad_health`). The tracing
+listener that reads them and the JSONL sink belong to a later slice.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Any, Dict, Optional
+
+import torch
+
+#: Gradient-health leaf names, in the order every producer emits them.
+HEALTH_KEYS = ("grad_norm", "update_ratio", "param_norm",
+               "nonfinite_grads")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def grad_health(grads, params, new_params) -> Dict[str, torch.Tensor]:
+    """Gradient-health scalars of one train step, computed on the device
+    inside the step (no host read): ``{grad_norm, update_ratio,
+    param_norm, nonfinite_grads}`` as float32 0-dim tensors.
+    ``update_ratio`` uses the applied delta (old minus new params), so
+    it reflects the normalized, scaled, lr-sized update the step took.
+    Every reduction runs in float32, over each tree's leaves at once
+    (``torch._foreach_norm``: a few kernels, not a few per leaf); a
+    norm is the root of the summed squares of the leaves' norms."""
+    def f32(tree):
+        return [leaf.float() for leaf in _leaves(tree)]
+
+    def norm(leaves):
+        return torch.stack(torch._foreach_norm(leaves)).square().sum().sqrt()
+
+    g = f32(grads)
+    old, new = f32(params), f32(new_params)
+    finite = torch.stack([torch.isfinite(leaf).sum() for leaf in g]).sum()
+    param_norm = norm(new)
+    return {
+        "grad_norm": norm(g),
+        "update_ratio": norm(torch._foreach_sub(old, new))
+        / torch.clamp(param_norm, min=1e-12),
+        "param_norm": param_norm,
+        "nonfinite_grads": (sum(leaf.numel() for leaf in g)
+                            - finite).float(),
+    }
+
 
 class TrainTelemetry:
     """Host-side phase accumulator for one training loop.
@@ -27,7 +71,7 @@ class TrainTelemetry:
     """
 
     __slots__ = ("wall_start", "data_wait_s", "dispatch_s", "steps",
-                 "examples", "tokens", "_active")
+                 "examples", "tokens", "health", "_active")
 
     def __init__(self) -> None:
         self._reset(time.perf_counter())
@@ -39,6 +83,7 @@ class TrainTelemetry:
         self.steps = 0
         self.examples = 0
         self.tokens = 0
+        self.health: Any = None
         self._active = False
 
     def _anchor(self, elapsed: float) -> None:
@@ -56,18 +101,23 @@ class TrainTelemetry:
         self.data_wait_s += seconds
 
     def record_step(self, dispatch_s: float = 0.0, steps: int = 1,
-                    examples: int = 0, tokens: int = 0) -> None:
+                    examples: int = 0, tokens: int = 0,
+                    health=None) -> None:
         """Stamp one dispatch: ``steps`` optimizer iterations covered
-        (K for a fit_scan window) and batch sizes."""
+        (K for a fit_scan window), batch sizes, and the step's health
+        outputs (a dict of device scalars, or of [K] device tensors for
+        a window; kept un-fetched until a consumer drains)."""
         self._anchor(dispatch_s)
         self.dispatch_s += dispatch_s
         self.steps += steps
         self.examples += examples
         self.tokens += tokens
+        if health is not None:
+            self.health = health
 
     def consume(self) -> Optional[Dict[str, Any]]:
         """Drain the window: returns ``{wall_s, data_wait_s,
-        dispatch_s, steps, examples, tokens}`` and starts a new
+        dispatch_s, steps, examples, tokens, health}`` and starts a new
         window. None when no step landed since the last drain (a
         listener firing twice at one iteration must not emit an empty
         sample) — an empty drain leaves the window UNTOUCHED, so
@@ -84,6 +134,7 @@ class TrainTelemetry:
             "steps": self.steps,
             "examples": self.examples,
             "tokens": self.tokens,
+            "health": self.health,
         }
         self._reset(now)
         return snap

@@ -41,17 +41,36 @@ One scheduling round (``step()``):
    tensors, so the graph always carries the sampled branch; greedy rows
    stay ``argmax``. On the CPU the same round body runs eagerly. The
    round's tokens are fetched once, the round's one host sync.
+   **Fused rounds** (``fused_rounds=K``, JAX's ``fused_decode``): when
+   no host decision is pending (nothing queued or requeued), up to K
+   rounds (the pow2 bucket covering the widest live request's remaining
+   rounds) run as ONE captured graph per bucket, with each slot's
+   committed prefix ``n_valid`` (eos and ``max_new_tokens``) found on
+   the device; slots that finish inside the window ride it as dead rows
+   and their overshoot is dropped at landing. Ids are bit-identical to
+   K stepped rounds, greedy and sampled: the window's sampler calls
+   advance the generator exactly as K round replays do.
 4. **Land** — advance the host tables and free blocks that slid out of
    every window (paged), append tokens, and finish requests that reached
-   ``max_new_tokens`` or their ``eos_id``.
+   ``max_new_tokens`` or their ``eos_id``. With ``async_rounds=True``
+   the dispatched round's tokens are copied into pinned host memory
+   behind an event, and the round lands at the START of the next
+   ``step()``, before any scheduling decision (so ids stay identical to
+   the synchronous engine's), letting the host's time between steps
+   overlap the device's round.
 
 The pools are updated in place (the JAX engine threads a new pool
 through each executable). ``compile_counts()`` has the JAX engine's keys
 for the layout, each the number of graphs captured for that path: the
 decode round's is 1 once a round has run on the card, and the eager
-paths read 0. Knobs of the JAX engine that this port does not carry yet
-(the prefix caches, chunked prefill, speculative decoding, fault
-handling, tenancy, async and fused rounds, KV tiers, tensor
+paths read 0; with ``fused_rounds`` it adds ``fused_decode``, the
+number of fused graphs (one per pow2 K dispatched, all of one engine's
+graphs in one memory pool). ``histograms`` holds the two the
+JAX engine's fused and async paths observe: ``serving_fused_rounds``
+(K at each fused dispatch) and ``serving_host_step_s`` (from the last
+round's token sync to the next dispatch). Knobs of the JAX engine that
+this port does not carry yet (the prefix caches, chunked prefill,
+speculative decoding, fault handling, tenancy, KV tiers, tensor
 parallelism, incremental delivery, tracing) raise
 ``NotImplementedError`` when set to anything but their default.
 """
@@ -64,7 +83,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseRecurrentLayer
@@ -74,6 +92,7 @@ from deeplearning4j_tpu_torch.nn.streaming import (
     clear_state_rows,
     tree_map,
 )
+from deeplearning4j_tpu_torch.profiler.tracer import Histogram
 from deeplearning4j_tpu_torch.serving.block_pool import BlockPool, BlockTable
 from deeplearning4j_tpu_torch.serving.sampler import sample_tokens
 from deeplearning4j_tpu_torch.serving.scheduler import (
@@ -93,8 +112,7 @@ _UNPORTED = {
     "stall_threshold_s": None, "clock": None, "spec_draft_len": 0,
     "draft_source": "ngram", "on_delta": None, "emit_deltas": False,
     "record_timing": True, "flight_recorder": 256, "tp": 1,
-    "tenants": None, "async_rounds": False, "fused_rounds": 0,
-    "kv_host_tier_bytes": 0, "kv_disk_tier_path": None,
+    "tenants": None, "kv_host_tier_bytes": 0, "kv_disk_tier_path": None,
     "kv_disk_tier_bytes": None, "tracer": None,
 }
 
@@ -106,8 +124,31 @@ class _Slot:
     ttft_s: Optional[float] = None
 
 
+@dataclasses.dataclass
+class _InflightRound:
+    """One dispatched decode round (stepped or fused) whose tokens have
+    not landed: what the landing needs to commit them. ``seq`` [B, T]
+    and ``n_valid`` [B] (fused only) are host tensors, pinned copies
+    that ``event`` (None on the CPU) completes; ``decode_tokens`` is
+    what the device wrote per slot (K * chunk for a fused window)."""
+
+    active: List[int]
+    seq: torch.Tensor
+    n_valid: Optional[torch.Tensor]
+    event: Any
+    t0: float
+    decode_tokens: int
+
+
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _one_hot(tok: torch.Tensor, vocab: int, dtype) -> torch.Tensor:
+    """[B, V] one-hot rows of ``tok`` as a comparison (``F.one_hot``
+    checks its range with a host read on the CPU)."""
+    return (tok.long()[:, None] == torch.arange(
+        vocab, device=tok.device)).to(dtype)
 
 
 class DecodeEngine:
@@ -123,12 +164,16 @@ class DecodeEngine:
     ``use_flash_paged`` selects the paged attention path (see
     ``nn.layers.attention._should_use_flash_paged``); like the JAX
     engine, a non-None value is stamped onto the net's attention beans.
-    ``seed`` seeds the ``torch.Generator`` sampled requests draw from."""
+    ``seed`` seeds the ``torch.Generator`` sampled requests draw from.
+    ``fused_rounds`` (0: off) caps the rounds one fused dispatch runs;
+    ``async_rounds`` defers each round's landing to the next ``step()``
+    (module docstring)."""
 
     def __init__(self, net, n_slots: int = 8, decode_chunk: int = 8,
                  min_prompt_bucket: int = 8, seed: int = 0,
                  paged_kv: bool = False, block_tokens: int = 16,
                  kv_blocks: Optional[int] = None, use_flash_paged=None,
+                 fused_rounds: int = 0, async_rounds: bool = False,
                  **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -142,11 +187,15 @@ class DecodeEngine:
             raise ValueError(f"n_slots {n_slots} < 1")
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk {decode_chunk} < 1")
+        if fused_rounds < 0:
+            raise ValueError(f"fused_rounds {fused_rounds} < 0")
         self.device = resolve_device(net.device)
         net.init()
         self.net = net
         self.n_slots = int(n_slots)
         self.decode_chunk = int(decode_chunk)
+        self.fused_rounds = int(fused_rounds)
+        self.async_rounds = bool(async_rounds)
         confs = net.conf.confs
         self.vocab = confs[0].layer.n_in
         out_n = getattr(confs[-1].layer, "n_out", None)
@@ -191,7 +240,8 @@ class DecodeEngine:
         self._kv_tabs: List[Optional[BlockTable]] = [None] * self.n_slots
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        #: the decode round's captured graph (None: eager rounds, a
+        #: the decode round's captured graph and the fused windows' (one
+        #: per pow2 K), in one memory pool (None: eager rounds, a
         #: private switch for checks on the card)
         self._graphs: Optional[GraphRunner] = GraphRunner([self._gen])
         self._graphs_version = net.params_version
@@ -207,6 +257,16 @@ class DecodeEngine:
         self._round = 0
         self._terminal: Dict[int, GenerationResult] = {}
         self._requeue: List[Tuple[int, Request]] = []
+        #: the dispatched round not landed yet (async rounds)
+        self._inflight: Optional[_InflightRound] = None
+        #: pinned host buffers the rounds' tokens are copied into, by
+        #: shape; reused only after the landing waited on their event
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+        #: wall stamp of the last token sync (serving_host_step_s)
+        self._last_sync_end: Optional[float] = None
+        self.histograms: Dict[str, Histogram] = {
+            name: Histogram() for name in ("serving_host_step_s",
+                                           "serving_fused_rounds")}
         self.stats: Dict[str, Any] = {
             "tokens_generated": 0, "requests_finished": 0,
             "decode_time_s": 0.0, "chunks": 0, "decode_steps": 0,
@@ -217,8 +277,8 @@ class DecodeEngine:
         }
 
     def _size_block_pool(self, kv_blocks: Optional[int]) -> None:
-        """Block pool sizing (the JAX engine's, with no spec/fused writes
-        and no prefix pool)."""
+        """Block pool sizing (the JAX engine's, with no speculative
+        writes and no prefix pool)."""
         bt = self.block_tokens
         if bt < 1 or (bt & (bt - 1)):
             raise ValueError(f"block_tokens {bt} must be a power of two")
@@ -226,9 +286,12 @@ class DecodeEngine:
             raise ValueError(
                 f"block_tokens {bt} exceeds the cache window "
                 f"({self.window}) — a block must fit inside it")
-        round_write = self.decode_chunk + 1
+        # a fused window writes K rounds of decode tokens before the host
+        # sees any: the ring covers the widest single dispatch
+        round_write = max(self.decode_chunk + 1,
+                          self.fused_rounds * self.decode_chunk)
         # ring width: the window, plus the widest single write (a whole
-        # window at admission) plus one round's decode writes — a
+        # window at admission) plus one dispatch's decode writes — a
         # logical block is never recycled while a query can reach it
         self._ring_slots = (_ceil_div(self._wmax, bt)
                             + _ceil_div(self.window, bt)
@@ -273,8 +336,10 @@ class DecodeEngine:
         return rid
 
     def has_work(self) -> bool:
-        """True while anything is queued, requeued or decoding."""
+        """True while anything is queued, requeued, decoding, or
+        dispatched but not landed (async rounds)."""
         return bool(self.scheduler.pending or self._requeue
+                    or self._inflight is not None
                     or any(s is not None for s in self._slots))
 
     def run(self) -> Dict[int, GenerationResult]:
@@ -562,21 +627,18 @@ class DecodeEngine:
             self._finish(state, slot)
 
     # -- the scheduling round ------------------------------------------
-    def _round_body(self, ops) -> torch.Tensor:
-        """The decode round, JAX's ``decode`` scan: ``decode_chunk``
-        steps of one-hot, forward and ``sample_tokens`` over every slot,
-        from ``ops`` = {"rnn": the round's rnn state (the dense pool, or
-        the paged pool with the round's tables), "toks": [B] int32,
-        "temps": [B] f32, "top_ks": [B] int64}. Writes the dense pool
-        (the paged pool is written by each step's scatter) and the token
-        vector back in place and returns the round's tokens [B, chunk].
-        The graph the engine captures on the card, and what runs on the
-        CPU; no step reads a value back to the host."""
+    def _decode_steps(self, ops, n: int) -> torch.Tensor:
+        """``n`` decode steps of one-hot, forward and ``sample_tokens``
+        over every slot, from ``ops`` = {"rnn": the rnn state (the dense
+        pool, or the paged pool with the dispatch's tables), "toks": [B]
+        int32, "temps": [B] f32, "top_ks": [B] int64}. Writes the dense
+        pool (the paged pool is written by each step's scatter) and the
+        token vector back in place and returns the tokens [B, n]. No
+        step reads a value back to the host."""
         rnn, tok = ops["rnn"], ops["toks"]
         steps = []
-        for _ in range(self.decode_chunk):
-            x = F.one_hot(tok.long(), self.vocab).to(
-                self.net._dtype)[:, :, None]
+        for _ in range(n):
+            x = _one_hot(tok, self.vocab, self.net._dtype)[:, :, None]
             out, rnn = self._forward(x, None, rnn)
             tok = sample_tokens(out[:, :, -1], ops["temps"], ops["top_ks"],
                                 self._gen)
@@ -586,48 +648,160 @@ class DecodeEngine:
         ops["toks"].copy_(tok)
         return torch.stack(steps, dim=1)
 
-    def _run_round(self, ops) -> torch.Tensor:
-        """One decode round: a replay of the round's captured graph on
-        the card (captured at the first round, and again after a move of
-        the net's ``params_version``), the eager body on the CPU."""
+    def _round_body(self, ops) -> Dict[str, torch.Tensor]:
+        """The decode round, JAX's ``decode`` scan: ``decode_chunk``
+        steps (:meth:`_decode_steps`); returns {"seq": [B, chunk]}. The
+        graph the engine captures on the card, and what runs on the
+        CPU."""
+        return {"seq": self._decode_steps(ops, self.decode_chunk)}
+
+    def _fused_body(self, ops, k: int) -> Dict[str, torch.Tensor]:
+        """``k`` rounds as one window, JAX's ``fused_decode``: k *
+        ``decode_chunk`` steps, then each slot's committed prefix on the
+        device from ``ops["eos_ids"]`` [B] (-1: none) and
+        ``ops["remaining"]`` [B] (``max_new_tokens`` headroom): up to and
+        including its first eos, at most its headroom. Returns {"seq":
+        [B, k * chunk], "n_valid": [B] int32}."""
+        seq = self._decode_steps(ops, k * self.decode_chunk)
+        t = seq.shape[1]
+        pos = torch.arange(t, device=seq.device)[None, :]
+        eos_pos = torch.where(seq == ops["eos_ids"][:, None], pos,
+                              torch.full_like(pos, t)).amin(dim=1)
+        n_valid = torch.minimum(torch.clamp(eos_pos + 1, max=t),
+                                torch.clamp(ops["remaining"], 0, t))
+        return {"seq": seq, "n_valid": n_valid.to(torch.int32)}
+
+    def _run_graph(self, key, body, ops) -> Dict[str, torch.Tensor]:
+        """``body(ops)``: a replay of the graph of ``key`` on the card
+        (captured at its first dispatch, and again after a move of the
+        net's ``params_version``), the eager body on the CPU."""
         if self._graphs is None:
-            return self._round_body(ops)
+            return body(ops)
         if self._graphs_version != self.net.params_version:
             self._graphs.drop()
             self._graphs_version = self.net.params_version
-        return self._graphs.run("decode", self._round_body, ops)
+        return self._graphs.run(key, body, ops)
+
+    def _plan_fused(self, active: List[int]) -> int:
+        """Rounds to fuse into this dispatch (JAX's ``_plan_fused``): 0
+        = a stepped round; K >= 1 = one K-round window, only when no
+        host decision is pending (no queued arrival, no requeued
+        victim). K is the pow2 bucket covering the widest live
+        request's remaining rounds, capped at ``fused_rounds``, so at
+        most log2(fused_rounds) + 1 windows are ever captured."""
+        if (not self.fused_rounds or self._requeue
+                or self.scheduler.decision_pending()):
+            return 0
+        max_rem = max(self._slots[s].request.max_new_tokens
+                      - len(self._slots[s].tokens) for s in active)
+        need = _ceil_div(max_rem, self.decode_chunk)
+        k = 1
+        while k < need and k * 2 <= self.fused_rounds:
+            k *= 2
+        return k
+
+    def _to_host(self, tensors) -> Tuple[List[torch.Tensor], Any]:
+        """Host copies of a dispatch's outputs and the event that
+        completes them: on the card, copies into pinned buffers enqueued
+        behind the round (reused only after the landing waited on the
+        event); on the CPU the tensors themselves and no event."""
+        if self.device.type != "cuda":
+            return list(tensors), None
+        outs = []
+        for t in tensors:
+            key = (tuple(t.shape), t.dtype)
+            buf = self._pinned.get(key)
+            if buf is None:
+                buf = self._pinned[key] = torch.empty(
+                    t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            outs.append(buf)
+        event = torch.cuda.Event()
+        event.record()
+        return outs, event
 
     def _decode_round(self, active: List[int]) -> None:
-        chunk = self.decode_chunk
+        """Plan, reserve (paged) and dispatch one stepped round or fused
+        window; land it now, or at the next ``step()`` (async)."""
+        fuse_k = self._plan_fused(active)
+        n_tok = max(fuse_k, 1) * self.decode_chunk
         if self.paged_kv:
             ensured: set = set()
             for slot in list(active):
                 if self._slots[slot] is None:
                     continue   # preempted by an earlier reservation
-                if self._ensure_tab(self._kv_tabs[slot], chunk,
+                if self._ensure_tab(self._kv_tabs[slot], n_tok,
                                     protect=ensured | {slot}):
                     ensured.add(slot)
                 else:
                     self._preempt_slot(slot)
             active = [s for s in active if self._slots[s] is not None]
+            if fuse_k and self._requeue:
+                # a preemption is a scheduling decision: step instead
+                # (the extra reserved blocks serve the next rounds)
+                fuse_k, n_tok = 0, self.decode_chunk
             if not active:
                 return
         t0 = time.perf_counter()
+        if self._last_sync_end is not None:
+            self.histograms["serving_host_step_s"].observe(
+                t0 - self._last_sync_end)
         rnn = (self._paged_rnn_rows(self._kv_tabs) if self.paged_kv
                else self._pool)
         ops = {"rnn": rnn, "toks": self._toks,
                "temps": self._round_buffer("temps", self._temps),
                "top_ks": self._round_buffer("top_ks", self._top_ks)}
-        seq = self._run_round(ops).cpu().numpy()   # the round's sync
-        dt = time.perf_counter() - t0
+        if fuse_k:
+            eos_ids = np.full(self.n_slots, -1, np.int64)
+            remaining = np.zeros(self.n_slots, np.int64)
+            for s in active:
+                req = self._slots[s].request
+                if req.eos_id is not None:
+                    eos_ids[s] = int(req.eos_id)
+                remaining[s] = req.max_new_tokens - len(
+                    self._slots[s].tokens)
+            ops["eos_ids"] = self._round_buffer("eos_ids", eos_ids)
+            ops["remaining"] = self._round_buffer("remaining", remaining)
+            out = self._run_graph(
+                ("fused", fuse_k),
+                lambda o, _k=fuse_k: self._fused_body(o, _k), ops)
+            (seq, n_valid), event = self._to_host(
+                (out["seq"], out["n_valid"]))
+            self.histograms["serving_fused_rounds"].observe(fuse_k)
+        else:
+            out = self._run_graph("decode", self._round_body, ops)
+            (seq,), event = self._to_host((out["seq"],))
+            n_valid = None
+        inf = _InflightRound(active=list(active), seq=seq,
+                             n_valid=n_valid, event=event, t0=t0,
+                             decode_tokens=n_tok)
+        if self.async_rounds:
+            self._inflight = inf
+        else:
+            self._land_round(inf)
+
+    def _land_round(self, inf: _InflightRound) -> None:
+        """Commit a dispatched round (JAX's ``_land_round``): wait for
+        its tokens (the round's one host sync), advance the host tables
+        by the tokens the device wrote and free blocks that slid out of
+        every window (paged), append each slot's committed tokens (a
+        fused window's ``n_valid`` prefix; overshoot past it is dropped)
+        and finish requests."""
+        if inf.event is not None:
+            inf.event.synchronize()
+        seq = inf.seq.numpy()
+        n_valid = None if inf.n_valid is None else inf.n_valid.numpy()
+        self._last_sync_end = time.perf_counter()
         emitted = 0
-        for slot in active:
+        for slot in inf.active:
             if self.paged_kv:
                 tab = self._kv_tabs[slot]
-                tab.length += chunk
+                tab.length += inf.decode_tokens
                 self._free_expired_blocks(tab)
             state = self._slots[slot]
-            for t in seq[slot]:
+            row = (seq[slot] if n_valid is None
+                   else seq[slot][:int(n_valid[slot])])
+            for t in row:
                 state.tokens.append(int(t))
                 emitted += 1
                 if self._finished(state):
@@ -635,19 +809,24 @@ class DecodeEngine:
             if self._finished(state):
                 self._finish(state, slot)
         self.stats["tokens_generated"] += emitted
-        self.stats["decode_time_s"] += dt
+        self.stats["decode_time_s"] += self._last_sync_end - inf.t0
         self.stats["chunks"] += 1
-        self.stats["decode_steps"] += chunk
-        self.stats["occupancy_sum"] += len(active) / self.n_slots
+        self.stats["decode_steps"] += inf.decode_tokens
+        self.stats["occupancy_sum"] += len(inf.active) / self.n_slots
 
     def compile_counts(self) -> Dict[str, int]:
-        """The JAX engine's ``compile_counts`` keys for this layout, each
-        the number of CUDA graphs captured for that path: ``decode`` is 1
-        once a round has run on the card and stays 1 (the JAX engine's
-        no-retrace guarantee); the paths that run eagerly (prefill,
+        """The JAX engine's ``compile_counts`` keys for this layout and
+        knobs, each the number of CUDA graphs captured for that path:
+        ``decode`` is 1 once a round has run on the card and stays 1 (the
+        JAX engine's no-retrace guarantee); ``fused_decode`` (present
+        only with ``fused_rounds``) counts the fused windows, one per
+        pow2 K dispatched; the paths that run eagerly (prefill,
         admission, the paged movers) and every path on the CPU read 0."""
+        keys = self._graphs.keys() if self._graphs else []
         counts = {"prefill": 0, "chunk_prefill": 0, "admit": 0,
-                  "decode": len(self._graphs) if self._graphs else 0}
+                  "decode": keys.count("decode")}
+        if self.fused_rounds:
+            counts["fused_decode"] = len(keys) - counts["decode"]
         if self.paged_kv:
             counts.update(paged_scatter=0, paged_tok=0, kv_import=0,
                           kv_gather=0, paged_copy=0, paged_zero=0)
@@ -655,12 +834,18 @@ class DecodeEngine:
 
     def step(self, results: Optional[Dict[int, GenerationResult]] = None
              ) -> Dict[int, GenerationResult]:
-        """One scheduling round: requeue, admit into free slots, one
-        decode chunk, evictions. Terminal results accumulate into (and
-        are returned via) ``results``."""
+        """One scheduling round: land the round in flight (async),
+        requeue, admit into free slots, one decode chunk or fused
+        window, evictions. Terminal results accumulate into (and are
+        returned via) ``results``."""
         if results is None:
             results = {}
         with torch.no_grad():
+            if self._inflight is not None:
+                # async rounds: land the round the previous step
+                # dispatched before any of this round's decisions
+                inf, self._inflight = self._inflight, None
+                self._land_round(inf)
             self._drain_requeue()
             for slot in range(self.n_slots):
                 if self._slots[slot] is None and self.scheduler.pending:

@@ -1,14 +1,16 @@
 """Where a LeNet-5 training step's time goes in the PyTorch port.
 
-    python3 scripts/torch_lenet_profile.py [--dtype float32]
+    python3 scripts/torch_lenet_profile.py [--dtype float32] [--eager]
 
 Needs a CUDA card. Builds the configuration one of ``chip_smoke.py``'s
 LeNet phases trains (default bf16: bench.py's LeNet row,
 ``lenet5(lr=0.002)``, bf16 compute with an f32 head; ``--dtype
 float32``: the zoo's default ``lenet5(lr=0.01)``, no compute dtype, so
 f32 throughout and K3 on its CUDA-core kernel), B=2048 synthetic MNIST,
-warms up with one ``fit_scan`` window, and profiles the next with
-``torch.profiler``.
+warms up with one ``fit_scan`` window (which captures the train step's
+CUDA graph), and profiles the next with ``torch.profiler``: the window
+replayed from that graph, or with ``--eager`` the step run eagerly (the
+net's private switch ``train_graphs = None``).
 Prints the wall time per step, the device's busy and idle shares of
 that wall (the sum of kernel times over it: training runs on one
 stream), K3's (``conv_taps``) share of busy time, kernel launches per
@@ -51,7 +53,10 @@ LR = {"bfloat16": 0.002, "float32": 0.01}
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=sorted(LR), default="bfloat16")
-    dtype = ap.parse_args(argv).dtype
+    ap.add_argument("--eager", action="store_true",
+                    help="run the train step eagerly, not as its graph")
+    args = ap.parse_args(argv)
+    dtype = args.dtype
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
@@ -65,6 +70,8 @@ def main(argv=None) -> int:
         for c in conf.confs:
             c.compute_dtype = dtype
     net = MultiLayerNetwork(conf, device="cuda").init()
+    if args.eager:
+        net.train_graphs = None
     ds = mnist_dataset(train=True, num_examples=BATCH * WINDOW,
                        as_image=True)
     feats = torch.as_tensor(np.stack([b.features for b in
@@ -92,6 +99,7 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     summary = {
         "card": card, "dtype": dtype, "steps": WINDOW, "batch": BATCH,
+        "step": "eager" if args.eager else "graph",
         "ms_per_step": wall / WINDOW * 1e3,
         "examples_per_s": BATCH * WINDOW / wall,
         "device_busy_share": busy_s / wall,
@@ -103,7 +111,8 @@ def main(argv=None) -> int:
         "conv_taps_launches": conv_taps.launches - launches0,
         "top_kernels_ms": [(k[:80], v * 1e-3) for k, v in top],
     }
-    print(f"[{card}] {WINDOW} LeNet {dtype} steps at B={BATCH} in "
+    print(f"[{card}] {WINDOW} LeNet {dtype} steps ({summary['step']}) at "
+          f"B={BATCH} in "
           f"{wall:.3f} s: "
           f"{summary['ms_per_step']:.3f} ms per step, device busy "
           f"{summary['device_busy_share']:.1%} (idle "

@@ -1,6 +1,7 @@
 """Where a decode round's time goes in the PyTorch port's serving path.
 
     python3 scripts/torch_serving_profile.py [--layout paged|dense] [--eager]
+        [--fused-rounds K]
 
 Needs a CUDA card. Builds the serving configuration ``chip_smoke.py``
 drives (the width-1024, 8-block transformer flagship at bf16 compute
@@ -9,7 +10,10 @@ engine's 8 slots with 128-token prompts (the paged-KV layout by
 default, ``--layout dense`` for the dense slot pool), and profiles the
 decode of their last 32 new tokens, one round, with ``torch.profiler``:
 one replay of the round's captured CUDA graph, or with ``--eager`` the
-round body run eagerly (the engine's private switch). Prints the
+round body run eagerly (the engine's private switch). With
+``--fused-rounds K`` every round is a fused window of K rounds (the
+requests ask for 4 windows' tokens), and the profiled round is one
+replay of the K-round graph. Prints the
 wall time per decode step (and, from one unprofiled round before the
 profiled one, the wall per step and the slots' tokens/s without the
 profiler), the device's busy and idle shares of that wall
@@ -59,7 +63,7 @@ from deeplearning4j_tpu_torch.serving import (  # noqa: E402
 )
 
 VOCAB, WIDTH, N_LAYERS, N_HEADS, WINDOW = 64, 1024, 8, 8, 2048
-N_SLOTS, DECODE_CHUNK, PROMPT_LEN, N_GEN = 8, 32, 128, 129
+N_SLOTS, DECODE_CHUNK, PROMPT_LEN = 8, 32, 128
 
 
 def syncs_per_step(eng) -> float:
@@ -83,7 +87,12 @@ def main() -> int:
     ap.add_argument("--layout", choices=("paged", "dense"), default="paged")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode round eagerly, not as its graph")
+    ap.add_argument("--fused-rounds", type=int, default=0,
+                    help="fuse K rounds into each dispatch")
     args = ap.parse_args()
+    # the admission's token, then 4 dispatches: one with the
+    # admissions, one counting syncs, one unprofiled, one profiled
+    n_gen = 1 + DECODE_CHUNK * max(args.fused_rounds, 1) * 4
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
@@ -102,7 +111,8 @@ def main() -> int:
     net = MultiLayerNetwork(conf, device="cuda").init()
     eng = DecodeEngine(net, paged_kv=args.layout == "paged",
                        block_tokens=16, n_slots=N_SLOTS,
-                       decode_chunk=DECODE_CHUNK)
+                       decode_chunk=DECODE_CHUNK,
+                       fused_rounds=args.fused_rounds)
     if args.eager:
         eng._graphs = None
     rng = np.random.default_rng(0)
@@ -111,7 +121,7 @@ def main() -> int:
     eng.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))   # warm-up
     eng.run()
     for p in prompts:
-        eng.submit(Request(list(p), N_GEN))
+        eng.submit(Request(list(p), n_gen))
     eng.step()          # admissions + the first round, unprofiled
     syncs = syncs_per_step(eng)
     torch.cuda.synchronize()
@@ -144,6 +154,7 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     summary = {
         "card": card, "layout": args.layout,
+        "fused_rounds": args.fused_rounds,
         "round": "eager" if args.eager else "graph",
         "compile_counts": eng.compile_counts(), "decode_steps": steps,
         "ms_per_step": wall / steps * 1e3,
@@ -158,7 +169,8 @@ def main() -> int:
         "host_syncs_per_step": syncs,
         "top_kernels_ms": [(k[:80], v * 1e-3) for k, v in top],
     }
-    print(f"[{card}] {args.layout}, {summary['round']} round: "
+    print(f"[{card}] {args.layout}, {summary['round']} round "
+          f"(fused_rounds={args.fused_rounds}): "
           f"{steps} decode steps of {N_SLOTS} slots in "
           f"{wall:.3f} s: {summary['ms_per_step']:.2f} ms per step "
           f"({summary['unprofiled_ms_per_step']:.2f} ms, "

@@ -130,7 +130,7 @@ def test_eos_and_sampling(tmp_path):
 @pytest.mark.parametrize("knob,value", [
     ("prefix_cache_rows", 4), ("prefill_chunk", 8),
     ("spec_draft_len", 2), ("paranoid", True), ("tp", 2),
-    ("async_rounds", True), ("fused_rounds", 2), ("tenants", object()),
+    ("adaptive_prefill", True), ("max_queue", 4), ("tenants", object()),
     ("kv_host_tier_bytes", 1 << 20),
 ])
 def test_unported_knobs_raise(tmp_path, knob, value):

@@ -470,7 +470,7 @@ def fake_card(monkeypatch):
     capturing = []
 
     @contextlib.contextmanager
-    def graph(g):
+    def graph(g, pool=None):
         capturing.append(g)
         yield
         capturing.pop()
@@ -486,6 +486,10 @@ def fake_card(monkeypatch):
                         lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
     return capturing
 
 
