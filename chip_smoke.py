@@ -33,7 +33,12 @@ JAX or of the JAX package. Phases, each fatal on failure:
    channels (the CUDA-core kernel's output staged in pieces), an inf
    and a NaN whose non-finite outputs must sit where the plain
    version's do, in bf16 and in f32; each route's main case rerun bit
-   for bit; a zeroed tap must fail the bf16 and the f32 limits).
+   for bit; a zeroed tap must fail the bf16 and the f32 limits). K2's
+   chunk route at phase 13's shape (B=1, t=256 after a 1024-token
+   spliced prefix, window 2048, bt 16, f32 pool, q bf16 and f32, and a
+   ragged last chunk of 200 under its mask): held on the valid rows,
+   timed eager and as a CUDA graph beside the plain version, SDPA over
+   the pre-gathered window and the bound.
 4. training A — the width-1024 flagship (random weights from a seed) on
    K1 and on dense attention from the same params, 4 ``fit`` steps each
    at B=2, T=2048 on the Markov task, f32 and bf16: loss trajectories
@@ -112,6 +117,33 @@ JAX or of the JAX package. Phases, each fatal on failure:
    B=256 on the card (K3 on the CUDA-core kernel, the f32 route, and
    cuDNN's conv2) and on the CPU (the plain versions): loss trajectories
    and params agree.
+13. prefix caches and chunked admission — (a) bench.py's
+   ``bench_prefix_cache`` workload on the serving net at bf16 (16
+   prompts of a 1024-token shared prefix and a 256-token tail, 64 new
+   tokens, 8 slots, chunk 32, ``prefix_cache_rows=4, prefill_chunk=256,
+   admission_policy="ttft"``), the dense engine and the paged one (bt
+   16): a warm-up on another prefix, a cold round, a warm round. First-
+   wave median TTFT cold and warm, warm tokens/s; gates: skipped-token
+   ratio and hit rate >= 0.7, warm ids against B=1 ``generate`` >= 0.9,
+   ``compile_counts()`` unchanged between rounds; paged: K2 launched
+   once per layer per decode step (its t=1 launches) and per warm chunk
+   (its t>1 launches, counted on their own), >= 16 blocks spliced, CoW
+   copies <= 2 per admission, no row movers. (b) f32, both layouts:
+   warm admissions of the first prompts and of one diverging inside a
+   block against cold admissions on a cache-off engine, each slot's
+   K/V and the first token's logits within 1e-4 (at admission and
+   after all are admitted); paged, two spliced blocks swapped and a
+   chunk that skips the copy-on-write must fail that, and a spliced
+   block one position off must fail the K/V and the logits each; the
+   warm paged engine on K2 gives ids identical to the plain gather
+   engine's; warm against cold ids as a report. (c) ``bench_fused_decode`` row 2,
+   the admission storm (width 512, 4 layers, window 1024, paged,
+   ``prefill_chunk=8``, decode priority, async, ``fused_rounds=8``):
+   the victim's ITL under the storm over stepped idle ITL (a report,
+   beside the JAX bench's 1.1x + 3 ms bar), fused idle ITL; gates:
+   every request finishes, no fused window while an admission is
+   pending (dispatches against the ``serving_fused_rounds``
+   histogram), and at f32 the victim's ids identical under the storm.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -121,7 +153,8 @@ at training B's shape, its f32 entries ``flash_attention_f32`` and
 ``flash_attention_f32_bwd`` at training A's, their launches from phase
 A's f32 ``fit`` and counted ``fit_scan`` graph window, each plus its
 prefill launches in phase 8 at its dtype; K2's from phase 6's stepped
-and fused runs; K3's ``conv_taps`` and ``conv_taps_f32`` with their
+and fused runs, ``paged_attention_chunk`` (K2 at t=256) from phase 13a's
+paged warm chunks; K3's ``conv_taps`` and ``conv_taps_f32`` with their
 launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -312,7 +345,11 @@ def _paged_case(rng, t, fill, q_dtype, dev, *, b=N_SLOTS,
 def _paged_bound(ops, tm):
     """Least time for these inputs: every operand byte the function
     needs read once (the K/V of the blocks some query may attend), the
-    output written once; f32 flops of QKᵀ and P·V over those keys."""
+    output written once; f32 flops of QKᵀ and P·V over the keys each
+    real query (i < lengths) attends: those of a mapped block at or
+    above the floor, inside its window and at or below its own
+    position (a chunk's causal reach, not every query over every
+    reachable key)."""
     q, pk, pv, bid, bval, lo_blk, floor, filled, lengths = ops
     b, h, t, dh = q.shape
     bt = pk.shape[1]
@@ -324,7 +361,15 @@ def _paged_bound(ops, tm):
     kv_bytes = n_blocks * bt * h * dh * 2 * pk.element_size()
     io_bytes = 2 * q.numel() * q.element_size() + sum(
         a.numel() * a.element_size() for a in ops[3:])
-    flops = 4.0 * n_blocks * bt * h * t * dh
+    off = torch.arange(bt, device=q.device)
+    kpos = (g[:, :, None] * bt + off).reshape(b, 1, -1)
+    kval = ((bval > 0).repeat_interleave(bt, dim=1)[:, None]
+            & (kpos >= floor.long()[:, None, None]))
+    i = torch.arange(t, device=q.device)
+    qpos = (filled.long()[:, None] + i)[:, :, None]
+    real = (i[None, :] < lengths.long()[:, None])[:, :, None]
+    pairs = int((kval & real & (kpos <= qpos) & (kpos > qpos - tm)).sum())
+    flops = 4.0 * pairs * h * dh
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_ACCURATE_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -524,7 +569,7 @@ def kernel_phase() -> list:
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev)
     rng.manual_seed(7)
-    before = paged_attention.launches
+    before = (paged_attention.launches, paged_attention.chunk_launches)
     bf16, f32 = torch.bfloat16, torch.float32
     main = None
     for fill in ("half", "full"):
@@ -565,12 +610,117 @@ def kernel_phase() -> list:
     _paged_log_times(name, times)
     paged_device_times(ops, tm, name, times)
     # comparison launches do not count toward the main path's run
-    paged_attention.launches = before
+    paged_attention.launches, paged_attention.chunk_launches = before
     return [dict(
         name="paged_attention", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/paged_attention.cu",
         replaces="deeplearning4j_tpu/nn/layers/attention.py:807",
         **main)]
+
+
+# K2 at the chunk width: a paged warm admission streams its suffix
+# through the slot's table at t = prefill_chunk, B=1 (phase 13's prefix
+# workload: a 1024-token spliced prefix, 256-token chunks, the serving
+# window and pool)
+CHUNK_PREFIX, CHUNK_T, CHUNK_RAGGED = 1024, 256, 200
+
+
+def _paged_chunk_case(rng, q_dtype, dev, valid=CHUNK_T):
+    """K2's operands for one warm chunk: B=1, H=8, dh=128, bt=16, an f32
+    pool; ``CHUNK_PREFIX`` tokens already in the table (the spliced
+    prefix) and the chunk's ``CHUNK_T`` queries after them, of which the
+    first ``valid`` are real (a ragged last chunk under its mask: its
+    lanes past ``valid`` hold NaN, as a recycled block's stale lanes
+    may). The table maps the prefix's and the chunk's blocks in a
+    random order; one free pool block is NaN."""
+    h, dh, bt, tm, t = N_HEADS, WIDTH // N_HEADS, BLOCK_TOKENS, WINDOW, \
+        CHUNK_T
+    ntab = (tm + t - 2) // bt + 2
+    live = -(-(CHUNK_PREFIX + t) // bt)
+    nb = live + 8
+    pk = torch.randn(nb, bt, h, dh, generator=rng, device=dev)
+    pv = torch.randn(nb, bt, h, dh, generator=rng, device=dev)
+    perm = torch.randperm(nb, generator=rng, device=dev).tolist()
+    pk[perm[-1]] = float("nan")
+    pv[perm[-1]] = float("nan")
+    bid = np.zeros((1, ntab), np.int32)
+    bval = np.zeros((1, ntab), np.int32)
+    bid[0, :live] = perm[:live]
+    bval[0, :live] = 1
+    for pos in range(CHUNK_PREFIX + valid, CHUNK_PREFIX + t):
+        pk[bid[0, pos // bt], pos % bt] = float("nan")
+        pv[bid[0, pos // bt], pos % bt] = float("nan")
+    q = torch.randn(1, h, t, dh, generator=rng, device=dev).to(q_dtype)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    ops = (q, pk, pv, i32(bid), i32(bval), i32([0]), i32([0]),
+           i32([CHUNK_PREFIX]), i32([valid]))
+    return ops, tm
+
+
+def _chunk_name(ops):
+    q = ops[0]
+    return (f"paged_attention chunk, B=1, t={q.shape[2]} "
+            f"({int(ops[8][0])} valid), {CHUNK_PREFIX}-token spliced "
+            f"prefix, dh={q.shape[3]}, bt={ops[1].shape[1]}, "
+            f"q={str(q.dtype).split('.')[-1]}, "
+            f"pool={str(ops[1].dtype).split('.')[-1]}")
+
+
+def paged_chunk_kernel_phase() -> list:
+    """K2's chunk route held against its plain version on the valid
+    query rows (TOL_F32 / TOL_BF16 by q's dtype; those rows finite): q
+    bf16 and f32, a full chunk and a ragged one. The full chunks are
+    timed (eager, and from a CUDA graph of back-to-back calls) beside
+    the plain version, SDPA over the pre-gathered window with the
+    causal-offset mask, and the bound. Returns the kernels-line entry
+    ``paged_attention_chunk`` (the bf16-q full chunk: phase 13's bf16
+    engine); its launches come from phase 13."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(13)
+    before = (paged_attention.launches, paged_attention.chunk_launches)
+    entry = None
+    for valid in (CHUNK_T, CHUNK_RAGGED):
+        for q_dtype in (torch.bfloat16, torch.float32):
+            ops, tm = _paged_chunk_case(rng, q_dtype, dev, valid)
+            name = _chunk_name(ops)
+            got = paged_attention(*ops, tm=tm)[:, :, :valid]
+            want = paged_attention_reference(ops[0].float(), *ops[1:],
+                                             tm=tm)[:, :, :valid]
+            torch.cuda.synchronize()
+            err = float((got.float() - want).abs().max())
+            tol = TOL_F32 if q_dtype == torch.float32 else TOL_BF16
+            finite = bool(torch.isfinite(got).all())
+            log(f"{name}: max_abs_err {err:.3e} (tol {tol}), valid rows "
+                f"finite {finite}")
+            if not finite or not err <= tol:
+                raise SystemExit(f"chip_smoke: {name}: max_abs_err {err} "
+                                 f"(tol {tol}), finite {finite}")
+            if valid != CHUNK_T:
+                continue
+            times = _paged_times(ops, tm)
+            _paged_log_times(name, times)
+            dev_ms = graph_time_ms(lambda: paged_attention(*ops, tm=tm))
+            lib_dev_ms = graph_time_ms(_sdpa_yardstick(ops, tm))
+            log(f"{name} device times (CUDA graph of 20 calls): kernel "
+                f"{dev_ms:.4f} ms ({times['bound_ms'] / dev_ms:.1%} of "
+                f"the bound), sdpa {lib_dev_ms:.4f} ms")
+            if q_dtype == torch.bfloat16:
+                entry = dict(max_abs_err=err, **times)
+    paged_attention.launches, paged_attention.chunk_launches = before
+    return [dict(
+        name="paged_attention_chunk", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+        replaces="deeplearning4j_tpu/nn/layers/attention.py:807",
+        **entry)]
 
 
 # K1 (flash attention): the training path's shapes are B=2, H=8, dh=128
@@ -2340,6 +2490,516 @@ def decode_phases(card: str) -> dict:
     return k1
 
 
+# Phase 13: prefix caches and chunked admission. (a) bench.py's
+# bench_prefix_cache workload: 16 prompts of a 1024-token shared prefix
+# and a 256-token tail, 64 new tokens, prefix_cache_rows=4,
+# prefill_chunk=256, admission_policy="ttft", on the serving geometry
+PREFIX_SHARED, PREFIX_TAIL = CHUNK_PREFIX, 256
+PREFIX_REQUESTS, PREFIX_GEN, PREFIX_ROWS, PREFIX_CHUNK = 16, 64, 4, CHUNK_T
+# bench.py's gates: skipped prompt tokens and warm hit rate in round 2
+PREFIX_GATE = 0.7
+# the port's f32 forward tolerance (atol and rtol; ROADMAP, rules)
+F32_STATE_TOL = 1e-4
+# (b) the f32 gate's admissions: the first prompts, then one that
+# diverges from the last inside a block (its splice shares a partial
+# block, so its chunk must copy it first)
+PREFIX_F32_PROMPTS, PREFIX_MID = 8, 7
+
+
+def prefix_workload() -> tuple:
+    """bench_prefix_cache's prompts from ``default_rng(0)``: the 16
+    measured prompts, then the two warm-up prompts on another prefix
+    (first token forced distinct, so the measured cold round misses)."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, VOCAB, PREFIX_SHARED).tolist()
+    prompts = [shared + rng.integers(0, VOCAB, PREFIX_TAIL).tolist()
+               for _ in range(PREFIX_REQUESTS)]
+    other = rng.integers(0, VOCAB, PREFIX_SHARED).tolist()
+    other[0] = (shared[0] + 1) % VOCAB
+    warm_up = [other + rng.integers(0, VOCAB, PREFIX_TAIL).tolist()
+               for _ in range(2)]
+    return prompts, warm_up
+
+
+def prefix_engine(net, layout: str, **kw):
+    """The prefix phase's engine: the serving geometry with the prefix
+    cache and 256-token chunks, dense or paged (bt 16)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    geometry = dict(n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                    prefix_cache_rows=PREFIX_ROWS,
+                    prefill_chunk=PREFIX_CHUNK, admission_policy="ttft")
+    if layout == "paged":
+        geometry.update(paged_kv=True, block_tokens=BLOCK_TOKENS)
+    geometry.update(kw)
+    return DecodeEngine(net, **geometry)
+
+
+def warm_chunks(results, chunk: int) -> int:
+    """Suffix chunks the warm admissions among ``results`` streamed."""
+    return sum(-(-(r.prompt_len - r.prefix_tokens_reused) // chunk)
+               for r in results if r.prefix_tokens_reused)
+
+
+def prefix_cache_phase(card: str, net) -> int:
+    """Phase 13a on the bf16 serving net, dense then paged: warm-up on
+    another prefix (two runs), round 1 (cold) and round 2 (warm) of the
+    16 prompts. Gates: every request finishes; round 2's skipped-token
+    ratio and hit rate >= 0.7; round 2's ids against B=1 ``generate``
+    >= 0.9 on the first wave; ``compile_counts()`` unchanged between
+    the rounds; paged: K2 launched once per layer per decode step (its
+    t=1 launches) and once per layer per warm chunk (its t>1 launches,
+    counted on their own), >= 16 blocks spliced, CoW copies <= 2 per
+    admission, no row movers. Returns K2's warm-chunk launches of the
+    paged rounds."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+
+    prompts, warm_up = prefix_workload()
+    solo = [_generate_ids(net, _one_hot_ids(p), PREFIX_GEN)[0]
+            for p in prompts[:N_SLOTS]]
+    chunk_launches = 0
+    for layout in ("dense", "paged"):
+        eng = prefix_engine(net, layout)
+        for p in warm_up:
+            serve_ids(eng, [p], PREFIX_GEN)
+        paged_attention.launches = paged_attention.chunk_launches = 0
+        steps0 = eng.stats["decode_steps"]
+        cold, cold_wall = serve_ids(eng, prompts, PREFIX_GEN)
+        counts1 = eng.compile_counts()
+        skipped1 = eng.stats["prefill_tokens_skipped"]
+        hits1 = eng.prefix_cache.stats["hits"]
+        warm, warm_wall = serve_ids(eng, prompts, PREFIX_GEN)
+        # K2 at t=1 (decode) and t>1 (warm chunks), each counted
+        chunk_n = paged_attention.chunk_launches
+        launches = paged_attention.launches - chunk_n
+        counts2 = eng.compile_counts()
+        steps = eng.stats["decode_steps"] - steps0
+        skip = ((eng.stats["prefill_tokens_skipped"] - skipped1)
+                / (PREFIX_REQUESTS * (PREFIX_SHARED + PREFIX_TAIL)))
+        hit_rate = (eng.prefix_cache.stats["hits"] - hits1) / PREFIX_REQUESTS
+        per = agreement([r.tokens for r in warm[:N_SLOTS]], solo)
+        cold_ttft = float(np.median([r.ttft_s for r in cold[:N_SLOTS]
+                                     if r.prefix_tokens_reused == 0]))
+        warm_ttft = float(np.median([r.ttft_s for r in warm[:N_SLOTS]]))
+        rate = PREFIX_REQUESTS * PREFIX_GEN / warm_wall
+        chunks = warm_chunks(cold + warm, PREFIX_CHUNK)
+        bad = [(r.id, r.finish_reason, len(r.tokens)) for r in cold + warm
+               if r.finish_reason != "length"
+               or len(r.tokens) != PREFIX_GEN]
+        st = eng.stats
+        log(f"prefix [{layout}, bf16] (bench_prefix_cache): median TTFT "
+            f"of the first wave cold {cold_ttft * 1e3:.1f} ms, warm "
+            f"{warm_ttft * 1e3:.1f} ms ({warm_ttft / cold_ttft:.3f}x); "
+            f"warm round {rate:.1f} tokens/s aggregate (cold round "
+            f"{PREFIX_REQUESTS * PREFIX_GEN / cold_wall:.1f}); skipped "
+            f"ratio {skip:.4f}, warm hit rate {hit_rate:.4f}; warm ids "
+            f"against B=1 generate {np.mean(per):.4f} (per request "
+            f"{[round(x, 4) for x in per]}); compile_counts {counts1} -> "
+            f"{counts2}; {st['chunks_scheduled']} chunks, {chunks} warm, "
+            f"{steps} decode steps, K2 launches {launches} decode + "
+            f"{chunk_n} chunk; spliced "
+            f"{st['prefix_blocks_spliced']}, CoW copies {st['cow_copies']}"
+            f", admitted {st['admitted']}, preempted {st['preempted']}, "
+            f"deferred {st['paged_admit_deferred']} [{card}]")
+        ok = (not bad and skip >= PREFIX_GATE and hit_rate >= PREFIX_GATE
+              and np.mean(per) >= DECODE_AGREEMENT and counts1 == counts2
+              and counts2["decode"] == 1)
+        if layout == "paged":
+            chunk_launches = chunk_n
+            ok = (ok and launches == N_LAYERS * steps
+                  and chunk_n == N_LAYERS * chunks and chunks > 0
+                  and st["prefix_blocks_spliced"] >= 16
+                  and st["cow_copies"] <= 2 * st["admitted"]
+                  and "prefix_fetch" not in counts2
+                  and "prefix_store" not in counts2)
+        else:
+            ok = (ok and launches == chunk_n == 0
+                  and "prefix_fetch" in counts2)
+        if not ok:
+            raise SystemExit(
+                f"chip_smoke: prefix phase [{layout}] failed: unfinished "
+                f"{bad}, skip {skip}, hit rate {hit_rate}, agreement "
+                f"{per}, counts {counts1} -> {counts2}, K2 launches "
+                f"{launches} for {steps} steps and {chunk_n} for {chunks} "
+                f"warm chunks x {N_LAYERS} layers, stats {st}")
+        del eng
+        torch.cuda.empty_cache()
+    return chunk_launches
+
+
+def slot_kv(eng, slot: int, n: int) -> list:
+    """Per layer (k, v) [H, n, dh] of ``slot``'s newest ``n`` positions:
+    gathered through its block table (paged) or read from its pool row
+    (dense); copies."""
+    out = []
+    if eng.paged_kv:
+        tab, bt = eng._kv_tabs[slot], eng.block_tokens
+        idx = torch.as_tensor(
+            [tab.blocks[p // bt] * bt + p % bt
+             for p in range(tab.length - n, tab.length)],
+            device=eng.device)
+        for st in eng._pool.values():
+            nb, _, h, dh = st["pk"].shape
+            out.append(tuple(st[name].view(nb * bt, h, dh)[idx]
+                             .transpose(0, 1).clone()
+                             for name in ("pk", "pv")))
+    else:
+        for st in eng._pool.values():
+            w = st["k"].shape[2]
+            out.append(tuple(st[name][slot][:, w - n:].clone()
+                             for name in ("k", "v")))
+    return out
+
+
+def admit_only(eng, prompt, slot: int, after_start=None) -> tuple:
+    """Admit ``prompt`` into ``slot`` through the engine's admission
+    path (start, then chunks under the round budget until it completes)
+    with no decode round between; ``after_start(eng)`` runs after the
+    start (a planted fault's hook). Returns the first token's output
+    probabilities [V] and :func:`slot_kv` of the prompt's positions."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    probs = []
+    sample = eng._sample_one
+
+    def keep(p, req):
+        probs.append(p[0].float().clone())
+        return sample(p, req)
+
+    eng._sample_one = keep
+    try:
+        eng.submit(Request(list(prompt), 2))
+        eng._start_admission(eng.scheduler.pop_admissible(), slot)
+        if after_start is not None:
+            after_start(eng)
+        while eng._pending:
+            eng._advance_pending()
+    finally:
+        del eng._sample_one
+    if eng._slots[slot] is None:
+        raise SystemExit(f"chip_smoke: admission into slot {slot} did not "
+                         "complete")
+    return probs[-1], slot_kv(eng, slot, len(prompt))
+
+
+def _kv_err(a, b) -> float:
+    """The largest |a - b| - rtol |b| over every layer's K and V (<= atol
+    passes the f32 limit)."""
+    return max(float(((x - y).abs() - F32_STATE_TOL * y.abs()).max())
+               for la, lb in zip(a, b) for x, y in zip(la, lb))
+
+
+def _logits_err(a, b) -> float:
+    """The largest |a - b| - rtol |b| between the logits of two output
+    distributions ``a`` and ``b`` (probabilities [V]), each recovered
+    as its log-probabilities less their mean (logits are defined up to
+    a constant)."""
+    la, lb = a.log(), b.log()
+    la, lb = la - la.mean(), lb - lb.mean()
+    return float(((la - lb).abs() - F32_STATE_TOL * lb.abs()).max())
+
+
+def f32_warm_admissions(net32, layout, prompts, cold, fault=None) -> tuple:
+    """Admit ``prompts`` in order, one slot each, on a cache-on engine
+    (256-token chunks) and hold each admission's state and first-token
+    logits against ``cold`` (the cache-off engine's), at admission and
+    again once all are admitted (a write into a block another slot
+    shares shows there). ``fault``: "splice" swaps the first warm
+    admission's two middle spliced blocks (each one block position off:
+    the same keys in another order, which attention cannot see);
+    "shift" maps the first of those two positions to the block of the
+    second (a block's keys twice, another's missing: the output moves);
+    "cow" makes every block look unshared, so a chunk writes into a
+    shared block. Returns (worst K/V error, worst logits error, the
+    engine's CoW copies, prefill tokens skipped)."""
+    eng = prefix_engine(net32, layout, n_slots=len(prompts))
+    planted = {}
+
+    def splice_off(e):
+        p = e._pending[-1]
+        if planted or p.tab is None or not p.matched:
+            return
+        mid = len(p.tab.blocks) // 2
+        g0, g1 = sorted(p.tab.blocks)[mid - 1:mid + 1]
+        blocks = p.tab.blocks
+        planted.update(tab=p.tab, g=g0, bid=blocks[g0])
+        if fault == "splice":
+            blocks[g0], blocks[g1] = blocks[g1], blocks[g0]
+        else:
+            blocks[g0] = blocks[g1]
+
+    if fault == "cow":
+        eng.block_pool.refcount = lambda bid: 1
+    kv_err = logits_err = -np.inf
+    for slot, p in enumerate(prompts):
+        probs, kv = admit_only(
+            eng, p, slot, splice_off if fault in ("splice", "shift")
+            else None)
+        kv_err = max(kv_err, _kv_err(kv, cold[slot][1]))
+        logits_err = max(logits_err, _logits_err(probs, cold[slot][0]))
+    for slot, p in enumerate(prompts):
+        kv_err = max(kv_err, _kv_err(slot_kv(eng, slot, len(p)),
+                                     cold[slot][1]))
+    if fault == "shift":
+        # the slot's table holds the references the splice took: give
+        # it back the block it dropped before its blocks are released
+        planted["tab"].blocks[planted["g"]] = planted["bid"]
+    out = (kv_err, logits_err,
+           eng.block_pool.stats["cow_copies"] if eng.paged_kv else 0,
+           eng.stats["prefill_tokens_skipped"])
+    eng.run()
+    del eng
+    return out
+
+
+def prefix_f32_phase(card: str, net16) -> None:
+    """Phase 13b, f32 (the bf16 net's params at the master dtype), paged
+    and dense: warm admissions of the first prompts and of one that
+    diverges inside a block, held against cold admissions of the same
+    prompts on a cache-off engine: each slot's window K/V and the first
+    token's logits within 1e-4 (atol and rtol), at admission and after
+    all are admitted. Paged: three planted faults must fail those
+    checks (two spliced blocks swapped, a chunk that skips the
+    copy-on-write: each caught by the K/V; a spliced block one position
+    off: caught by the K/V and by the logits each); the paged warm
+    engine on K2 gives
+    greedy ids identical to the same engine on the plain gather
+    program, both rounds. Warm-against-cold ids are a report."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    net32 = _serving_net("float32")
+    for key, p in net16.param_table().items():
+        net32.set_param(key, p)
+    prompts = prefix_workload()[0]
+    mid = (prompts[PREFIX_MID][:PREFIX_SHARED + 6]
+           + prompts[PREFIX_MID - 1][PREFIX_SHARED + 6:])
+    check = prompts[:PREFIX_F32_PROMPTS] + [mid]
+    failures = []
+    for layout in ("dense", "paged"):
+        kw = dict(paged_kv=True, block_tokens=BLOCK_TOKENS) \
+            if layout == "paged" else {}
+        ref = DecodeEngine(net32, n_slots=1, decode_chunk=DECODE_CHUNK,
+                           **kw)
+        cold = []
+        for p in check:
+            cold.append(admit_only(ref, p, 0))
+            ref.run()
+        del ref
+        kv_err, logits_err, cow, skipped = f32_warm_admissions(
+            net32, layout, check, cold)
+        ok = kv_err <= F32_STATE_TOL and logits_err <= F32_STATE_TOL
+        log(f"prefix f32 gate [{layout}]: {len(check)} admissions "
+            f"({skipped} prompt tokens from the cache), warm against "
+            f"cold: K/V worst |d| - rtol|ref| {kv_err:.3e}, first-token "
+            f"logits {logits_err:.3e} (limit {F32_STATE_TOL}); "
+            f"CoW copies {cow if layout == 'paged' else 'n/a'} [{card}]")
+        if not ok or skipped == 0:
+            failures.append(f"{layout}: K/V {kv_err}, logits "
+                            f"{logits_err}, skipped {skipped}")
+        if layout == "dense":
+            continue
+        for fault in ("splice", "cow", "shift"):
+            f_kv, f_logits, f_cow, _ = f32_warm_admissions(
+                net32, layout, check, cold, fault)
+            by_kv, by_logits = (f_kv > F32_STATE_TOL,
+                                f_logits > F32_STATE_TOL)
+            caught = (by_kv and by_logits if fault == "shift"
+                      else by_kv or by_logits)
+            log(f"prefix f32 gate, planted fault ({fault}): K/V "
+                f"{f_kv:.3e}, logits {f_logits:.3e}, CoW copies "
+                f"{f_cow}: caught by the K/V {by_kv}, by the logits "
+                f"{by_logits}")
+            if not caught:
+                failures.append(f"planted fault {fault} not caught")
+        del cold
+        torch.cuda.empty_cache()
+
+    # K2 against the plain gather program, and warm against cold ids
+    first = prompts[:N_SLOTS]
+    runs = {}
+    for name, flash in (("kernel", True), ("plain", False)):
+        eng = prefix_engine(net32, "paged", use_flash_paged=flash)
+        runs[name] = [[r.tokens for r in serve_ids(eng, first,
+                                                   PREFIX_GEN)[0]]
+                      for _ in range(2)]
+        del eng
+    off = DecodeEngine(net32, n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                       paged_kv=True, block_tokens=BLOCK_TOKENS,
+                       use_flash_paged=True)
+    cold_ids = [r.tokens for r in serve_ids(off, first, PREFIX_GEN)[0]]
+    del off
+    same = runs["kernel"] == runs["plain"]
+    per = agreement(runs["kernel"][1], cold_ids)
+    log(f"prefix f32 gate [paged]: warm engine on K2 against the plain "
+        f"gather program, ids identical {same} (both rounds); warm round "
+        f"against a cache-off engine, a report: agreement "
+        f"{np.mean(per):.4f} (per request {[round(x, 4) for x in per]}) "
+        f"[{card}]")
+    near_tie_report(net32, first, runs["kernel"][1], cold_ids,
+                    "f32 warm vs cache-off")
+    if not same:
+        failures.append("K2 ids differ from the plain gather program's")
+    del net32
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"chip_smoke: prefix f32 gate failed: {failures}")
+
+
+# (c) bench_fused_decode row 2, the admission storm (bench.py:1564-1640):
+# width 512, 4 layers, window 1024, bt 16, 8 slots, chunk 32, paged,
+# prefill_chunk=8, decode priority, async and fused_rounds=8; a victim
+# (24-token prompt, 256 new tokens) against 24 arrivals of 8-token
+# prompts and 2 new tokens, fed while fewer than 2 wait
+STORM_WIDTH, STORM_LAYERS, STORM_WINDOW, STORM_FUSE = 512, 4, 1024, 8
+STORM_VICTIM, STORM_ARRIVALS = (24, 256), (24, 8, 2)
+STORM_WARM_GEN = (257, 97, 65, 33, 2)
+STORM_TRIPLES = 3
+
+
+def _storm_net(compute_dtype: str):
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = transformer_lm_flagship(vocab=VOCAB, width=STORM_WIDTH,
+                                   n_layers=STORM_LAYERS, n_heads=N_HEADS,
+                                   seed=11)
+    for c in conf.confs:
+        if compute_dtype != "float32":
+            c.compute_dtype = compute_dtype
+        if hasattr(c.layer, "stream_max_t"):
+            c.layer.stream_max_t = STORM_WINDOW
+    return MultiLayerNetwork(conf, device=DEVICE).init()
+
+
+def storm_engine(net):
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    eng = DecodeEngine(net, n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                       paged_kv=True, block_tokens=BLOCK_TOKENS,
+                       prefill_chunk=8, admission_policy="decode", seed=0,
+                       async_rounds=True, fused_rounds=STORM_FUSE)
+    eng.dispatches = []
+    run_graph = eng._run_graph
+
+    def record(key, body, ops):
+        # (graph key, an admission pending) at every decode dispatch
+        eng.dispatches.append((key, bool(eng._pending)))
+        return run_graph(key, body, ops)
+
+    eng._run_graph = record
+    return eng
+
+
+def victim_run(eng, victim, rng, storm: bool) -> tuple:
+    """bench.py's ``victim_itl``: the victim, and with ``storm`` the
+    arrivals fed while fewer than 2 wait, stepped to the end. The port's
+    results carry no phase clock, so the victim's e2e is the time its
+    result appears less its submit time. Returns (victim ids, its mean
+    ITL in seconds, every result)."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    n_arr, arr_len, arr_gen = STORM_ARRIVALS
+    rid = eng.submit(Request(list(victim), STORM_VICTIM[1]))
+    t_submit = eng._submit_t[rid]
+    res, fed, t_end = {}, 0, None
+    while eng.has_work():
+        if storm and fed < n_arr and eng.scheduler.pending < 2:
+            eng.submit(Request(rng.integers(0, VOCAB, arr_len).tolist(),
+                               arr_gen))
+            fed += 1
+        eng.step(res)
+        if t_end is None and rid in res:
+            t_end = time.perf_counter()
+    r = res[rid]
+    itl = (t_end - t_submit - r.ttft_s) / (len(r.tokens) - 1)
+    return r.tokens, itl, list(res.values())
+
+
+def storm_phase(card: str) -> None:
+    """Phase 13c: bench.py's ``fused_itl_storm_ratio`` row on the port.
+    bf16: the warm-up of every fused bucket, then 3 interleaved triples
+    (stepped idle with fusing off, fused idle, storm); the ratio of the
+    storm's median victim ITL to the stepped idle median, beside the JAX
+    bench's 1.1x + 3 ms bar (a report), and the fused idle ITL. Gates:
+    every request finishes; no fused window dispatched while an
+    admission was pending, and the ``serving_fused_rounds`` histogram
+    counts exactly the fused dispatches; at f32 the victim's ids under
+    the storm identical to its idle ids."""
+    rng = np.random.default_rng(1)
+    victim = np.random.default_rng(2).integers(
+        0, VOCAB, STORM_VICTIM[0]).tolist()
+    net = _storm_net("bfloat16")
+    eng = storm_engine(net)
+    from deeplearning4j_tpu_torch.serving import Request
+
+    # capture every fused bucket and the stepped round before the
+    # timed runs
+    for fuse, n in [(STORM_FUSE, n) for n in STORM_WARM_GEN] + [(0, 33)]:
+        eng.fused_rounds = fuse
+        eng.submit(Request(rng.integers(0, VOCAB, 8).tolist(), n))
+        eng.run()
+    itls = {"idle": [], "fused_idle": [], "storm": []}
+    every = []
+    for _ in range(STORM_TRIPLES):
+        for name, fuse, storm in (("idle", 0, False),
+                                  ("fused_idle", STORM_FUSE, False),
+                                  ("storm", STORM_FUSE, True)):
+            eng.fused_rounds = fuse
+            _, itl, results = victim_run(eng, victim, rng, storm)
+            itls[name].append(itl)
+            every += results
+    fused = [k for k, _ in eng.dispatches if k != "decode"]
+    mixed = [k for k, pend in eng.dispatches if k != "decode" and pend]
+    hist = eng.histograms["serving_fused_rounds"].count
+    med = {k: float(np.median(v)) for k, v in itls.items()}
+    ratio = med["storm"] / med["idle"]
+    bar = 1.1 * med["idle"] + 3e-3
+    bad = [(r.id, r.finish_reason) for r in every
+           if r.finish_reason != "length"]
+    log(f"storm [bf16] (bench_fused_decode row 2): victim ITL medians "
+        f"stepped idle {med['idle'] * 1e3:.3f} ms, fused idle "
+        f"{med['fused_idle'] * 1e3:.3f} ms "
+        f"({med['idle'] / med['fused_idle']:.3f}x), storm "
+        f"{med['storm'] * 1e3:.3f} ms: ratio {ratio:.3f} (JAX bench bar "
+        f"1.1x + 3 ms = {bar * 1e3:.3f} ms: within {med['storm'] <= bar}; "
+        f"a report); runs (ms) "
+        f"{ {k: [round(x * 1e3, 3) for x in v] for k, v in itls.items()} }"
+        f"; {len(eng.dispatches)} dispatches, {len(fused)} fused "
+        f"(histogram {hist}), {len(mixed)} fused with an admission "
+        f"pending; {len(every)} requests, unfinished {bad} [{card}]")
+    if bad or mixed or hist != len(fused) or not fused:
+        raise SystemExit(
+            f"chip_smoke: storm failed: unfinished {bad}, fused windows "
+            f"with an admission pending {mixed}, histogram {hist} against "
+            f"{len(fused)} fused dispatches")
+    del eng, net
+    net32 = _storm_net("float32")
+    ids = {}
+    for storm in (False, True):
+        eng = storm_engine(net32)
+        ids[storm] = victim_run(eng, victim, rng, storm)[0]
+        del eng
+    same = ids[False] == ids[True]
+    log(f"storm [f32]: the victim's {len(ids[True])} ids under the storm "
+        f"identical to idle {same} [{card}]")
+    if not same:
+        raise SystemExit(f"chip_smoke: storm f32 victim ids differ: first "
+                         f"at {first_divergence(ids[False], ids[True])}")
+    del net32
+    torch.cuda.empty_cache()
+
+
+def prefix_phases(card: str) -> int:
+    """Phase 13 (a, b, c). Returns K2's warm-chunk launches."""
+    net = _serving_net("bfloat16")
+    launches = prefix_cache_phase(card, net)
+    prefix_f32_phase(card, net)
+    del net
+    torch.cuda.empty_cache()
+    storm_phase(card)
+    return launches
+
+
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
 # bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
 # windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
@@ -2567,6 +3227,7 @@ def main() -> int:
     card = device_phase()
     build_phase()
     kernels = kernel_phase()
+    kernels += paged_chunk_kernel_phase()
     flash, k1_long_ms = flash_kernel_phase()
     kernels += flash
     conv = conv_kernel_phase()
@@ -2577,6 +3238,9 @@ def main() -> int:
     fused_decode_phase(card)
     for name, n in decode_phases(card).items():
         launches[name] += n
+    t13 = time.perf_counter()
+    launches["paged_attention_chunk"] = prefix_phases(card)
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     k3_ms = {k["name"]: k["ms"] for k in conv}
     launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],

@@ -65,6 +65,7 @@ def _counters() -> list:
     return [(attention.flash_attention, "launches"),
             (attention.flash_attention, "bwd_launches"),
             (attention.paged_attention, "launches"),
+            (attention.paged_attention, "chunk_launches"),
             (convolution.conv_taps, "launches"),
             (convolution.conv_taps, "mma_launches")]
 

@@ -348,7 +348,9 @@ class AttentionImpl(LayerImplBase):
         bb = torch.gather(base, 1, ring)
         bval = (tb >= 0) & (bb == g * bt)
         bid = torch.where(bval, tb, torch.zeros_like(tb)).to(torch.int32)
-        args = (q, pk, pv, bid, bval.to(torch.int32), lo_blk,
+        # the heads split of a t > 1 chunk leaves q strided; the kernel
+        # takes contiguous operands (a no-op at t = 1)
+        args = (q.contiguous(), pk, pv, bid, bval.to(torch.int32), lo_blk,
                 floor.to(torch.int32), filled.to(torch.int32), lengths)
         toggle = getattr(lc, "use_flash_paged", None)
         if _should_use_flash_paged(toggle, q):
@@ -987,7 +989,8 @@ def paged_attention(q, pk, pv, bid, bval, lo_blk, floor, filled, lengths,
     does not check). Output: [B, H, t, dh] in q's dtype, allocated here
     with the split-K workspace (:func:`paged_splits` splits); the two
     launches go on the current stream, and the call counts once in
-    ``paged_attention.launches``."""
+    ``paged_attention.launches`` and, where t > 1 (a chunk or a verify
+    pass), once in ``paged_attention.chunk_launches``."""
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, pk, pv, bid, bval, lo_blk, floor, filled, lengths, tm=tm)
@@ -1000,7 +1003,10 @@ def paged_attention(q, pk, pv, bid, bval, lo_blk, floor, filled, lengths,
         q, pk, pv, bid, bval, lo_blk, floor, filled, lengths, tm=tm,
         splits=paged_splits(b, h, t, bid.shape[1], sm_count(q.device.index)))
     paged_attention.launches += 1
+    if t > 1:
+        paged_attention.chunk_launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.chunk_launches = 0

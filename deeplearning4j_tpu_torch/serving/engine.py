@@ -19,18 +19,38 @@ decode slots is multiplexed across many requests:
 
 One scheduling round (``step()``):
 
-1. **Admit** — while a slot is free and requests are queued, prefill
-   the next prompt at batch 1, right-padded to its pow2 length bucket
-   and masked (``AttentionImpl._prefill_cache``: a padded prefill
-   streams exactly like an unpadded one), then write the resulting
-   window of K/V into the slot's pool rows (dense) or into freshly
-   allocated blocks at their absolute positions (paged,
-   ``_scatter_row``), and take the first token.
+1. **Admit** — while a slot is free and requests are queued, start the
+   next request's admission. With a prefix cache
+   (``prefix_cache_rows``, serving/prefix_cache.py) the longest cached
+   prefix of the prompt is reused and only the suffix prefills: dense,
+   the matched state is fetched (a copy) from a second pool of rows;
+   paged, the trie entry's blocks are SPLICED into the slot's new
+   block table (zero-copy, refcounts only) and the suffix streams
+   through that table (``AttentionImpl._paged_attend``, K2 on the
+   card). A cold prompt prefills at batch 1, right-padded to its pow2
+   length bucket and masked (``AttentionImpl._prefill_cache``: a padded
+   prefill streams exactly like an unpadded one); later cold segments
+   continue on the carried dense state (``_stream_attend`` with a chunk
+   mask). Blocking mode (``prefill_chunk=0``) prefills the whole suffix
+   at once; with ``prefill_chunk > 0`` the suffix splits into fixed
+   chunks scheduled BETWEEN decode rounds under the scheduler's
+   per-round budget (``Scheduler.plan_chunks``; ``admission_policy``
+   "ttft" or "decode", ``prefill_budget``; with ``adaptive_prefill`` the
+   budget follows queue pressure, ``Scheduler.adapt_budget`` between
+   ``pressure_low`` and ``pressure_high``), the slot reserved meanwhile.
+   A completed admission writes its window of K/V into the slot's pool
+   rows (dense) or, cold, into freshly allocated blocks at their
+   absolute positions (paged, ``_scatter_row``), stores the prompt in
+   the prefix cache (dense: a copy into a row; paged: references to
+   the slot's blocks) and takes the first token.
 2. **Reserve** (paged) — make every running slot's table writable for
    the round's ``decode_chunk`` appends, allocating blocks as ``filled``
    crosses block boundaries; under pool pressure the youngest slot is
    preempted and its request requeued (greedy ids regenerate
-   identically).
+   identically), after LRU trie entries have been dropped. A block
+   shared with the trie or another slot (refcount > 1) is copied before
+   anything writes into it (``BlockPool.copy_block_device``): the pool
+   is one tensor that the trie, every slot and the decode graph read.
 3. **Decode** — ``decode_chunk`` batched steps over all slots (one-hot,
    forward, ``sample_tokens``), JAX's ``decode`` scan. On the card the
    round is ONE captured CUDA graph per engine (``nn/cuda_graphs.py``):
@@ -42,7 +62,8 @@ One scheduling round (``step()``):
    stay ``argmax``. On the CPU the same round body runs eagerly. The
    round's tokens are fetched once, the round's one host sync.
    **Fused rounds** (``fused_rounds=K``, JAX's ``fused_decode``): when
-   no host decision is pending (nothing queued or requeued), up to K
+   no host decision is pending (nothing queued, requeued or part-way
+   through a chunked admission), up to K
    rounds (the pow2 bucket covering the widest live request's remaining
    rounds) run as ONE captured graph per bucket, with each slot's
    committed prefix ``n_valid`` (eos and ``max_new_tokens``) found on
@@ -65,13 +86,16 @@ for the layout, each the number of graphs captured for that path: the
 decode round's is 1 once a round has run on the card, and the eager
 paths read 0; with ``fused_rounds`` it adds ``fused_decode``, the
 number of fused graphs (one per pow2 K dispatched, all of one engine's
-graphs in one memory pool). ``histograms`` holds the two the
+graphs in one memory pool); a dense prefix cache adds its
+``prefix_fetch`` and ``prefix_store`` (0: eager), a paged one nothing.
+Admission (prefill, chunk continuations, the prefix movers, CoW
+copies) always runs eagerly. ``histograms`` holds the two the
 JAX engine's fused and async paths observe: ``serving_fused_rounds``
 (K at each fused dispatch) and ``serving_host_step_s`` (from the last
 round's token sync to the next dispatch). Knobs of the JAX engine that
-this port does not carry yet (the prefix caches, chunked prefill,
-speculative decoding, fault handling, tenancy, KV tiers, tensor
-parallelism, incremental delivery, tracing) raise
+this port does not carry yet (speculative decoding, fault handling,
+queue bounds and shedding, tenancy, KV tiers, tensor parallelism,
+incremental delivery, the phase clock, tracing) raise
 ``NotImplementedError`` when set to anything but their default.
 """
 
@@ -79,7 +103,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +118,11 @@ from deeplearning4j_tpu_torch.nn.streaming import (
 )
 from deeplearning4j_tpu_torch.profiler.tracer import Histogram
 from deeplearning4j_tpu_torch.serving.block_pool import BlockPool, BlockTable
+from deeplearning4j_tpu_torch.serving.prefix_cache import (
+    PagedPrefixCache,
+    PrefixHit,
+    RadixPrefixCache,
+)
 from deeplearning4j_tpu_torch.serving.sampler import sample_tokens
 from deeplearning4j_tpu_torch.serving.scheduler import (
     GenerationResult,
@@ -104,10 +133,7 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
 #: knobs of the JAX engine this port does not carry yet, with the only
 #: value it accepts for each (the JAX engine's default)
 _UNPORTED = {
-    "prefix_cache_rows": 0, "prefill_chunk": 0, "prefill_budget": None,
-    "admission_policy": "ttft", "max_queue": None,
-    "shed_policy": "reject-new", "adaptive_prefill": False,
-    "pressure_high": None, "pressure_low": None, "paranoid": False,
+    "max_queue": None, "shed_policy": "reject-new", "paranoid": False,
     "fault_plan": None, "max_retries": 2, "retry_backoff_rounds": 1,
     "stall_threshold_s": None, "clock": None, "spec_draft_len": 0,
     "draft_source": "ngram", "on_delta": None, "emit_deltas": False,
@@ -122,6 +148,38 @@ class _Slot:
     request: Request
     tokens: List[int]
     ttft_s: Optional[float] = None
+    prefix_reused: int = 0
+
+
+@dataclasses.dataclass
+class _Pending:
+    """An admission in flight (JAX's ``_Pending``): the slot is
+    reserved and the suffix part-way through (chunked) prefill. ``rnn``
+    is the B=1 dense streaming state carried so far (None before the
+    first cold segment; the fetched prefix state on a dense hit); ``tok``
+    the last segment's sampled token [1]; ``done`` the suffix tokens
+    prefilled; ``matched`` the prompt tokens reused from the cache;
+    ``hit`` the lease to release (or None); ``seq`` the sequence being
+    prefilled (the prompt); ``tab`` (paged) the slot's block table on a
+    warm hit (spliced trie blocks; the suffix streams THROUGH it), None
+    until a cold admission scatters."""
+
+    request: Request
+    slot: int
+    rnn: Any
+    tok: Optional[torch.Tensor]
+    done: int
+    matched: int
+    hit: Optional[PrefixHit]
+    tab: Optional[BlockTable] = None
+
+    @property
+    def seq(self) -> Sequence[int]:
+        return self.request.prompt
+
+    @property
+    def remaining(self) -> int:
+        return len(self.seq) - self.matched - self.done
 
 
 @dataclasses.dataclass
@@ -166,14 +224,24 @@ class DecodeEngine:
     engine, a non-None value is stamped onto the net's attention beans.
     ``seed`` seeds the ``torch.Generator`` sampled requests draw from.
     ``fused_rounds`` (0: off) caps the rounds one fused dispatch runs;
-    ``async_rounds`` defers each round's landing to the next ``step()``
-    (module docstring)."""
+    ``async_rounds`` defers each round's landing to the next ``step()``.
+    ``prefix_cache_rows`` (0: off) caps the prefix cache's entries;
+    ``prefill_chunk`` (0: blocking admission) and ``admission_policy``,
+    ``prefill_budget``, ``adaptive_prefill``, ``pressure_high`` and
+    ``pressure_low`` pace chunked admission (``Scheduler``; module
+    docstring)."""
 
     def __init__(self, net, n_slots: int = 8, decode_chunk: int = 8,
                  min_prompt_bucket: int = 8, seed: int = 0,
                  paged_kv: bool = False, block_tokens: int = 16,
                  kv_blocks: Optional[int] = None, use_flash_paged=None,
                  fused_rounds: int = 0, async_rounds: bool = False,
+                 prefix_cache_rows: int = 0, prefill_chunk: int = 0,
+                 admission_policy: str = "ttft",
+                 prefill_budget: Optional[int] = None,
+                 adaptive_prefill: bool = False,
+                 pressure_high: Optional[int] = None,
+                 pressure_low: Optional[int] = None,
                  **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -230,13 +298,29 @@ class DecodeEngine:
         if use_flash_paged is not None:
             for bean in attn:
                 bean.use_flash_paged = use_flash_paged
-        self.scheduler = Scheduler(self.window, min_bucket=min_prompt_bucket)
+        self.prefill_chunk = int(prefill_chunk)
+        self.adaptive_prefill = bool(adaptive_prefill)
+        self.scheduler = Scheduler(
+            self.window, min_bucket=min_prompt_bucket,
+            prefill_chunk=self.prefill_chunk,
+            prefill_budget=prefill_budget, policy=admission_policy,
+            pressure_high=pressure_high, pressure_low=pressure_low)
         self.paged_kv = bool(paged_kv)
         self.block_tokens = int(block_tokens)
         self.kv_blocks = None
         self.block_pool = None
         if self.paged_kv:
-            self._size_block_pool(kv_blocks)
+            self._size_block_pool(kv_blocks, int(prefix_cache_rows))
+        self.prefix_cache: Optional[RadixPrefixCache] = None
+        if prefix_cache_rows and self.paged_kv:
+            # entries lease pool BLOCKS (zero-copy); the row count caps
+            # entries, the block pool caps bytes
+            self.prefix_cache = PagedPrefixCache(
+                prefix_cache_rows, self.block_tokens,
+                ref_block=self.block_pool.ref,
+                release_block=self._release_block)
+        elif prefix_cache_rows:
+            self.prefix_cache = RadixPrefixCache(prefix_cache_rows)
         self._kv_tabs: List[Optional[BlockTable]] = [None] * self.n_slots
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
@@ -246,6 +330,10 @@ class DecodeEngine:
         self._graphs: Optional[GraphRunner] = GraphRunner([self._gen])
         self._graphs_version = net.params_version
         self._slots: List[Optional[_Slot]] = [None] * self.n_slots
+        #: admissions part-way through (chunked) prefill, oldest first,
+        #: and the slots they hold
+        self._pending: List[_Pending] = []
+        self._reserved: set = set()
         self._submit_t: Dict[int, float] = {}
         self._pool: Optional[Dict[str, Dict[str, Any]]] = None
         self._toks: Optional[torch.Tensor] = None   # [B] current tokens
@@ -271,14 +359,18 @@ class DecodeEngine:
             "tokens_generated": 0, "requests_finished": 0,
             "decode_time_s": 0.0, "chunks": 0, "decode_steps": 0,
             "occupancy_sum": 0.0, "admitted": 0, "evicted": 0,
-            "prefill_tokens": 0, "blocks_free": self.kv_blocks or 0,
-            "blocks_used": 0, "frag_tokens": 0, "preempted": 0,
-            "paged_admit_deferred": 0,
+            "prefill_tokens": 0, "prefill_tokens_skipped": 0,
+            "chunks_scheduled": 0, "blocks_free": self.kv_blocks or 0,
+            "blocks_used": 0, "cow_copies": 0, "prefix_blocks_spliced": 0,
+            "frag_tokens": 0, "preempted": 0, "paged_admit_deferred": 0,
         }
 
-    def _size_block_pool(self, kv_blocks: Optional[int]) -> None:
+    def _size_block_pool(self, kv_blocks: Optional[int],
+                         prefix_rows: int) -> None:
         """Block pool sizing (the JAX engine's, with no speculative
-        writes and no prefix pool)."""
+        writes): by default the dense layout's device bytes, ``n_slots``
+        window rows plus the dense prefix pool's ``prefix_rows``, with
+        per-slot append slack."""
         bt = self.block_tokens
         if bt < 1 or (bt & (bt - 1)):
             raise ValueError(f"block_tokens {bt} must be a power of two")
@@ -300,7 +392,7 @@ class DecodeEngine:
                       + _ceil_div(round_write, bt) + 3)
         if kv_blocks is None:
             kv_blocks = max(
-                _ceil_div(self._wmax, bt) * self.n_slots
+                _ceil_div(self._wmax, bt) * (self.n_slots + prefix_rows)
                 + self.n_slots * (_ceil_div(round_write, bt) + 2),
                 slot_worst)
         self.kv_blocks = int(kv_blocks)
@@ -336,9 +428,10 @@ class DecodeEngine:
         return rid
 
     def has_work(self) -> bool:
-        """True while anything is queued, requeued, decoding, or
-        dispatched but not landed (async rounds)."""
-        return bool(self.scheduler.pending or self._requeue
+        """True while anything is queued, admitting, requeued,
+        decoding, or dispatched but not landed (async rounds)."""
+        return bool(self.scheduler.pending or self._pending
+                    or self._requeue
                     or self._inflight is not None
                     or any(s is not None for s in self._slots))
 
@@ -360,7 +453,8 @@ class DecodeEngine:
         req = state.request
         self._terminal[req.id] = GenerationResult(
             id=req.id, tokens=list(state.tokens), finish_reason=reason,
-            prompt_len=len(req.prompt), ttft_s=state.ttft_s)
+            prompt_len=len(req.prompt),
+            prefix_tokens_reused=state.prefix_reused, ttft_s=state.ttft_s)
         self.stats["requests_finished"] += 1
         self._submit_t.pop(req.id, None)
         self.scheduler.release(req.id)
@@ -399,17 +493,27 @@ class DecodeEngine:
         self.stats["evicted"] += 1
 
     # -- paged block-pool plumbing -------------------------------------
+    def _release_block(self, bid: int) -> None:
+        """Drop one reference to a pool block (the block returns to the
+        free list with its last reference); the one seam through which
+        slots, admissions and the prefix trie release blocks."""
+        self.block_pool.deref(bid)
+
     def _free_table(self, tab: Optional[BlockTable]) -> None:
         if tab is None:
             return
         for bid in list(tab.blocks.values()):
-            self.block_pool.deref(bid)
+            self._release_block(bid)
         tab.blocks.clear()
 
     def _paged_reserve(self, n: int, protect=()) -> bool:
-        """Make ``n`` blocks allocatable by preempting the youngest
-        unprotected slot(s)."""
+        """Make ``n`` blocks allocatable: first drop LRU prefix-trie
+        entries (references only: a block a slot still reads stays),
+        then preempt the youngest unprotected slot(s)."""
         pool = self.block_pool
+        while pool.free_blocks < n and self.prefix_cache is not None:
+            if not self.prefix_cache.evict_one():
+                break
         while pool.free_blocks < n:
             victim = next((s for s in range(self.n_slots - 1, -1, -1)
                            if self._slots[s] is not None
@@ -422,7 +526,8 @@ class DecodeEngine:
     def _preempt_slot(self, slot: int) -> None:
         """Release a running slot's blocks under pool pressure and
         requeue its request for the next round (it prefills again from
-        scratch; a greedy request regenerates identical ids)."""
+        scratch, or from the trie; a greedy request regenerates
+        identical ids). Blocks it shares with the trie stay."""
         state = self._slots[slot]
         self.stats["preempted"] += 1
         tab = self._kv_tabs[slot]
@@ -444,16 +549,27 @@ class DecodeEngine:
 
     def _ensure_tab(self, tab: BlockTable, n_tokens: int,
                     protect=()) -> bool:
-        """Allocate the fresh blocks the next ``n_tokens`` appends cross
-        into. False = the pool could not be relieved. (No block is ever
-        shared without a prefix cache, so no copy-on-write arises.)"""
-        need = len(tab.new_logical_blocks(n_tokens))
+        """Make ``tab`` writable for the next ``n_tokens`` appends:
+        copy-on-write the partial tail block if the trie or another slot
+        still references it (one block copied in place, then swapped
+        into the table), and allocate the fresh blocks the appends cross
+        into. False = the pool could not be relieved."""
+        pool = self.block_pool
+        tail = tab.tail_block() if n_tokens > 0 else None
+        cow = tail is not None and pool.refcount(tail[1]) > 1
+        need = len(tab.new_logical_blocks(n_tokens)) + (1 if cow else 0)
         if need and not self._paged_reserve(need, protect):
             return False
+        if cow:
+            g, src = tab.tail_block()
+            dst = pool.alloc()
+            pool.copy_block_device(self._pool, src, dst)
+            tab.blocks[g] = dst
+            self._release_block(src)
         for g in tab.new_logical_blocks(n_tokens):
             old = g - self._ring_slots
             if old in tab.blocks:   # safety: expired ring predecessor
-                self.block_pool.deref(tab.blocks.pop(old))
+                self._release_block(tab.blocks.pop(old))
             bid = self.block_pool.alloc()
             if bid is None:
                 raise AssertionError("reserved allocation failed")
@@ -465,7 +581,7 @@ class DecodeEngine:
         window."""
         for g in sorted(tab.blocks):
             if (g + 1) * self.block_tokens <= tab.length - self._wmax:
-                self.block_pool.deref(tab.blocks.pop(g))
+                self._release_block(tab.blocks.pop(g))
             else:
                 break
 
@@ -495,12 +611,10 @@ class DecodeEngine:
         buf.copy_(torch.from_numpy(host), non_blocking=True)
         return buf
 
-    def _paged_rnn_rows(self, tabs):
-        """The paged rnn-state operand for a dispatch: each layer's pool
-        tensors plus every row's ring-projected block table (None rows —
-        idle slots — map nothing; their writes drop and their keys all
-        mask). The table operands are the round's static buffers, shared
-        by every layer."""
+    def _table_arrays(self, tabs) -> Dict[str, np.ndarray]:
+        """Every row's ring-projected block table, base, floor and
+        filled as host arrays (None rows — idle slots — map nothing;
+        their writes drop and their keys all mask)."""
         b, s_ring = len(tabs), self._ring_slots
         table = np.full((b, s_ring), -1, np.int32)
         base = np.full((b, s_ring), -1, np.int32)
@@ -512,9 +626,27 @@ class DecodeEngine:
             table[i], base[i] = tab.arrays(s_ring)
             floor[i] = tab.floor
             filled[i] = tab.length
-        ops = {name: self._round_buffer(name, arr) for name, arr in
-               (("table", table), ("base", base), ("floor", floor),
-                ("filled", filled))}
+        return {"table": table, "base": base, "floor": floor,
+                "filled": filled}
+
+    def _paged_rnn_rows(self, tabs):
+        """The paged rnn-state operand for a decode dispatch: each
+        layer's pool tensors plus the rows' tables
+        (:meth:`_table_arrays`) in the round's static buffers, shared by
+        every layer."""
+        ops = {name: self._round_buffer(name, arr)
+               for name, arr in self._table_arrays(tabs).items()}
+        return {name: dict(st, **ops) for name, st in self._pool.items()}
+
+    def _paged_chunk_rows(self, tab: BlockTable):
+        """The paged rnn-state operand for one admission's B=1 suffix
+        chunk: the pool tensors plus ``tab``'s table operands in FRESH
+        device tensors. Never the round's static buffers: those are
+        keyed by name and sized ``[n_slots, S]``, and the decode graph
+        reads them, so a B=1 copy into them would broadcast over every
+        row of the graph's tables."""
+        ops = {name: torch.as_tensor(arr).to(self.device)
+               for name, arr in self._table_arrays([tab]).items()}
         return {name: dict(st, **ops) for name, st in self._pool.items()}
 
     def _ensure_pool(self, rnn1) -> None:
@@ -585,39 +717,151 @@ class DecodeEngine:
         mask[0, :len(prompt)] = 1.0
         return x.to(self.device), mask.to(self.device)
 
-    def _admit(self, request: Request, slot: int) -> None:
-        """Cold admission into ``slot``: bucketed masked prefill at B=1,
-        the row written into the slot's pool rows (dense) or scattered
-        into fresh blocks (paged; deferred to the next round when the
-        pool cannot hold it), and the first token."""
-        prompt = [int(t) for t in request.prompt]
-        width = self.scheduler.bucket_of(len(prompt))
-        x, mask = self._one_hot_prompt(prompt, width)
-        out, rnn1 = self._forward(x, mask, None)
-        probs = out[:, :, len(prompt) - 1]
-        tok = sample_tokens(
+    def _sample_one(self, probs, request: Request) -> torch.Tensor:
+        """The request's token [1] from B=1 class probabilities."""
+        return sample_tokens(
             probs, np.asarray([request.temperature], np.float32),
             np.asarray([request.top_k or self.vocab]), self._gen)
-        self.stats["prefill_tokens"] += len(prompt)
-        self._ensure_pool(rnn1)
+
+    def _start_admission(self, request: Request, slot: int) -> None:
+        """Begin admitting ``request`` into ``slot`` (JAX's
+        ``_start_admission``): look up the prefix cache (dense: fetch a
+        copy of the matched state; paged: splice the entry's blocks
+        below the matched length into a new table), then prefill the
+        whole suffix now (blocking mode) or queue the admission for
+        chunks between decode rounds (``prefill_chunk > 0``)."""
+        rnn, matched, hit, tab = None, 0, None, None
+        if self.prefix_cache is not None:
+            hit = self.prefix_cache.lookup(request.prompt)
+            if hit is not None and self.paged_kv:
+                payload = self.prefix_cache.payload(hit.row)
+                if hit.matched > payload.floor:
+                    # zero-copy: reference the entry's blocks below the
+                    # matched length (the dense one-token rewind is
+                    # referencing no block past it; the suffix's first
+                    # write copies a still-shared boundary block)
+                    matched = hit.matched
+                    bt = self.block_tokens
+                    tab = BlockTable(bt, length=matched,
+                                     floor=payload.floor)
+                    spliced = 0
+                    for g, bid in payload.blocks.items():
+                        if (g * bt < matched
+                                and (g + 1) * bt > payload.floor):
+                            tab.blocks[g] = bid
+                            self.block_pool.ref(bid)
+                            spliced += 1
+                    self.block_pool.stats["spliced"] += spliced
+                    self.stats["prefill_tokens_skipped"] += matched
+                else:
+                    self.prefix_cache.release(hit)
+                    hit = None
+            elif hit is not None:
+                matched = hit.matched
+                rnn = self.prefix_cache.fetch(hit)
+                self.stats["prefill_tokens_skipped"] += matched
+        pending = _Pending(request, slot, rnn, None, 0, matched, hit,
+                           tab=tab)
+        if self.prefill_chunk:
+            self._reserved.add(slot)
+            self._pending.append(pending)
+            return
+        # blocking mode: the whole suffix in one pow2-bucketed prefill
+        # (cold: the original admission, bit for bit; warm: one
+        # continuation at the suffix's bucket)
+        if not self._advance_prefill(pending, pending.remaining):
+            self._defer_admission(pending)
+            return
+        self._complete_admission(pending)
+
+    def _defer_admission(self, pending: _Pending) -> None:
+        """Back out an admission the block pool cannot hold now (paged
+        only): release the trie lease and any spliced or written blocks,
+        free the reserved slot and requeue the request for the next
+        round."""
+        if pending.hit is not None:
+            self.prefix_cache.release(pending.hit)
+            pending.hit = None
+        self._free_table(pending.tab)
+        pending.tab = None
+        self._reserved.discard(pending.slot)
+        if pending in self._pending:
+            self._pending.remove(pending)
+        self.stats["paged_admit_deferred"] += 1
+        self._requeue.append((self._round + 1, pending.request))
+
+    def _advance_prefill(self, pending: _Pending, max_tokens: int) -> bool:
+        """Prefill the next ``<= max_tokens`` tokens of a pending
+        admission, padded and masked to ``prefill_chunk`` (chunked) or
+        to the segment's pow2 bucket (blocking), and sample at its last
+        token. Paged warm: the segment streams through the slot's table
+        (its K/V scattered into the pool, K2 attending on the card)
+        after the table is made writable (CoW of a shared tail block);
+        False when the pool cannot be relieved. Otherwise the dense
+        carried state: a cold prefill first, then continuations."""
+        req = pending.request
+        lo = pending.matched + pending.done
+        seg = pending.seq[lo:lo + max_tokens]
+        width = self.prefill_chunk or self.scheduler.bucket_of(len(seg))
+        x, mask = self._one_hot_prompt(seg, width)
+        if pending.tab is not None:
+            if not self._ensure_tab(pending.tab, len(seg)):
+                return False
+            out, _ = self._forward(x, mask,
+                                   self._paged_chunk_rows(pending.tab))
+            pending.tab.length += len(seg)
+        else:
+            out, pending.rnn = self._forward(x, mask, pending.rnn)
+        pending.tok = self._sample_one(out[:, :, len(seg) - 1], req)
+        pending.done += len(seg)
+        self.stats["prefill_tokens"] += len(seg)
+        self.stats["chunks_scheduled"] += 1
+        return True
+
+    def _complete_admission(self, pending: _Pending) -> None:
+        """Suffix fully prefilled: write the state into the slot (dense:
+        the slot's pool rows; paged cold: a scatter into freshly
+        allocated blocks, deferred when the pool cannot hold it; paged
+        warm: the table already holds it), store the prompt in the
+        prefix cache after releasing the hit's lease, and take the first
+        token (its value fetch is the sync that makes TTFT honest)."""
+        request, slot = pending.request, pending.slot
         if self.paged_kv:
-            tab = self._alloc_window_tab(len(prompt))
-            if tab is None:
-                self.stats["paged_admit_deferred"] += 1
-                self._requeue.append((self._round + 1, request))
-                return
-            table_row, _ = tab.arrays(self._ring_slots)
-            self._scatter_row(rnn1, table_row, tab.length)
+            if pending.tab is None:
+                self._ensure_pool(pending.rnn)
+                tab = self._alloc_window_tab(len(pending.seq))
+                if tab is None:
+                    self._defer_admission(pending)
+                    return
+                table_row, _ = tab.arrays(self._ring_slots)
+                self._scatter_row(pending.rnn, table_row, tab.length)
+            else:
+                tab, pending.tab = pending.tab, None
+            if self.prefix_cache is not None:
+                if pending.hit is not None:
+                    self.prefix_cache.release(pending.hit)
+                # the trie references the slot's own blocks; the slot's
+                # next append copies the shared tail block first
+                self.prefix_cache.insert_blocks(request.prompt, tab)
             self._kv_tabs[slot] = tab
         else:
-            tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool, rnn1)
-        self._toks[slot] = tok[0]
-        # the value fetch is the sync point that makes TTFT honest
-        first = int(tok[0])
+            self._ensure_pool(pending.rnn)
+            tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool,
+                     pending.rnn)
+            if self.prefix_cache is not None:
+                # release BEFORE insert: on a tight cache the freed row
+                # lets the insert evict the stale ancestor
+                if pending.hit is not None:
+                    self.prefix_cache.release(pending.hit)
+                self.prefix_cache.insert(request.prompt, pending.rnn)
+        self._reserved.discard(slot)
+        self._toks[slot] = pending.tok[0]
+        first = int(pending.tok[0])
         submit_t = self._submit_t.get(request.id)
         ttft = (time.perf_counter() - submit_t
                 if submit_t is not None else None)
-        state = _Slot(request, [first], ttft_s=ttft)
+        state = _Slot(request, [first], ttft_s=ttft,
+                      prefix_reused=pending.matched)
         self._slots[slot] = state
         self._temps[slot] = request.temperature
         self._top_ks[slot] = request.top_k or self.vocab
@@ -685,11 +929,12 @@ class DecodeEngine:
     def _plan_fused(self, active: List[int]) -> int:
         """Rounds to fuse into this dispatch (JAX's ``_plan_fused``): 0
         = a stepped round; K >= 1 = one K-round window, only when no
-        host decision is pending (no queued arrival, no requeued
-        victim). K is the pow2 bucket covering the widest live
+        host decision is pending (no queued arrival, no admission
+        part-way through its chunks, no requeued victim). K is the pow2
+        bucket covering the widest live
         request's remaining rounds, capped at ``fused_rounds``, so at
         most log2(fused_rounds) + 1 windows are ever captured."""
-        if (not self.fused_rounds or self._requeue
+        if (not self.fused_rounds or self._pending or self._requeue
                 or self.scheduler.decision_pending()):
             return 0
         max_rem = max(self._slots[s].request.max_new_tokens
@@ -820,8 +1065,10 @@ class DecodeEngine:
         ``decode`` is 1 once a round has run on the card and stays 1 (the
         JAX engine's no-retrace guarantee); ``fused_decode`` (present
         only with ``fused_rounds``) counts the fused windows, one per
-        pow2 K dispatched; the paths that run eagerly (prefill,
-        admission, the paged movers) and every path on the CPU read 0."""
+        pow2 K dispatched; the paths that run eagerly (prefill, chunk
+        continuations, admission, the paged movers, the dense prefix
+        cache's ``prefix_fetch`` and ``prefix_store``) and every path on
+        the CPU read 0. A paged prefix cache adds no key."""
         keys = self._graphs.keys() if self._graphs else []
         counts = {"prefill": 0, "chunk_prefill": 0, "admit": 0,
                   "decode": keys.count("decode")}
@@ -830,14 +1077,41 @@ class DecodeEngine:
         if self.paged_kv:
             counts.update(paged_scatter=0, paged_tok=0, kv_import=0,
                           kv_gather=0, paged_copy=0, paged_zero=0)
+        if self.prefix_cache is not None:
+            counts.update(self.prefix_cache.compile_counts())
         return counts
+
+    def _advance_pending(self) -> None:
+        """The round's chunk block (JAX ``step()``'s): adapt the budget
+        (``adaptive_prefill``), grant chunks oldest first
+        (``Scheduler.plan_chunks``), run them (an admission the block
+        pool cannot hold is deferred to the next round), and complete
+        the admissions whose suffix is done."""
+        if self.adaptive_prefill:
+            self.scheduler.adapt_budget()
+        grants = self.scheduler.plan_chunks(
+            [p.remaining for p in self._pending])
+        targets = [self._pending[i] for i in grants]
+        deferred: set = set()
+        for p in targets:
+            if id(p) in deferred:
+                continue
+            if not self._advance_prefill(p, self.prefill_chunk):
+                self._defer_admission(p)
+                deferred.add(id(p))
+        for p in [p for p in self._pending if p.remaining == 0]:
+            self._complete_admission(p)
+            if p in self._pending:
+                self._pending.remove(p)
 
     def step(self, results: Optional[Dict[int, GenerationResult]] = None
              ) -> Dict[int, GenerationResult]:
         """One scheduling round: land the round in flight (async),
-        requeue, admit into free slots, one decode chunk or fused
-        window, evictions. Terminal results accumulate into (and are
-        returned via) ``results``."""
+        requeue, start admissions into free slots, advance chunked
+        admissions under the round's prefill budget and complete those
+        whose suffix is done, one decode chunk or fused window (its
+        reservation and CoW first, paged), evictions. Terminal results
+        accumulate into (and are returned via) ``results``."""
         if results is None:
             results = {}
         with torch.no_grad():
@@ -848,8 +1122,15 @@ class DecodeEngine:
                 self._land_round(inf)
             self._drain_requeue()
             for slot in range(self.n_slots):
-                if self._slots[slot] is None and self.scheduler.pending:
-                    self._admit(self.scheduler.pop_admissible(), slot)
+                if (self._slots[slot] is None
+                        and slot not in self._reserved
+                        and self.scheduler.pending):
+                    nxt = self.scheduler.pop_admissible()
+                    if nxt is None:
+                        break
+                    self._start_admission(nxt, slot)
+            if self._pending:
+                self._advance_pending()
             active = [i for i, s in enumerate(self._slots)
                       if s is not None]
             if active:
@@ -858,8 +1139,12 @@ class DecodeEngine:
         if pool is not None:
             self.stats["blocks_free"] = pool.free_blocks
             self.stats["blocks_used"] = pool.used_blocks
-            self.stats["frag_tokens"] = pool.fragmentation_tokens(
-                self._kv_tabs)
+            self.stats["cow_copies"] = pool.stats["cow_copies"]
+            self.stats["prefix_blocks_spliced"] = pool.stats["spliced"]
+            tabs = list(self._kv_tabs) + [p.tab for p in self._pending]
+            if self.prefix_cache is not None:
+                tabs.extend(self.prefix_cache.tables())
+            self.stats["frag_tokens"] = pool.fragmentation_tokens(tabs)
         self._round += 1
         self._drain_terminal(results)
         return results

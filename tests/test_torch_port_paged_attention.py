@@ -462,6 +462,27 @@ def test_the_wrapper_plans_for_the_cards_sms(monkeypatch):
     assert seen[0] > seen[1] and paged_attention.launches == 2
 
 
+@pytest.mark.parametrize("t", [1, 4])
+def test_multi_query_launches_count_on_their_own(monkeypatch, t):
+    """Every launch counts in ``paged_attention.launches``; only one
+    with t > 1 (a prefill chunk) also counts in ``chunk_launches``, so
+    a run's decode and chunk launches are each read, not derived. (The
+    launch is stubbed; nothing runs on a card.)"""
+    ops, tm = _kernel_operands(_case(t, False))
+    cuda_ops = [types.SimpleNamespace(device=torch.device("cuda", 0),
+                                      shape=o.shape) for o in ops]
+    monkeypatch.setattr(paged_attention, "launches", 0)
+    monkeypatch.setattr(paged_attention, "chunk_launches", 0)
+    monkeypatch.setattr(tatt, "_check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(tatt, "_paged_attention_launch",
+                        lambda *a, tm, splits: (None, None))
+    monkeypatch.setattr(tatt, "sm_count", lambda index: 132)
+    tatt.paged_attention(*cuda_ops, tm=tm)
+    tatt.paged_attention(*cuda_ops, tm=tm)
+    assert paged_attention.launches == 2
+    assert paged_attention.chunk_launches == (2 if t > 1 else 0)
+
+
 def test_query_tile_matches_the_kernel_source():
     from deeplearning4j_tpu_torch import cuda_build
 
