@@ -38,7 +38,12 @@ JAX or of the JAX package. Phases, each fatal on failure:
    spliced prefix, window 2048, bt 16, f32 pool, q bf16 and f32, and a
    ragged last chunk of 200 under its mask): held on the valid rows,
    timed eager and as a CUDA graph beside the plain version, SDPA over
-   the pre-gathered window and the bound.
+   the pre-gathered window and the bound. K2 at phase 14's verify shape
+   (B=8, t=33, lengths 33, 17, 5, 2, 1, 33, 9 and an idle row of
+   length 1 whose table maps nothing, rows 192 to 325 tokens in, f32
+   pool, q bf16 and f32; NaN past each row's real span): held on each
+   row's real queries, the idle row exactly 0, timed as the chunk
+   route is.
 4. training A — the width-1024 flagship (random weights from a seed) on
    K1 and on dense attention from the same params, 4 ``fit`` steps each
    at B=2, T=2048 on the Markov task, f32 and bf16: loss trajectories
@@ -144,6 +149,25 @@ JAX or of the JAX package. Phases, each fatal on failure:
    every request finishes, no fused window while an admission is
    pending (dispatches against the ``serving_fused_rounds``
    histogram), and at f32 the victim's ids identical under the storm.
+14. speculative decoding — bench.py's ``bench_decode_spec``: the serving
+   net at bf16, 24 requests x 128 new tokens over 8 slots, chunk 32,
+   ``spec_draft_len=32``, each prompt a 64-token random head and the
+   model's own 128-token greedy continuation (the best 24 of 32
+   candidates by an n-gram replay), on the dense and the paged layout
+   (bt 16): a warm round, then 3 interleaved timed rounds of the
+   spec-off and the spec-on engine. Spec-on and spec-off tokens/s and
+   their ratio, acceptance, spec and fallback rounds, the final live K,
+   the verify graphs' memory and capture seconds; gates: ids agree with
+   spec-off >= 0.9, verify graphs in [1, log2(32) + 1], no graph
+   captured after the warm round, paged K2 launched N_LAYERS times per
+   verify pass (t > 1) and per decode step (t = 1). At f32, both
+   layouts, the 8 least predictable prompts (128 new tokens, each
+   drafting in at least 2 verify passes): spec-on ids identical to spec-off; with 2 of them
+   sampled at temperature 1.0 the greedy ones stay identical and the
+   sampled ones draft; two planted faults of the verify pass (no
+   rewind; acceptance one past the first mismatch) must each break the
+   identity. Each bf16 request whose ids differ from spec-off is
+   reported with its first divergence and the f32 log-prob gap there.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -154,7 +178,8 @@ at training B's shape, its f32 entries ``flash_attention_f32`` and
 A's f32 ``fit`` and counted ``fit_scan`` graph window, each plus its
 prefill launches in phase 8 at its dtype; K2's from phase 6's stepped
 and fused runs, ``paged_attention_chunk`` (K2 at t=256) from phase 13a's
-paged warm chunks; K3's ``conv_taps`` and ``conv_taps_f32`` with their
+paged warm chunks, ``paged_attention_verify`` (K2 at t=33) from phase
+14's paged timed rounds; K3's ``conv_taps`` and ``conv_taps_f32`` with their
 launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -163,6 +188,7 @@ when any phase fails or no card is present.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -344,22 +370,26 @@ def _paged_case(rng, t, fill, q_dtype, dev, *, b=N_SLOTS,
 
 def _paged_bound(ops, tm):
     """Least time for these inputs: every operand byte the function
-    needs read once (the K/V of the blocks some query may attend), the
-    output written once; f32 flops of QKᵀ and P·V over the keys each
-    real query (i < lengths) attends: those of a mapped block at or
-    above the floor, inside its window and at or below its own
+    needs read once (the K/V of the blocks some real query may attend,
+    the q rows of the real queries, the tables), the real queries'
+    output rows written once; f32 flops of QKᵀ and P·V over the keys
+    each real query (i < lengths) attends: those of a mapped block at
+    or above the floor, inside its window and at or below its own
     position (a chunk's causal reach, not every query over every
-    reachable key)."""
+    reachable key). A row's pad queries (i >= lengths) count nowhere."""
     q, pk, pv, bid, bval, lo_blk, floor, filled, lengths = ops
     b, h, t, dh = q.shape
     bt = pk.shape[1]
     g = lo_blk.long()[:, None] + torch.arange(bid.shape[1],
                                               device=q.device)[None, :]
-    reach = ((bval > 0) & ((g + 1) * bt > floor.long()[:, None])
-             & (g * bt <= (filled.long() + t - 1)[:, None]))
+    last = filled.long() + lengths.long() - 1      # a row's last real query
+    reach = ((bval > 0) & (lengths > 0)[:, None]
+             & ((g + 1) * bt > floor.long()[:, None])
+             & (g * bt <= last[:, None]))
     n_blocks = int(reach.sum())
     kv_bytes = n_blocks * bt * h * dh * 2 * pk.element_size()
-    io_bytes = 2 * q.numel() * q.element_size() + sum(
+    n_real = int(lengths.long().clamp(0, t).sum())
+    io_bytes = 2 * n_real * h * dh * q.element_size() + sum(
         a.numel() * a.element_size() for a in ops[3:])
     off = torch.arange(bt, device=q.device)
     kpos = (g[:, :, None] * bt + off).reshape(b, 1, -1)
@@ -718,6 +748,125 @@ def paged_chunk_kernel_phase() -> list:
     paged_attention.launches, paged_attention.chunk_launches = before
     return [dict(
         name="paged_attention_chunk", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+        replaces="deeplearning4j_tpu/nn/layers/attention.py:807",
+        **entry)]
+
+
+# K2 at the verify shape: a speculative round's verify pass sends every
+# slot's [current token | draft] through the paged attend at t = width +
+# 1 (33 at K=32), each row with its own length (1 for a row that drafted
+# nothing), beside an idle slot whose table maps nothing (phase 14's
+# paged engine: 8 slots, bt 16, the serving window and f32 pool, rows
+# a couple of hundred tokens in)
+VERIFY_LENGTHS = (33, 17, 5, 2, 1, 33, 9, 1)
+VERIFY_IDLE = 7
+
+
+def _paged_verify_case(rng, q_dtype, dev):
+    """K2's operands for one verify pass: B=8, H=8, dh=128, bt=16,
+    t=33, an f32 pool; row r holds ``192 + 19 r`` tokens (the idle row
+    ``VERIFY_IDLE`` none: its table is unmapped, its length 1) and its
+    first ``VERIFY_LENGTHS[r]`` queries are real. Each row maps the
+    blocks up to its last query's position in a random order; the lanes
+    past each row's real span hold NaN (a rejected tail or a recycled
+    block's stale lanes), and one free pool block is NaN."""
+    h, dh, bt, tm = N_HEADS, WIDTH // N_HEADS, BLOCK_TOKENS, WINDOW
+    t, b = max(VERIFY_LENGTHS), len(VERIFY_LENGTHS)
+    ntab = (tm + t - 2) // bt + 2
+    filled = [0 if r == VERIFY_IDLE else 192 + 19 * r for r in range(b)]
+    need = [-(-(f + t) // bt) for f in filled]
+    nb = sum(need) + 8
+    pk = torch.randn(nb, bt, h, dh, generator=rng, device=dev)
+    pv = torch.randn(nb, bt, h, dh, generator=rng, device=dev)
+    perm = torch.randperm(nb, generator=rng, device=dev).tolist()
+    pk[perm[-1]] = float("nan")
+    pv[perm[-1]] = float("nan")
+    bid = np.zeros((b, ntab), np.int32)
+    bval = np.zeros((b, ntab), np.int32)
+    used = 0
+    for r in range(b):
+        if r == VERIFY_IDLE:
+            continue
+        bid[r, :need[r]] = perm[used:used + need[r]]
+        bval[r, :need[r]] = 1
+        used += need[r]
+        pos = np.arange(filled[r] + VERIFY_LENGTHS[r], need[r] * bt)
+        rows = torch.as_tensor(bid[r, pos // bt].astype(np.int64),
+                               device=dev)
+        lanes = torch.as_tensor(pos % bt, device=dev)
+        pk[rows, lanes] = float("nan")
+        pv[rows, lanes] = float("nan")
+    q = torch.randn(b, h, t, dh, generator=rng, device=dev).to(q_dtype)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    ops = (q, pk, pv, i32(bid), i32(bval), i32([0] * b), i32([0] * b),
+           i32(filled), i32(VERIFY_LENGTHS))
+    return ops, tm
+
+
+def _verify_name(ops):
+    q = ops[0]
+    return (f"paged_attention verify, B={q.shape[0]}, t={q.shape[2]}, "
+            f"lengths {list(VERIFY_LENGTHS)} (row {VERIFY_IDLE} idle), "
+            f"dh={q.shape[3]}, bt={ops[1].shape[1]}, "
+            f"q={str(q.dtype).split('.')[-1]}, "
+            f"pool={str(ops[1].dtype).split('.')[-1]}")
+
+
+def paged_verify_kernel_phase() -> list:
+    """K2's t > 1 route at the verify shape, held against its plain
+    version on each row's real queries (TOL_F32 / TOL_BF16 by q's
+    dtype; finite; the idle row's exactly 0), q bf16 and f32. The bf16
+    case is timed (eager, and from a CUDA graph of back-to-back calls)
+    beside the plain version, SDPA over the pre-gathered window with the
+    causal-offset mask, and the bound (each real query's causal reach).
+    Returns the kernels-line entry ``paged_attention_verify``; its
+    launches come from phase 14's paged runs."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(14)
+    before = (paged_attention.launches, paged_attention.chunk_launches)
+    entry = None
+    for q_dtype in (torch.bfloat16, torch.float32):
+        ops, tm = _paged_verify_case(rng, q_dtype, dev)
+        name = _verify_name(ops)
+        t = ops[0].shape[2]
+        real = (torch.arange(t, device=dev)[None, :]
+                < ops[8][:, None])[:, None, :, None]
+        got = paged_attention(*ops, tm=tm).float()
+        want = paged_attention_reference(ops[0].float(), *ops[1:], tm=tm)
+        torch.cuda.synchronize()
+        err = float(torch.where(real, got - want, 0.0).abs().max())
+        finite = bool(torch.isfinite(torch.where(real, got, 0.0)).all())
+        idle = float(got[VERIFY_IDLE, :, 0].abs().max())
+        tol = TOL_F32 if q_dtype == torch.float32 else TOL_BF16
+        log(f"{name}: max_abs_err {err:.3e} over the real queries (tol "
+            f"{tol}), finite {finite}, idle row max {idle}")
+        if not finite or not err <= tol or idle != 0.0:
+            raise SystemExit(f"chip_smoke: {name}: max_abs_err {err} (tol "
+                             f"{tol}), finite {finite}, idle row {idle} "
+                             "(must be 0)")
+        if q_dtype != torch.bfloat16:
+            continue
+        times = _paged_times(ops, tm)
+        _paged_log_times(name, times)
+        dev_ms = graph_time_ms(lambda: paged_attention(*ops, tm=tm))
+        lib_dev_ms = graph_time_ms(_sdpa_yardstick(ops, tm))
+        log(f"{name} device times (CUDA graph of 20 calls): kernel "
+            f"{dev_ms:.4f} ms ({times['bound_ms'] / dev_ms:.1%} of the "
+            f"bound), sdpa {lib_dev_ms:.4f} ms")
+        entry = dict(max_abs_err=err, **times)
+    paged_attention.launches, paged_attention.chunk_launches = before
+    return [dict(
+        name="paged_attention_verify", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/paged_attention.cu",
         replaces="deeplearning4j_tpu/nn/layers/attention.py:807",
         **entry)]
@@ -3000,6 +3149,305 @@ def prefix_phases(card: str) -> int:
     return launches
 
 
+# Phase 14: speculative decoding, bench.py's bench_decode_spec: the
+# serving net at bf16, the engine at 8 slots, decode_chunk 32,
+# spec_draft_len 32; 24 requests x 128 new tokens, each prompt a 64-token
+# random head and the model's own 128-token greedy continuation, the best
+# 24 of 32 candidates by an n-gram replay of their next 128 tokens (the
+# filter builds the workload; it measures nothing)
+SPEC_K, SPEC_REQUESTS, SPEC_CANDIDATES = 32, 24, 32
+SPEC_HEAD, SPEC_CONT, SPEC_GEN = 64, 128, 128
+SPEC_TIMED = 3
+# the f32 identity gate: the workload's 8 least predictable prompts (the
+# last 8 kept: the most rejections, where the rewind and the acceptance
+# rule show), SPEC_GEN new tokens, so that verify passes run on states
+# an earlier pass rewound (the gate asks each request to draft in
+# SPEC_F32_MIN_ROUNDS of them); the mixed run samples the first 2 of
+# them at temperature 1.0
+SPEC_F32_REQUESTS, SPEC_SAMPLED, SPEC_F32_MIN_ROUNDS = 8, 2, 2
+SPEC_LAYOUTS = {"dense": {},
+                "paged": dict(paged_kv=True, block_tokens=BLOCK_TOKENS)}
+
+
+def spec_workload(net) -> tuple:
+    """bench_decode_spec's prompts from ``default_rng(0)``: the 32
+    candidates' continuations from one B=32 greedy run (the private
+    eager ``generate`` body: one run, no graph to capture), each scored
+    by how often a fresh ``NgramDraftTable`` seeded with the prompt
+    drafts the true next token over the following 128; the best 24
+    prompts and their scores."""
+    from deeplearning4j_tpu_torch.serving import NgramDraftTable
+
+    rng = np.random.default_rng(0)
+    heads = [rng.integers(0, VOCAB, SPEC_HEAD).tolist()
+             for _ in range(SPEC_CANDIDATES)]
+    x = torch.zeros((SPEC_CANDIDATES, VOCAB, SPEC_HEAD))
+    for b, head in enumerate(heads):
+        x[b, torch.as_tensor(head), torch.arange(SPEC_HEAD)] = 1.0
+    net.rnn_clear_previous_state()
+    streams = net._generate(x.to(DEVICE), SPEC_CONT + SPEC_GEN,
+                            None).tolist()
+    net.rnn_clear_previous_state()
+    cands = []
+    for head, stream in zip(heads, streams):
+        prompt = head + stream[:SPEC_CONT]
+        table = NgramDraftTable()
+        table.seed(0, prompt)
+        hits = 0
+        for tok in stream[SPEC_CONT:]:
+            d = table.draft(0, 1)
+            hits += bool(d and d[0] == tok)
+            table.extend(0, [tok])
+        cands.append((hits, prompt))
+    cands.sort(key=lambda c: -c[0])
+    best = cands[:SPEC_REQUESTS]
+    return [p for _, p in best], [h for h, _ in best]
+
+
+def spec_round(engine, prompts, n_gen, kws=None) -> tuple:
+    """One synchronised run of ``prompts`` (``kws[i]`` the i-th
+    request's sampling); returns the results in submission order and
+    the aggregate tokens/s."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    kws = kws or [{}] * len(prompts)
+    rids = [engine.submit(Request(list(p), n_gen, **kw))
+            for p, kw in zip(prompts, kws)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.run()
+    torch.cuda.synchronize()
+    out = [res[i] for i in rids]
+    return out, sum(len(r.tokens) for r in out) / (time.perf_counter() - t0)
+
+
+def _spec_engine(net, layout, k=None):
+    """The phase's engine on ``layout``: ``spec_draft_len`` ``k``
+    (SPEC_K by default; 0: the spec-off engine)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    return DecodeEngine(net, n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                        spec_draft_len=SPEC_K if k is None else k,
+                        **SPEC_LAYOUTS[layout])
+
+
+def _verify_graphs(engine) -> str:
+    g = engine._graphs
+    return ", ".join(f"width {k[1]}: {g.memory[k] / 2**20:.1f} MiB, "
+                     f"{g.seconds[k]:.3f} s" for k in g.keys()
+                     if isinstance(k, tuple) and k[0] == "verify")
+
+
+def spec_bench(card: str, net, prompts, layout: str) -> int:
+    """bench_decode_spec on one layout: a warm round of the spec-off and
+    the spec-on engine, then ``SPEC_TIMED`` interleaved timed rounds of
+    each. Gates: spec-on ids agree with spec-off >= 0.9 (bench.py's
+    bar); verify graphs in [1, log2(K) + 1]; no graph captured by either
+    engine after the warm round; over the timed rounds (the counts set
+    to 0 after the warm round, whose captures run each body once
+    before recording it), paged, K2's t > 1 launches equal N_LAYERS per
+    verify pass and its t = 1 launches N_LAYERS per decode step (dense,
+    none). Returns the paged spec engine's K2 t > 1 launches over the
+    timed rounds (0 dense), and the warm round's spec-on and spec-off
+    ids (for :func:`near_tie_report`)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+
+    base = _spec_engine(net, layout, k=0)
+    spec = _spec_engine(net, layout)
+    base_res, _ = spec_round(base, prompts, SPEC_GEN)     # warm: captures
+    spec_res, _ = spec_round(spec, prompts, SPEC_GEN)
+    per = agreement([r.tokens for r in spec_res],
+                    [r.tokens for r in base_res])
+    counts0 = (base.compile_counts(), spec.compile_counts())
+    caps0 = (base._graphs.captures, spec._graphs.captures)
+    stats0 = dict(spec.stats)
+    steps0 = base.stats["decode_steps"] + spec.stats["decode_steps"]
+    paged_attention.launches = paged_attention.chunk_launches = 0
+    rates = {"off": [], "on": []}
+    for _ in range(SPEC_TIMED):
+        rates["off"].append(spec_round(base, prompts, SPEC_GEN)[1])
+        rates["on"].append(spec_round(spec, prompts, SPEC_GEN)[1])
+    counts1 = (base.compile_counts(), spec.compile_counts())
+    caps1 = (base._graphs.captures, spec._graphs.captures)
+    chunk = paged_attention.chunk_launches
+    step = paged_attention.launches - chunk
+    st = spec.stats
+    drafted = st["spec_drafted"] - stats0["spec_drafted"]
+    accepted = st["spec_accepted"] - stats0["spec_accepted"]
+    passes = st["spec_rounds"] - stats0["spec_rounds"]
+    on, off = float(np.median(rates["on"])), float(np.median(rates["off"]))
+    verify = counts1[1]["verify"]
+    steps = base.stats["decode_steps"] + st["decode_steps"] - steps0
+    log(f"spec decode [{layout}, bfloat16] (bench_decode_spec): spec-on "
+        f"{on:.1f} tokens/s, spec-off {off:.1f} ({on / off:.3f}x; medians "
+        f"of {SPEC_TIMED} interleaved after a warm round, runs "
+        f"{ {k: [round(r, 1) for r in v] for k, v in rates.items()} }); "
+        f"ids agree with spec-off {np.mean(per):.4f} (per request min "
+        f"{min(per):.4f}); acceptance over the timed rounds {accepted} / "
+        f"{drafted} = {accepted / max(drafted, 1):.4f}; over all "
+        f"{st['spec_rounds']} spec rounds and {st['spec_fallback_rounds']} "
+        f"fallback rounds, final draft_len {spec.scheduler.draft_len}; "
+        f"verify graphs {verify} ({_verify_graphs(spec)}); decode graph "
+        f"{_graph_memory(base._graphs)} (spec-off); captures after the "
+        f"warm round {caps0} -> {caps1}; K2 launches over the timed rounds "
+        f"t = 1 {step} ({steps} decode steps), t > 1 {chunk} ({passes} "
+        f"verify passes) [{card}]")
+    ok = (np.mean(per) >= 0.9 and 1 <= verify <= int(np.log2(SPEC_K)) + 1
+          and counts0 == counts1 and caps0 == caps1
+          and passes > 0)
+    if layout == "paged":
+        ok = (ok and chunk == N_LAYERS * passes
+              and step == N_LAYERS * steps)
+    else:
+        ok = ok and chunk == step == 0
+    if not ok:
+        raise SystemExit(
+            f"chip_smoke: spec decode [{layout}] failed: agreement {per}, "
+            f"verify graphs {verify}, counts {counts0} -> {counts1}, "
+            f"captures {caps0} -> {caps1}, K2 t > 1 {chunk} against "
+            f"{N_LAYERS} x {passes} verify passes, t = 1 "
+            f"{step} against {N_LAYERS} x {steps} steps")
+    del base, spec
+    torch.cuda.empty_cache()
+    return (chunk if layout == "paged" else 0,
+            ([r.tokens for r in spec_res], [r.tokens for r in base_res]))
+
+
+@contextlib.contextmanager
+def _spec_fault(name):
+    """A planted fault of the verify pass, patched into the engine
+    module within the block: "no rewind" leaves each row's rejected
+    tail in the cache (``drop_newest_tokens`` returns the state as it
+    is); "one past the mismatch" accepts one draft token more than the
+    rule does (at most the row's draft)."""
+    from deeplearning4j_tpu_torch.serving import engine as engine_module
+
+    attr = {"no rewind": "drop_newest_tokens",
+            "one past the mismatch": "stochastic_acceptance"}[name]
+    orig = getattr(engine_module, attr)
+
+    def no_rewind(rnn, drop):
+        return rnn
+
+    def one_past(probs, draft, lens, *rest):
+        return torch.minimum(orig(probs, draft, lens, *rest) + 1,
+                             lens).to(torch.int32)
+
+    setattr(engine_module, attr,
+            no_rewind if name == "no rewind" else one_past)
+    try:
+        yield
+    finally:
+        setattr(engine_module, attr, orig)
+
+
+SPEC_FAULTS = ("no rewind", "one past the mismatch")
+
+
+def _count_verify_passes(engine) -> collections.Counter:
+    """Request id -> the verify passes that request drafted in, counted
+    as ``engine`` lands them (a read beside its own accounting)."""
+    passes = collections.Counter()
+    land = engine._land_verify
+
+    def counted(drafts, lens, *rest):
+        passes.update(engine._slots[s].request.id for s in drafts
+                      if lens[s] > 0)
+        return land(drafts, lens, *rest)
+
+    engine._land_verify = counted
+    return passes
+
+
+def spec_f32_gate(card: str, net32, prompts, layout: str) -> None:
+    """At f32 the spec-on engine's greedy ids are identical to the
+    spec-off engine's on the last ``SPEC_F32_REQUESTS`` prompts, each
+    drafting in at least ``SPEC_F32_MIN_ROUNDS`` verify passes; with the first
+    ``SPEC_SAMPLED`` of them sampled at temperature 1.0 the greedy ones
+    stay identical and the sampled ones draft; each planted fault
+    (:func:`_spec_fault`) must break the identity. A divergence is
+    printed with its f32 log-probability gap. Fatal on any failure."""
+    prompts = prompts[-SPEC_F32_REQUESTS:]
+    want = [r.tokens for r in spec_round(_spec_engine(net32, layout, k=0),
+                                         prompts, SPEC_GEN)[0]]
+    eng = _spec_engine(net32, layout)
+    passes = _count_verify_passes(eng)
+    greedy = spec_round(eng, prompts, SPEC_GEN)[0]
+    got = [r.tokens for r in greedy]
+    passes = [passes[r.id] for r in greedy]
+    st = dict(eng.stats)
+    from deeplearning4j_tpu_torch.serving import Request
+
+    rids = [eng.submit(Request(list(p), SPEC_GEN, temperature=1.0))
+            for p in prompts[:SPEC_SAMPLED]]
+    rids += [eng.submit(Request(list(p), SPEC_GEN))
+             for p in prompts[SPEC_SAMPLED:]]
+    res = eng.run()
+    mixed = [res[i] for i in rids]
+    sampled_drafted = [r.spec_drafted for r in mixed[:SPEC_SAMPLED]]
+    greedy_same = ([r.tokens for r in mixed[SPEC_SAMPLED:]]
+                   == want[SPEC_SAMPLED:])
+    caught = {}
+    for name in SPEC_FAULTS:
+        with _spec_fault(name):
+            bad = [r.tokens for r in spec_round(
+                _spec_engine(net32, layout), prompts, SPEC_GEN)[0]]
+        caught[name] = bad != want
+    log(f"spec decode [{layout}, float32]: {len(prompts)} x "
+        f"{SPEC_GEN} tokens, ids identical to spec-off {got == want} "
+        f"({st['spec_accepted']} / {st['spec_drafted']} accepted over "
+        f"{st['spec_rounds']} spec rounds; per request verify passes "
+        f"{passes}, drafted {[r.spec_drafted for r in greedy]}, accepted "
+        f"{[r.spec_accepted for r in greedy]}); mixed run ({SPEC_SAMPLED} "
+        f"sampled at temperature 1.0, {SPEC_GEN} tokens): greedy ids "
+        f"identical {greedy_same}, "
+        f"sampled requests drafted {sampled_drafted}; planted faults "
+        f"caught {caught} [{card}]")
+    if got != want:
+        near_tie_report(net32, prompts, got, want, "spec f32")
+    if not greedy_same:
+        near_tie_report(net32, prompts[SPEC_SAMPLED:],
+                        [r.tokens for r in mixed[SPEC_SAMPLED:]],
+                        want[SPEC_SAMPLED:], "spec f32 mixed")
+    if (got != want or not greedy_same or min(sampled_drafted) < 1
+            or st["spec_accepted"] < 1
+            or min(passes) < SPEC_F32_MIN_ROUNDS
+            or not all(caught.values())):
+        raise SystemExit(f"chip_smoke: spec decode [{layout}] f32 gate "
+                         f"failed: identical {got == want}, greedy in the "
+                         f"mixed run {greedy_same}, sampled drafted "
+                         f"{sampled_drafted}, verify passes per request "
+                         f"{passes} (each at least {SPEC_F32_MIN_ROUNDS}),"
+                         f" faults caught {caught}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def spec_phase(card: str) -> int:
+    """Phase 14. Returns K2's t > 1 launches of the paged spec engine's
+    runs (``paged_attention_verify``)."""
+    net = _serving_net("bfloat16")
+    prompts, hits = spec_workload(net)
+    log(f"spec decode workload: {len(prompts)} prompts of {SPEC_HEAD} + "
+        f"{SPEC_CONT} tokens, n-gram replay hits of the kept candidates "
+        f"{hits[0]}..{hits[-1]} of {SPEC_GEN}")
+    launches, bf16_ids = 0, {}
+    for layout in SPEC_LAYOUTS:
+        n, bf16_ids[layout] = spec_bench(card, net, prompts, layout)
+        launches += n
+    del net
+    torch.cuda.empty_cache()
+    net32 = _serving_net("float32")
+    for layout, (on_ids, off_ids) in bf16_ids.items():
+        near_tie_report(net32, prompts, on_ids, off_ids,
+                        f"spec bf16 [{layout}] spec-on vs spec-off")
+    for layout in SPEC_LAYOUTS:
+        spec_f32_gate(card, net32, prompts, layout)
+    del net32
+    torch.cuda.empty_cache()
+    return launches
+
+
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
 # bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
 # windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
@@ -3228,6 +3676,7 @@ def main() -> int:
     build_phase()
     kernels = kernel_phase()
     kernels += paged_chunk_kernel_phase()
+    kernels += paged_verify_kernel_phase()
     flash, k1_long_ms = flash_kernel_phase()
     kernels += flash
     conv = conv_kernel_phase()
@@ -3241,6 +3690,9 @@ def main() -> int:
     t13 = time.perf_counter()
     launches["paged_attention_chunk"] = prefix_phases(card)
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    launches["paged_attention_verify"] = spec_phase(card)
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
     k3_ms = {k["name"]: k["ms"] for k in conv}
     launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],

@@ -71,6 +71,28 @@ One scheduling round (``step()``):
    and their overshoot is dropped at landing. Ids are bit-identical to
    K stepped rounds, greedy and sampled: the window's sampler calls
    advance the generator exactly as K round replays do.
+   **Speculative decoding** (``spec_draft_len=K``, JAX's verify pass):
+   each slot's host-side n-gram table (serving/spec.py) proposes up to
+   K next tokens; a round where any slot drafted puts ONE batched
+   verify pass in front of the decode round. The pass feeds every row
+   ``[current token | draft]``, right-padded to the round's pow2 width
+   and masked, through one forward (dense: ``_stream_attend``'s masked
+   chunk continuation; paged: ``_paged_attend``, K2 at t = width + 1 on
+   the card), accepts each row's draft prefix on the device
+   (``stochastic_acceptance``: the equality rule on greedy rows, the
+   Leviathan rejection rule on sampled ones), draws the token after it
+   (``residual_sample``), rewinds each row's rejected tail
+   (``drop_newest_tokens``: dense, the rows rolled and copied back into
+   the pool; paged, the round's ``filled`` buffer moved back in place)
+   and writes the new current token; the decode round then chains onto
+   that state. On the card the pass is one captured graph per pow2
+   width (``compile_counts()["verify"]``) in the decode graphs' runner
+   and memory pool; both outputs are copied to the host behind one
+   event, so a speculative round still has one host sync and commits
+   ``accepted + 1 + decode_chunk`` tokens a slot. Greedy ids are
+   exactly the spec-off engine's; rounds with no draft run the plain
+   decode graph (``spec_fallback_rounds``); acceptance feeds
+   ``Scheduler.record_acceptance``, which steps the live K.
 4. **Land** — advance the host tables and free blocks that slid out of
    every window (paged), append tokens, and finish requests that reached
    ``max_new_tokens`` or their ``eos_id``. With ``async_rounds=True``
@@ -86,14 +108,16 @@ for the layout, each the number of graphs captured for that path: the
 decode round's is 1 once a round has run on the card, and the eager
 paths read 0; with ``fused_rounds`` it adds ``fused_decode``, the
 number of fused graphs (one per pow2 K dispatched, all of one engine's
-graphs in one memory pool); a dense prefix cache adds its
+graphs in one memory pool); with ``spec_draft_len`` it adds
+``verify``, the verify graphs (one per pow2 width dispatched); a dense
+prefix cache adds its
 ``prefix_fetch`` and ``prefix_store`` (0: eager), a paged one nothing.
 Admission (prefill, chunk continuations, the prefix movers, CoW
 copies) always runs eagerly. ``histograms`` holds the two the
 JAX engine's fused and async paths observe: ``serving_fused_rounds``
 (K at each fused dispatch) and ``serving_host_step_s`` (from the last
 round's token sync to the next dispatch). Knobs of the JAX engine that
-this port does not carry yet (speculative decoding, fault handling,
+this port does not carry yet (fault handling,
 queue bounds and shedding, tenancy, KV tiers, tensor parallelism,
 incremental delivery, the phase clock, tracing) raise
 ``NotImplementedError`` when set to anything but their default.
@@ -114,6 +138,8 @@ from deeplearning4j_tpu_torch.nn.cuda_graphs import GraphRunner
 from deeplearning4j_tpu_torch.nn.layers.attention import ATTENTION_BEANS
 from deeplearning4j_tpu_torch.nn.streaming import (
     clear_state_rows,
+    drop_newest_tokens,
+    scan_length_bucket,
     tree_map,
 )
 from deeplearning4j_tpu_torch.profiler.tracer import Histogram
@@ -123,20 +149,25 @@ from deeplearning4j_tpu_torch.serving.prefix_cache import (
     PrefixHit,
     RadixPrefixCache,
 )
-from deeplearning4j_tpu_torch.serving.sampler import sample_tokens
+from deeplearning4j_tpu_torch.serving.sampler import (
+    residual_sample,
+    sample_tokens,
+    stochastic_acceptance,
+)
 from deeplearning4j_tpu_torch.serving.scheduler import (
     GenerationResult,
     Request,
     Scheduler,
 )
+from deeplearning4j_tpu_torch.serving.spec import NgramDraftTable
 
 #: knobs of the JAX engine this port does not carry yet, with the only
 #: value it accepts for each (the JAX engine's default)
 _UNPORTED = {
     "max_queue": None, "shed_policy": "reject-new", "paranoid": False,
     "fault_plan": None, "max_retries": 2, "retry_backoff_rounds": 1,
-    "stall_threshold_s": None, "clock": None, "spec_draft_len": 0,
-    "draft_source": "ngram", "on_delta": None, "emit_deltas": False,
+    "stall_threshold_s": None, "clock": None,
+    "on_delta": None, "emit_deltas": False,
     "record_timing": True, "flight_recorder": 256, "tp": 1,
     "tenants": None, "kv_host_tier_bytes": 0, "kv_disk_tier_path": None,
     "kv_disk_tier_bytes": None, "tracer": None,
@@ -149,6 +180,9 @@ class _Slot:
     tokens: List[int]
     ttft_s: Optional[float] = None
     prefix_reused: int = 0
+    #: tokens drafted for / accepted by this request (speculative)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 @dataclasses.dataclass
@@ -188,7 +222,10 @@ class _InflightRound:
     not landed: what the landing needs to commit them. ``seq`` [B, T]
     and ``n_valid`` [B] (fused only) are host tensors, pinned copies
     that ``event`` (None on the CPU) completes; ``decode_tokens`` is
-    what the device wrote per slot (K * chunk for a fused window)."""
+    what the device wrote per slot (K * chunk for a fused window). A
+    speculative round also carries its ``drafts`` (slot -> draft) and ``verify`` = (lens
+    [B] host array, emitted [B, W+1], acc [B], host tensors behind the
+    same event), so the landing commits the verify pass first."""
 
     active: List[int]
     seq: torch.Tensor
@@ -196,10 +233,35 @@ class _InflightRound:
     event: Any
     t0: float
     decode_tokens: int
+    drafts: Optional[Dict[int, List[int]]] = None
+    verify: Optional[tuple] = None
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _pinned_empty(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+def _host_copies(bufs: Dict[tuple, torch.Tensor],
+                 outputs: Dict[str, torch.Tensor],
+                 alloc=_pinned_empty) -> Dict[str, torch.Tensor]:
+    """Copies of a dispatch's named outputs into the host buffers
+    ``bufs``, keyed by output name, shape and dtype (so two outputs of
+    one round never share a buffer: a verify pass's ``emitted`` and a
+    decode chunk's ``seq`` may have one shape), made by ``alloc`` on
+    first use (pinned memory) and enqueued without a sync."""
+    outs = {}
+    for name, t in outputs.items():
+        key = (name, tuple(t.shape), t.dtype)
+        buf = bufs.get(key)
+        if buf is None:
+            buf = bufs[key] = alloc(t)
+        buf.copy_(t, non_blocking=True)
+        outs[name] = buf
+    return outs
 
 
 def _one_hot(tok: torch.Tensor, vocab: int, dtype) -> torch.Tensor:
@@ -229,7 +291,13 @@ class DecodeEngine:
     ``prefill_chunk`` (0: blocking admission) and ``admission_policy``,
     ``prefill_budget``, ``adaptive_prefill``, ``pressure_high`` and
     ``pressure_low`` pace chunked admission (``Scheduler``; module
-    docstring)."""
+    docstring). ``spec_draft_len`` (0: off) is the most tokens a slot
+    drafts a round for the verify pass, ``draft_source`` where drafts
+    come from (``DRAFT_SOURCES``)."""
+
+    #: where speculative drafts come from: prompt-lookup n-gram tables
+    #: (serving/spec.py), the only source the JAX engine has
+    DRAFT_SOURCES = ("ngram",)
 
     def __init__(self, net, n_slots: int = 8, decode_chunk: int = 8,
                  min_prompt_bucket: int = 8, seed: int = 0,
@@ -242,6 +310,7 @@ class DecodeEngine:
                  adaptive_prefill: bool = False,
                  pressure_high: Optional[int] = None,
                  pressure_low: Optional[int] = None,
+                 spec_draft_len: int = 0, draft_source: str = "ngram",
                  **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -257,6 +326,12 @@ class DecodeEngine:
             raise ValueError(f"decode_chunk {decode_chunk} < 1")
         if fused_rounds < 0:
             raise ValueError(f"fused_rounds {fused_rounds} < 0")
+        if spec_draft_len < 0:
+            raise ValueError(f"spec_draft_len {spec_draft_len} < 0")
+        if draft_source not in self.DRAFT_SOURCES:
+            raise ValueError(
+                f"draft_source {draft_source!r}: expected one of "
+                f"{self.DRAFT_SOURCES}")
         self.device = resolve_device(net.device)
         net.init()
         self.net = net
@@ -298,13 +373,22 @@ class DecodeEngine:
         if use_flash_paged is not None:
             for bean in attn:
                 bean.use_flash_paged = use_flash_paged
+        self.spec_draft_len = int(spec_draft_len)
+        if self.spec_draft_len >= self.window:
+            raise ValueError(
+                f"spec_draft_len {spec_draft_len} must stay below the "
+                f"cache window ({self.window}): a verify chunk carries "
+                "the draft plus the current token, and a rejected tail "
+                "can only be rewound while nothing slid out of the "
+                "window")
         self.prefill_chunk = int(prefill_chunk)
         self.adaptive_prefill = bool(adaptive_prefill)
         self.scheduler = Scheduler(
             self.window, min_bucket=min_prompt_bucket,
             prefill_chunk=self.prefill_chunk,
             prefill_budget=prefill_budget, policy=admission_policy,
-            pressure_high=pressure_high, pressure_low=pressure_low)
+            pressure_high=pressure_high, pressure_low=pressure_low,
+            spec_draft_len=self.spec_draft_len)
         self.paged_kv = bool(paged_kv)
         self.block_tokens = int(block_tokens)
         self.kv_blocks = None
@@ -322,11 +406,15 @@ class DecodeEngine:
         elif prefix_cache_rows:
             self.prefix_cache = RadixPrefixCache(prefix_cache_rows)
         self._kv_tabs: List[Optional[BlockTable]] = [None] * self.n_slots
+        #: per-slot n-gram draft tables (None: speculation off)
+        self.spec: Optional[NgramDraftTable] = (
+            NgramDraftTable() if self.spec_draft_len else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        #: the decode round's captured graph and the fused windows' (one
-        #: per pow2 K), in one memory pool (None: eager rounds, a
-        #: private switch for checks on the card)
+        #: the decode round's captured graph, the fused windows' (one
+        #: per pow2 K) and the verify passes' (one per pow2 width), in
+        #: one memory pool (None: eager rounds, a private switch for
+        #: checks on the card)
         self._graphs: Optional[GraphRunner] = GraphRunner([self._gen])
         self._graphs_version = net.params_version
         self._slots: List[Optional[_Slot]] = [None] * self.n_slots
@@ -347,8 +435,10 @@ class DecodeEngine:
         self._requeue: List[Tuple[int, Request]] = []
         #: the dispatched round not landed yet (async rounds)
         self._inflight: Optional[_InflightRound] = None
-        #: pinned host buffers the rounds' tokens are copied into, by
-        #: shape; reused only after the landing waited on their event
+        #: pinned host buffers the rounds' outputs are copied into, by
+        #: output name, shape and dtype (two outputs of one round never
+        #: share one); reused only after the landing waited on their
+        #: event
         self._pinned: Dict[tuple, torch.Tensor] = {}
         #: wall stamp of the last token sync (serving_host_step_s)
         self._last_sync_end: Optional[float] = None
@@ -363,14 +453,17 @@ class DecodeEngine:
             "chunks_scheduled": 0, "blocks_free": self.kv_blocks or 0,
             "blocks_used": 0, "cow_copies": 0, "prefix_blocks_spliced": 0,
             "frag_tokens": 0, "preempted": 0, "paged_admit_deferred": 0,
+            "spec_rounds": 0, "spec_fallback_rounds": 0,
+            "spec_drafted": 0, "spec_accepted": 0,
         }
 
     def _size_block_pool(self, kv_blocks: Optional[int],
                          prefix_rows: int) -> None:
-        """Block pool sizing (the JAX engine's, with no speculative
-        writes): by default the dense layout's device bytes, ``n_slots``
-        window rows plus the dense prefix pool's ``prefix_rows``, with
-        per-slot append slack."""
+        """Block pool sizing (the JAX engine's): by default the dense
+        layout's device bytes, ``n_slots`` window rows plus the dense
+        prefix pool's ``prefix_rows``, with per-slot append slack for
+        one dispatch's writes (a round's verify pass and decode chunk,
+        or a fused window)."""
         bt = self.block_tokens
         if bt < 1 or (bt & (bt - 1)):
             raise ValueError(f"block_tokens {bt} must be a power of two")
@@ -378,9 +471,11 @@ class DecodeEngine:
             raise ValueError(
                 f"block_tokens {bt} exceeds the cache window "
                 f"({self.window}) — a block must fit inside it")
-        # a fused window writes K rounds of decode tokens before the host
-        # sees any: the ring covers the widest single dispatch
-        round_write = max(self.decode_chunk + 1,
+        # a speculative round writes its verify chunk (the draft and the
+        # current token) and then its decode chunk, a fused window K
+        # rounds of decode tokens, before the host sees any: the ring
+        # covers the widest single dispatch
+        round_write = max(self.decode_chunk + self.spec_draft_len + 1,
                           self.fused_rounds * self.decode_chunk)
         # ring width: the window, plus the widest single write (a whole
         # window at admission) plus one dispatch's decode writes — a
@@ -454,7 +549,9 @@ class DecodeEngine:
         self._terminal[req.id] = GenerationResult(
             id=req.id, tokens=list(state.tokens), finish_reason=reason,
             prompt_len=len(req.prompt),
-            prefix_tokens_reused=state.prefix_reused, ttft_s=state.ttft_s)
+            prefix_tokens_reused=state.prefix_reused, ttft_s=state.ttft_s,
+            spec_drafted=state.spec_drafted,
+            spec_accepted=state.spec_accepted)
         self.stats["requests_finished"] += 1
         self._submit_t.pop(req.id, None)
         self.scheduler.release(req.id)
@@ -490,6 +587,8 @@ class DecodeEngine:
         self._slots[slot] = None
         self._temps[slot] = 0.0
         self._top_ks[slot] = self.vocab
+        if self.spec is not None:
+            self.spec.drop(slot)
         self.stats["evicted"] += 1
 
     # -- paged block-pool plumbing -------------------------------------
@@ -536,6 +635,8 @@ class DecodeEngine:
         self._slots[slot] = None
         self._temps[slot] = 0.0
         self._top_ks[slot] = self.vocab
+        if self.spec is not None:
+            self.spec.drop(slot)
         self._requeue.append((self._round + 1, state.request))
 
     def _drain_requeue(self) -> None:
@@ -865,6 +966,9 @@ class DecodeEngine:
         self._slots[slot] = state
         self._temps[slot] = request.temperature
         self._top_ks[slot] = request.top_k or self.vocab
+        if self.spec is not None:
+            self.spec.seed(slot, [int(t) for t in request.prompt]
+                           + state.tokens)
         self.stats["tokens_generated"] += 1
         self.stats["admitted"] += 1
         if self._finished(state):
@@ -915,6 +1019,58 @@ class DecodeEngine:
                                 torch.clamp(ops["remaining"], 0, t))
         return {"seq": seq, "n_valid": n_valid.to(torch.int32)}
 
+    def _verify_body(self, ops, width: int) -> Dict[str, torch.Tensor]:
+        """One batched verify pass, JAX's ``verify``: every row's
+        ``[current token | draft]`` (``ops["draft"]`` [B, width] int32,
+        right-padded; ``ops["lens"]`` [B] its valid lengths) through ONE
+        forward masked to ``pos <= lens`` (each row's pad stays out of
+        attention and out of the cache), the accepted draft prefix
+        (``stochastic_acceptance`` on the first ``width`` positions), the
+        token after it (``residual_sample`` at position ``acc``: the
+        model's own token at the first divergence, or one more past a
+        fully accepted draft), and the rejected tails rewound
+        (``drop_newest_tokens(rnn, lens - acc)``). The state is written
+        back IN PLACE where the decode round reads it: the dense pool's
+        rows, or the round's paged ``filled`` buffer (the pool's K/V
+        were scattered in place; a rewound tail stays there, masked and
+        overwritten by the next append); the new current token into
+        ``ops["toks"]``. Returns {"emitted": [B, width + 1] int32 (the
+        accepted draft, then the new token, then zeros), "acc": [B]
+        int32}. No step reads a value back to the host: on the card this
+        is the graph of ``("verify", width)``."""
+        rnn, toks = ops["rnn"], ops["toks"]
+        draft, lens = ops["draft"], ops["lens"]
+        temps, top_ks = ops["temps"], ops["top_ks"]
+        seq = torch.cat([toks[:, None], draft], dim=1)       # [B, w + 1]
+        b, t = seq.shape
+        x = _one_hot(seq.reshape(-1), self.vocab, self.net._dtype)
+        x = x.reshape(b, t, self.vocab).transpose(1, 2)      # [B, V, w + 1]
+        pos = torch.arange(t, device=seq.device)
+        mask = (pos[None, :] <= lens[:, None]).to(torch.float32)
+        out, new_rnn = self._forward(x, mask, rnn)           # [B, V, w + 1]
+        acc = stochastic_acceptance(out.transpose(1, 2)[:, :-1], draft,
+                                    lens, temps, top_ks, self._gen)
+        probs = torch.gather(
+            out, 2, acc.long()[:, None, None].expand(b, self.vocab, 1)
+        )[:, :, 0]
+        rej_tok = torch.gather(
+            draft, 1, torch.clamp(acc, max=width - 1).long()[:, None])[:, 0]
+        bonus = residual_sample(probs, rej_tok, acc < lens, temps, top_ks,
+                                self._gen)
+        new_rnn = drop_newest_tokens(new_rnn, lens - acc)
+        if self.paged_kv:
+            for name, st in rnn.items():
+                st["filled"].copy_(new_rnn[name]["filled"])
+        else:
+            tree_map(lambda dst, src: dst.copy_(src), rnn, new_rnn)
+        dpad = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+        emitted = torch.where(
+            pos[None, :] < acc[:, None], dpad,
+            torch.where(pos[None, :] == acc[:, None], bonus[:, None],
+                        torch.zeros_like(dpad)))
+        toks.copy_(bonus)
+        return {"emitted": emitted, "acc": acc}
+
     def _run_graph(self, key, body, ops) -> Dict[str, torch.Tensor]:
         """``body(ops)``: a replay of the graph of ``key`` on the card
         (captured at its first dispatch, and again after a move of the
@@ -926,16 +1082,17 @@ class DecodeEngine:
             self._graphs_version = self.net.params_version
         return self._graphs.run(key, body, ops)
 
-    def _plan_fused(self, active: List[int]) -> int:
+    def _plan_fused(self, active: List[int], spec_round: bool) -> int:
         """Rounds to fuse into this dispatch (JAX's ``_plan_fused``): 0
         = a stepped round; K >= 1 = one K-round window, only when no
         host decision is pending (no queued arrival, no admission
-        part-way through its chunks, no requeued victim). K is the pow2
-        bucket covering the widest live
+        part-way through its chunks, no requeued victim, no draft this
+        round: a verify pass needs its per-round host lookup). K is the
+        pow2 bucket covering the widest live
         request's remaining rounds, capped at ``fused_rounds``, so at
         most log2(fused_rounds) + 1 windows are ever captured."""
-        if (not self.fused_rounds or self._pending or self._requeue
-                or self.scheduler.decision_pending()):
+        if (not self.fused_rounds or spec_round or self._pending
+                or self._requeue or self.scheduler.decision_pending()):
             return 0
         max_rem = max(self._slots[s].request.max_new_tokens
                       - len(self._slots[s].tokens) for s in active)
@@ -945,42 +1102,123 @@ class DecodeEngine:
             k *= 2
         return k
 
-    def _to_host(self, tensors) -> Tuple[List[torch.Tensor], Any]:
-        """Host copies of a dispatch's outputs and the event that
-        completes them: on the card, copies into pinned buffers enqueued
-        behind the round (reused only after the landing waited on the
-        event); on the CPU the tensors themselves and no event."""
+    def _to_host(self, outputs: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Host copies of a dispatch's named outputs: on the card,
+        copies into the engine's pinned buffers (:func:`_host_copies`)
+        enqueued behind the dispatch, completed by the round's
+        :meth:`_round_event`; on the CPU the tensors themselves. A
+        graph's outputs live until the next replay of any graph of the
+        runner, so the copy is enqueued before the next dispatch."""
         if self.device.type != "cuda":
-            return list(tensors), None
-        outs = []
-        for t in tensors:
-            key = (tuple(t.shape), t.dtype)
-            buf = self._pinned.get(key)
-            if buf is None:
-                buf = self._pinned[key] = torch.empty(
-                    t.shape, dtype=t.dtype, pin_memory=True)
-            buf.copy_(t, non_blocking=True)
-            outs.append(buf)
+            return dict(outputs)
+        return _host_copies(self._pinned, outputs)
+
+    def _round_event(self):
+        """The event that completes every host copy enqueued for the
+        round (the round's one host sync waits on it); None on the
+        CPU."""
+        if self.device.type != "cuda":
+            return None
         event = torch.cuda.Event()
         event.record()
-        return outs, event
+        return event
+
+    # -- speculative draft and verify ----------------------------------
+    def _plan_drafts(self, active: List[int]) -> Dict[int, List[int]]:
+        """Each slot's draft for this round from its n-gram table (JAX's
+        ``_plan_drafts``; sampled slots draft too), capped at the live K
+        (``Scheduler.draft_len``), at the tokens the round's decode
+        chunk will not already deliver, and at the slot's window
+        headroom (a rejected tail can only be rewound while nothing
+        slid out of the window, so a slot near the brim drafts less,
+        down to nothing)."""
+        k = self.scheduler.draft_len
+        drafts: Dict[int, List[int]] = {}
+        for slot in active:
+            state = self._slots[slot]
+            req = state.request
+            filled = min(len(req.prompt) + len(state.tokens) - 1,
+                         self.window)
+            cap = min(k,
+                      req.max_new_tokens - len(state.tokens)
+                      - self.decode_chunk,
+                      self.window - filled - 1)
+            drafts[slot] = self.spec.draft(slot, cap) if cap > 0 else []
+        return drafts
+
+    def _dispatch_verify(self, drafts: Dict[int, List[int]], ops):
+        """Dispatch the round's verify pass (JAX's ``_dispatch_verify``):
+        the drafts padded to the round's pow2 width (at most the window
+        less one) in round buffers, one replay of the width's graph
+        (:meth:`_verify_body`), its outputs' host copies enqueued.
+        Nothing syncs: the decode round chains onto the state the pass
+        leaves, and the round's event covers both. Returns (lens [B]
+        host array, host outputs)."""
+        max_len = max(len(d) for d in drafts.values())
+        width = min(scan_length_bucket(max_len, minimum=1),
+                    self.window - 1)
+        draft = np.zeros((self.n_slots, width), np.int32)
+        lens = np.zeros(self.n_slots, np.int32)
+        for slot, toks in drafts.items():
+            toks = list(toks)[:width]
+            if toks:
+                draft[slot, :len(toks)] = toks
+            lens[slot] = len(toks)
+        vops = dict(ops, draft=self._round_buffer(f"draft{width}", draft),
+                    lens=self._round_buffer("lens", lens))
+        out = self._run_graph(
+            ("verify", width),
+            lambda o, _w=width: self._verify_body(o, _w), vops)
+        return lens, self._to_host({"verify_emitted": out["emitted"],
+                                    "verify_acc": out["acc"]})
+
+    def _land_verify(self, drafts: Dict[int, List[int]], lens,
+                     emitted: np.ndarray, acc: np.ndarray) -> np.ndarray:
+        """The verify pass's accounting once the round's sync has landed
+        it (JAX's ``_land_verify``): the cumulative and per-slot
+        counters, and the K-adaptation feedback. Returns each slot's count
+        of speculative tokens, ``acc + 1``."""
+        drafted = int(sum(int(lens[s]) for s in drafts))
+        accepted = int(sum(int(acc[s]) for s in drafts))
+        self.stats["spec_rounds"] += 1
+        self.stats["spec_drafted"] += drafted
+        self.stats["spec_accepted"] += accepted
+        for slot in drafts:
+            state = self._slots[slot]
+            state.spec_drafted += int(lens[slot])
+            state.spec_accepted += int(acc[slot])
+        self.scheduler.record_acceptance(drafted, accepted)
+        return acc + 1
 
     def _decode_round(self, active: List[int]) -> None:
-        """Plan, reserve (paged) and dispatch one stepped round or fused
-        window; land it now, or at the next ``step()`` (async)."""
-        fuse_k = self._plan_fused(active)
+        """Plan the drafts (speculative), plan, reserve (paged) and
+        dispatch one stepped round (behind a verify pass when a slot
+        drafted) or fused window; land it now, or at the next
+        ``step()`` (async)."""
+        drafts = (self._plan_drafts(active) if self.spec is not None
+                  else None)
+        spec_round = drafts is not None and any(drafts.values())
+        fuse_k = self._plan_fused(active, spec_round)
         n_tok = max(fuse_k, 1) * self.decode_chunk
         if self.paged_kv:
             ensured: set = set()
             for slot in list(active):
                 if self._slots[slot] is None:
                     continue   # preempted by an earlier reservation
-                if self._ensure_tab(self._kv_tabs[slot], n_tok,
+                # the verify pass writes the draft and the current token
+                # before the decode chunk's appends
+                need = n_tok + (len(drafts.get(slot, ())) + 1
+                                if spec_round else 0)
+                if self._ensure_tab(self._kv_tabs[slot], need,
                                     protect=ensured | {slot}):
                     ensured.add(slot)
                 else:
                     self._preempt_slot(slot)
             active = [s for s in active if self._slots[s] is not None]
+            if drafts is not None:
+                drafts = {s: d for s, d in drafts.items() if s in active}
+                spec_round = any(drafts.values())
             if fuse_k and self._requeue:
                 # a preemption is a scheduling decision: step instead
                 # (the extra reserved blocks serve the next rounds)
@@ -996,6 +1234,14 @@ class DecodeEngine:
         ops = {"rnn": rnn, "toks": self._toks,
                "temps": self._round_buffer("temps", self._temps),
                "top_ks": self._round_buffer("top_ks", self._top_ks)}
+        verify = None
+        if spec_round:
+            # the verify pass first; the decode round below chains onto
+            # the state it leaves (the pool, ``filled``, the tokens)
+            verify = self._dispatch_verify(drafts, ops)
+        elif self.spec is not None:
+            # no slot drafted: the plain decode graph alone
+            self.stats["spec_fallback_rounds"] += 1
         if fuse_k:
             eos_ids = np.full(self.n_slots, -1, np.int64)
             remaining = np.zeros(self.n_slots, np.int64)
@@ -1010,16 +1256,20 @@ class DecodeEngine:
             out = self._run_graph(
                 ("fused", fuse_k),
                 lambda o, _k=fuse_k: self._fused_body(o, _k), ops)
-            (seq, n_valid), event = self._to_host(
-                (out["seq"], out["n_valid"]))
+            host = self._to_host({"seq": out["seq"],
+                                  "n_valid": out["n_valid"]})
             self.histograms["serving_fused_rounds"].observe(fuse_k)
         else:
             out = self._run_graph("decode", self._round_body, ops)
-            (seq,), event = self._to_host((out["seq"],))
-            n_valid = None
-        inf = _InflightRound(active=list(active), seq=seq,
-                             n_valid=n_valid, event=event, t0=t0,
-                             decode_tokens=n_tok)
+            host = self._to_host({"seq": out["seq"]})
+        inf = _InflightRound(
+            active=list(active), seq=host["seq"],
+            n_valid=host.get("n_valid"), event=self._round_event(), t0=t0,
+            decode_tokens=n_tok,
+            drafts=drafts if spec_round else None,
+            verify=(None if verify is None else
+                    (verify[0], verify[1]["verify_emitted"],
+                     verify[1]["verify_acc"])))
         if self.async_rounds:
             self._inflight = inf
         else:
@@ -1027,32 +1277,54 @@ class DecodeEngine:
 
     def _land_round(self, inf: _InflightRound) -> None:
         """Commit a dispatched round (JAX's ``_land_round``): wait for
-        its tokens (the round's one host sync), advance the host tables
-        by the tokens the device wrote and free blocks that slid out of
-        every window (paged), append each slot's committed tokens (a
-        fused window's ``n_valid`` prefix; overshoot past it is dropped)
-        and finish requests."""
+        its tokens (the round's one host sync), land a verify pass's
+        accounting first (:meth:`_land_verify`), advance the host tables
+        by the tokens the device wrote (the decode chunk, plus a verify
+        pass's ``acc + 1``) and free blocks that slid out of every
+        window (paged), append each slot's committed tokens (a verify
+        pass's accepted draft and new token, then the decode chunk; a
+        fused window's ``n_valid`` prefix; overshoot past it is
+        dropped), finish requests and extend the n-gram tables of those
+        that go on."""
         if inf.event is not None:
             inf.event.synchronize()
         seq = inf.seq.numpy()
         n_valid = None if inf.n_valid is None else inf.n_valid.numpy()
         self._last_sync_end = time.perf_counter()
+        v_emitted = v_n = None
+        if inf.verify is not None:
+            lens, v_emitted, v_acc = inf.verify
+            v_emitted = v_emitted.numpy()
+            v_n = self._land_verify(inf.drafts, lens, v_emitted,
+                                    v_acc.numpy())
         emitted = 0
         for slot in inf.active:
             if self.paged_kv:
                 tab = self._kv_tabs[slot]
-                tab.length += inf.decode_tokens
+                tab.length += inf.decode_tokens + (
+                    0 if v_n is None else int(v_n[slot]))
                 self._free_expired_blocks(tab)
             state = self._slots[slot]
-            row = (seq[slot] if n_valid is None
-                   else seq[slot][:int(n_valid[slot])])
+            if v_n is not None:
+                row = (list(v_emitted[slot][:int(v_n[slot])])
+                       + list(seq[slot]))
+            elif n_valid is not None:
+                row = seq[slot][:int(n_valid[slot])]
+            else:
+                row = seq[slot]
+            appended = []
             for t in row:
                 state.tokens.append(int(t))
+                appended.append(int(t))
                 emitted += 1
                 if self._finished(state):
                     break
             if self._finished(state):
                 self._finish(state, slot)
+            elif self.spec is not None:
+                # committed ids extend the slot's n-gram context (a
+                # finished slot dropped its table at eviction)
+                self.spec.extend(slot, appended)
         self.stats["tokens_generated"] += emitted
         self.stats["decode_time_s"] += self._last_sync_end - inf.t0
         self.stats["chunks"] += 1
@@ -1065,15 +1337,24 @@ class DecodeEngine:
         ``decode`` is 1 once a round has run on the card and stays 1 (the
         JAX engine's no-retrace guarantee); ``fused_decode`` (present
         only with ``fused_rounds``) counts the fused windows, one per
-        pow2 K dispatched; the paths that run eagerly (prefill, chunk
+        pow2 K dispatched; ``verify`` (present only with
+        ``spec_draft_len``) the verify passes, one per pow2 draft width
+        dispatched; the paths that run eagerly (prefill, chunk
         continuations, admission, the paged movers, the dense prefix
         cache's ``prefix_fetch`` and ``prefix_store``) and every path on
         the CPU read 0. A paged prefix cache adds no key."""
         keys = self._graphs.keys() if self._graphs else []
+
+        def n(kind):
+            return sum(1 for k in keys if isinstance(k, tuple)
+                       and k[0] == kind)
+
         counts = {"prefill": 0, "chunk_prefill": 0, "admit": 0,
                   "decode": keys.count("decode")}
         if self.fused_rounds:
-            counts["fused_decode"] = len(keys) - counts["decode"]
+            counts["fused_decode"] = n("fused")
+        if self.spec_draft_len:
+            counts["verify"] = n("verify")
         if self.paged_kv:
             counts.update(paged_scatter=0, paged_tok=0, kv_import=0,
                           kv_gather=0, paged_copy=0, paged_zero=0)
@@ -1084,13 +1365,20 @@ class DecodeEngine:
     def _advance_pending(self) -> None:
         """The round's chunk block (JAX ``step()``'s): adapt the budget
         (``adaptive_prefill``), grant chunks oldest first
-        (``Scheduler.plan_chunks``), run them (an admission the block
-        pool cannot hold is deferred to the next round), and complete
-        the admissions whose suffix is done."""
+        (``Scheduler.plan_chunks``; a verify pass, the live K and the
+        current token, bills the same budget while a slot is live), run
+        them (an admission the block pool cannot hold is deferred to
+        the next round), and complete the admissions whose suffix is
+        done."""
         if self.adaptive_prefill:
             self.scheduler.adapt_budget()
+        verify_reserve = 0
+        if self.spec is not None and any(s is not None
+                                         for s in self._slots):
+            verify_reserve = self.scheduler.draft_len + 1
         grants = self.scheduler.plan_chunks(
-            [p.remaining for p in self._pending])
+            [p.remaining for p in self._pending],
+            verify_tokens=verify_reserve)
         targets = [self._pending[i] for i in grants]
         deferred: set = set()
         for p in targets:

@@ -1,7 +1,7 @@
 """Where a decode round's time goes in the PyTorch port's serving path.
 
     python3 scripts/torch_serving_profile.py [--layout paged|dense] [--eager]
-        [--fused-rounds K]
+        [--fused-rounds K] [--spec-draft-len K]
 
 Needs a CUDA card. Builds the serving configuration ``chip_smoke.py``
 drives (the width-1024, 8-block transformer flagship at bf16 compute
@@ -13,7 +13,13 @@ one replay of the round's captured CUDA graph, or with ``--eager`` the
 round body run eagerly (the engine's private switch). With
 ``--fused-rounds K`` every round is a fused window of K rounds (the
 requests ask for 4 windows' tokens), and the profiled round is one
-replay of the K-round graph. Prints the
+replay of the K-round graph. With ``--spec-draft-len K`` the engine
+drafts up to K tokens a slot, the prompts are ``chip_smoke.py`` phase
+14's (``spec_workload``: the model's own continuations, the 8 most
+predictable), and the profiled round is a verify pass and a decode
+round: the verify pass's device time (CUDA events around its dispatch)
+and the rest of the round are printed apart, with the tokens the round
+committed. Prints the
 wall time per decode step (and, from one unprofiled round before the
 profiled one, the wall per step and the slots' tokens/s without the
 profiler), the device's busy and idle shares of that wall
@@ -89,10 +95,14 @@ def main() -> int:
                     help="run the decode round eagerly, not as its graph")
     ap.add_argument("--fused-rounds", type=int, default=0,
                     help="fuse K rounds into each dispatch")
+    ap.add_argument("--spec-draft-len", type=int, default=0,
+                    help="speculative decoding: draft up to K tokens")
     args = ap.parse_args()
     # the admission's token, then 4 dispatches: one with the
-    # admissions, one counting syncs, one unprofiled, one profiled
-    n_gen = 1 + DECODE_CHUNK * max(args.fused_rounds, 1) * 4
+    # admissions, one counting syncs, one unprofiled, one profiled (a
+    # speculative round may commit K + 1 more tokens a slot)
+    n_gen = 1 + (DECODE_CHUNK * max(args.fused_rounds, 1)
+                 + args.spec_draft_len + bool(args.spec_draft_len)) * 4
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
@@ -112,12 +122,33 @@ def main() -> int:
     eng = DecodeEngine(net, paged_kv=args.layout == "paged",
                        block_tokens=16, n_slots=N_SLOTS,
                        decode_chunk=DECODE_CHUNK,
-                       fused_rounds=args.fused_rounds)
+                       fused_rounds=args.fused_rounds,
+                       spec_draft_len=args.spec_draft_len)
     if args.eager:
         eng._graphs = None
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
-               for _ in range(N_SLOTS)]
+    if args.spec_draft_len:
+        import chip_smoke
+
+        prompts = chip_smoke.spec_workload(net)[0][:N_SLOTS]
+    else:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+                   for _ in range(N_SLOTS)]
+    # device time of each verify dispatch: CUDA events around it
+    marks = []
+    dispatch_verify = eng._dispatch_verify
+
+    def timed_verify(drafts, ops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = dispatch_verify(drafts, ops)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    if args.spec_draft_len:
+        eng._dispatch_verify = timed_verify
     eng.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))   # warm-up
     eng.run()
     for p in prompts:
@@ -126,20 +157,31 @@ def main() -> int:
     syncs = syncs_per_step(eng)
     torch.cuda.synchronize()
     steps0 = eng.stats["decode_steps"]
+    tokens0 = eng.stats["tokens_generated"]
     t0 = time.perf_counter()
     eng.step()          # one unprofiled round
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     plain_steps = eng.stats["decode_steps"] - steps0
+    plain_tokens = eng.stats["tokens_generated"] - tokens0
     steps0 = eng.stats["decode_steps"]
+    tokens0 = eng.stats["tokens_generated"]
+    spec0 = eng.stats["spec_rounds"]
     launches0 = paged_attention.launches
+    marks.clear()
+    round_start = torch.cuda.Event(enable_timing=True)
+    round_end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        round_start.record()
         eng.step()      # one round: one replay of the captured graph
+        round_end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = eng.stats["decode_steps"] - steps0
+    tokens = eng.stats["tokens_generated"] - tokens0
+    verify_ms = sum(a.elapsed_time(b) for a, b in marks)
     kernels = {}
     n_kernels = n_paged = 0
     for ev in prof.events():
@@ -159,7 +201,12 @@ def main() -> int:
         "compile_counts": eng.compile_counts(), "decode_steps": steps,
         "ms_per_step": wall / steps * 1e3,
         "unprofiled_ms_per_step": plain_wall / plain_steps * 1e3,
-        "unprofiled_tokens_per_s": N_SLOTS * plain_steps / plain_wall,
+        "unprofiled_tokens_per_s": plain_tokens / plain_wall,
+        "spec_draft_len": args.spec_draft_len,
+        "round_tokens": tokens,
+        "verify_passes": eng.stats["spec_rounds"] - spec0,
+        "verify_ms": verify_ms,
+        "round_event_ms": round_start.elapsed_time(round_end),
         "device_busy_share": busy_s / wall,
         "device_idle_share": 1.0 - busy_s / wall,
         "paged_attention_share_of_busy": paged_s / busy_s if busy_s else 0,
@@ -183,6 +230,13 @@ def main() -> int:
           f"{syncs:.3f} host syncs per step; paged_attention wrapper calls "
           f"{summary['paged_attention_calls']} (each launches 2 CUDA "
           f"kernels: {n_paged} paged_attention kernels profiled)")
+    if args.spec_draft_len:
+        print(f"[{card}] the profiled round committed {tokens} tokens "
+              f"with {summary['verify_passes']} verify pass(es): verify "
+              f"{verify_ms:.3f} ms of the round's "
+              f"{summary['round_event_ms']:.3f} ms between CUDA events "
+              f"(acceptance so far {eng.stats['spec_accepted']} / "
+              f"{eng.stats['spec_drafted']})")
     for name, ms in summary["top_kernels_ms"]:
         print(f"  {ms:9.3f} ms  {name}")
     print(json.dumps(summary))

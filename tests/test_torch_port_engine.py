@@ -130,7 +130,8 @@ def test_eos_and_sampling(tmp_path):
 
 #: knobs this test once listed as unported that the port now carries
 #: (chunked prefill and the prefix caches): they must be accepted
-PORTED_KNOBS = ("prefix_cache_rows", "prefill_chunk", "adaptive_prefill")
+PORTED_KNOBS = ("prefix_cache_rows", "prefill_chunk", "adaptive_prefill",
+                "spec_draft_len")
 
 
 @pytest.mark.parametrize("knob,value", [
