@@ -168,6 +168,27 @@ JAX or of the JAX package. Phases, each fatal on failure:
    rewind; acceptance one past the first mismatch) must each break the
    identity. Each bf16 request whose ids differ from spec-off is
    reported with its first divergence and the f32 log-prob gap there.
+15. fault handling — the serving net at f32, 8 slots, chunk 32,
+   ``prefix_cache_rows=4, prefill_chunk=256``, ``paranoid``,
+   ``max_retries=3``, a ``ManualClock``; 12 requests of 64 new tokens,
+   each prompt a shared 96-token head and a 32-token tail. (a) Both
+   layouts: the fault-free engine with ``paranoid`` off and on (ids
+   identical; tokens/s of both; the health check's device ms a replay
+   against a round's wall), then a ``FaultPlan`` of a NaN'd slot, a
+   stall, a failed admission and a corrupted trie entry (each kind must
+   land), a snapshot after 4 rounds through JSON, a fresh engine
+   restored from it (its seconds) and the faulted engine both run to
+   the end: every request not ended ``fault`` has the fault-free ids,
+   at least one victim, one ``decode`` and one ``health_check`` graph
+   an engine and none captured on a repeat, no poisoned block left;
+   paged, K2 launched N_LAYERS times per decode step; a health verdict
+   forced to healthy and a restore that re-prefills the current token
+   must each make a request diverge. (b) A paged async engine: a
+   request cancelled while its round is in flight, its neighbours' ids
+   identical, its own a prefix; the greedy run's graph replays move
+   the generator state ``snapshot`` reads. (c) A paged snapshot with 2
+   sampled requests running, restored twice: identical ids. The
+   kernels line does not change.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -3448,6 +3469,383 @@ def spec_phase(card: str) -> int:
     return launches
 
 
+# Phase 15: fault handling. The serving net of phase 6 at f32, 8 slots,
+# chunk 32, prefix_cache_rows 4, prefill_chunk 256, paranoid, max_retries
+# 3, a ManualClock; 12 requests of 64 new tokens, each prompt a shared
+# 96-token head and its own 32-token tail, so later admissions hit the
+# trie. The plan's rounds follow this workload's schedule, the same on
+# both layouts (requests 0-3 are admitted in round 0 and finish in round
+# 1, 4-7 are admitted in round 1, 8-11 warm in round 2): a NaN in slot 0
+# and a stall in round 1, a failed admission and a corrupted trie entry
+# in round 2. The phase asserts that each kind landed; the engine takes
+# its snapshot after FAULT_SNAPSHOT_AFTER rounds.
+FAULT_HEAD, FAULT_TAIL, FAULT_REQUESTS, FAULT_GEN = 96, 32, 12, 64
+FAULT_ROWS, FAULT_CHUNK, FAULT_RETRIES, FAULT_STALL_S = 4, 256, 3, 1.0
+FAULT_PLAN = ((1, "nan", {"slot": 0}), (1, "stall", {"seconds": 2.0}),
+              (2, "admit_fail", {}), (2, "cache_corrupt", {}))
+FAULT_SNAPSHOT_AFTER = 4
+FAULT_LAYOUTS = {"dense": {},
+                 "paged": dict(paged_kv=True, block_tokens=BLOCK_TOKENS)}
+# (b) the request cancelled while its async round is in flight; (c) the
+# sampled requests of the double restore
+FAULT_CANCELLED, FAULT_SAMPLED = 3, 2
+HEALTH_REPS = 20
+
+
+def fault_prompts() -> list:
+    rng = np.random.default_rng(15)
+    head = rng.integers(0, VOCAB, FAULT_HEAD).tolist()
+    return [head + rng.integers(0, VOCAB, FAULT_TAIL).tolist()
+            for _ in range(FAULT_REQUESTS)]
+
+
+def fault_engine(net, layout: str, **kw):
+    """The phase's engine on ``layout`` (paranoid unless ``kw`` says
+    otherwise), on a fresh ``ManualClock``."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, ManualClock
+
+    geometry = dict(n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                    prefix_cache_rows=FAULT_ROWS, prefill_chunk=FAULT_CHUNK,
+                    paranoid=True, max_retries=FAULT_RETRIES,
+                    stall_threshold_s=FAULT_STALL_S, clock=ManualClock(),
+                    **FAULT_LAYOUTS[layout])
+    geometry.update(kw)
+    return DecodeEngine(net, **geometry)
+
+
+def fault_plan():
+    from deeplearning4j_tpu_torch.serving import FaultEvent, FaultPlan
+
+    return FaultPlan([FaultEvent(r, kind, **kw)
+                      for r, kind, kw in FAULT_PLAN])
+
+
+def _serve_all(eng, prompts, kws=None) -> tuple:
+    """Submit ``prompts`` (FAULT_GEN new tokens, ``kws[i]`` the i-th
+    request's sampling) and run; (results in order, seconds)."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    kws = kws or [{}] * len(prompts)
+    rids = [eng.submit(Request(list(p), FAULT_GEN, **kw))
+            for p, kw in zip(prompts, kws)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    return [res[i] for i in rids], time.perf_counter() - t0
+
+
+def _diverged(results, want) -> list:
+    """Indices of the requests that did not end ``fault`` and whose ids
+    differ from ``want`` (None results are skipped)."""
+    return [i for i, r in enumerate(results) if r is not None
+            and r.finish_reason != "fault" and r.tokens != want[i]]
+
+
+def _health_ms(eng) -> float:
+    """Device ms of one replay of the engine's captured health check
+    (CUDA events around HEALTH_REPS back-to-back replays)."""
+    ops = {"pool": eng._pool, "toks": eng._toks}
+    eng._run_graph("health_check", eng._health_body, ops)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(HEALTH_REPS):
+        eng._run_graph("health_check", eng._health_body, ops)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / HEALTH_REPS
+
+
+def _k2_step_launches() -> int:
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+
+    return paged_attention.launches - paged_attention.chunk_launches
+
+
+@contextlib.contextmanager
+def _fault_planted(name):
+    """A planted fault of the failure layer, patched into
+    ``DecodeEngine`` within the block: "all healthy" forces every health
+    verdict to healthy; "current token re-prefilled" makes a restore's
+    ``_rebuild_slot`` re-prefill the slot's current token too (its
+    cache then holds that token before the next round feeds it)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    attr = {"all healthy": "_health",
+            "current token re-prefilled": "_rebuild_slot"}[name]
+    orig = getattr(DecodeEngine, attr)
+
+    def all_healthy(self):
+        return np.ones(self.n_slots + (self.kv_blocks if self.paged_kv
+                                       else 0), bool)
+
+    def with_current(self, slot, request, tokens, *rest):
+        orig(self, slot, request, list(tokens) + [tokens[-1]], *rest)
+        self._slots[slot].tokens = list(tokens)
+
+    setattr(DecodeEngine, attr,
+            all_healthy if name == "all healthy" else with_current)
+    try:
+        yield
+    finally:
+        setattr(DecodeEngine, attr, orig)
+
+
+FAULT_PLANTED = ("all healthy", "current token re-prefilled")
+
+
+def chaos_run(net, layout: str, prompts, snap=None) -> dict:
+    """The fault plan on a paranoid engine: FAULT_SNAPSHOT_AFTER rounds,
+    a snapshot through JSON, then a fresh engine restored from it
+    finishes, and the faulted engine runs on to its end too. With
+    ``snap`` given, only the restore of ``snap`` and its run. Returns
+    the engines, their results in submission order, the plan, the
+    snapshot and the restore's seconds."""
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine,
+        ManualClock,
+        Request,
+    )
+
+    out = {}
+    res = {}
+    if snap is None:
+        plan = out["plan"] = fault_plan()
+        eng = out["eng"] = fault_engine(net, layout, fault_plan=plan)
+        rids = [eng.submit(Request(list(p), FAULT_GEN)) for p in prompts]
+        for _ in range(FAULT_SNAPSHOT_AFTER):
+            eng.step(res)
+        snap = json.loads(json.dumps(eng.snapshot()))
+    else:
+        rids = list(range(len(prompts)))
+    out["snapshot"] = snap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng2 = out["eng2"] = DecodeEngine.restore(net, snap, clock=ManualClock())
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    res2 = dict(res)
+    res2.update(eng2.run())
+    # with ``snap`` given, requests that ended before it read None
+    out["restored"] = [res2.get(i) for i in rids]
+    if "eng" in out:
+        res.update(out["eng"].run())
+        out["continued"] = [res[i] for i in rids]
+    return out
+
+
+def fault_layout_phase(card: str, net, prompts, layout: str) -> None:
+    """(a) on one layout. The fault-free engine, paranoid off and on (a
+    first run, then a timed second run on the warm trie): ids identical
+    (the first runs are the reference), tokens/s of both, the health
+    check's device ms against the round's wall. The chaos run
+    (:func:`chaos_run`): every kind of the plan landed, at least one
+    victim, and every request that did not end ``fault`` has the
+    reference ids, on the faulted engine run on and on the restored
+    one; ``decode`` and ``health_check`` graphs 1 on both, none captured
+    by the restored engine on a repeat of the workload; paged, K2
+    launched N_LAYERS times per decode step (each decode graph's
+    capture runs its body once: DECODE_CHUNK steps more per engine) and
+    no poisoned block left. Each planted fault (:func:`_fault_planted`)
+    must make a request diverge. Fatal on failure."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+
+    ref, rates = None, {}
+    for para in (False, True):
+        eng = fault_engine(net, layout, paranoid=para)
+        first, _ = _serve_all(eng, prompts)
+        dec0, chunks0 = eng.stats["decode_time_s"], eng.stats["chunks"]
+        timed, secs = _serve_all(eng, prompts)
+        rates[para] = sum(len(r.tokens) for r in timed) / secs
+        ids = [r.tokens for r in first]
+        if ref is None:
+            ref = ids
+        elif ids != ref:
+            raise SystemExit(f"chip_smoke: fault [{layout}]: paranoid "
+                             "changed the fault-free ids")
+        if para:
+            health_ms = _health_ms(eng)
+            round_ms = (1e3 * (eng.stats["decode_time_s"] - dec0)
+                        / (eng.stats["chunks"] - chunks0))
+        del eng
+        torch.cuda.empty_cache()
+    paged_attention.launches = paged_attention.chunk_launches = 0
+    run = chaos_run(net, layout, prompts)
+    eng, eng2 = run["eng"], run["eng2"]
+    counts = (eng.compile_counts(), eng2.compile_counts())
+    caps0, counts0 = eng2._graphs.captures, counts[1]
+    repeat, _ = _serve_all(eng2, prompts)
+    caps1, counts1 = eng2._graphs.captures, eng2.compile_counts()
+    steps = sum(e.stats["decode_steps"] for e in (eng, eng2))
+    k2 = _k2_step_launches()
+    k2_want = N_LAYERS * (steps + 2 * DECODE_CHUNK)
+    kinds = sorted({e.kind for e in run["plan"].injected})
+    victims = sum(r.retries > 0 for r in run["continued"])
+    bad = (_diverged(run["continued"], ref), _diverged(run["restored"], ref),
+           [i for i, r in enumerate(repeat) if r.finish_reason != "length"])
+    fails = {k: eng.stats[k] for k in eng.FAILURE_KEYS if eng.stats[k]}
+    poisoned = [sorted(e.block_pool.poisoned) if e.paged_kv else []
+                for e in (eng, eng2)]
+    snap, restore_s = run["snapshot"], run["restore_s"]
+    live = sum(s is not None for s in snap["slots"])
+    del eng, eng2, run
+    torch.cuda.empty_cache()
+    caught = {}
+    with _fault_planted("all healthy"):
+        eng = fault_engine(net, layout, fault_plan=fault_plan())
+        faulted, _ = _serve_all(eng, prompts)
+        caught["all healthy"] = bool(_diverged(faulted, ref))
+        del eng
+        torch.cuda.empty_cache()
+    with _fault_planted("current token re-prefilled"):
+        run = chaos_run(net, layout, prompts, snap=snap)
+        caught["current token re-prefilled"] = bool(
+            _diverged(run["restored"], ref))
+        del run
+        torch.cuda.empty_cache()
+    log(f"fault [{layout}, float32]: {FAULT_REQUESTS} x {FAULT_GEN} tokens, "
+        f"plan landed {kinds}, failure counts {fails}, victims {victims}; "
+        f"ids against the fault-free run: diverged continued {bad[0]}, "
+        f"restored {bad[1]} (snapshot after {FAULT_SNAPSHOT_AFTER} rounds: "
+        f"{live} live slots, {len(snap['queue'])} queued, "
+        f"{len(snap['requeue'])} requeued); graphs faulted / restored "
+        f"{counts}, restored captures {caps0} -> {caps1} on a repeat "
+        f"(unfinished {bad[2]}); K2 t = 1 launches {k2} (want "
+        f"{N_LAYERS} x ({steps} steps + 2 x {DECODE_CHUNK} capture)"
+        f"{'' if layout == 'paged' else ': dense, none'}); poisoned blocks "
+        f"at the end {poisoned}; planted faults caught {caught}; fault-free "
+        f"tokens/s paranoid off {rates[False]:.1f}, on {rates[True]:.1f} "
+        f"({rates[True] / rates[False]:.4f}x; second runs, warm trie); "
+        f"health check {health_ms:.4f} ms a replay (device, CUDA events "
+        f"over {HEALTH_REPS}) against a round's wall {round_ms:.3f} ms "
+        f"({100 * health_ms / round_ms:.2f}%; the round's wall from "
+        f"dispatch to its token sync, timed run); restore "
+        f"{restore_s:.3f} s ({live} slots and the trie re-prefilled) "
+        f"[{card}]")
+    want_kinds = sorted({kind for _, kind, _ in FAULT_PLAN})
+    graphs_ok = all(c["decode"] == 1 and c["health_check"] == 1
+                    for c in counts)
+    ok = (kinds == want_kinds and victims >= 1 and fails.get("slow_steps")
+          and not any(bad) and graphs_ok and caps0 == caps1
+          and counts0 == counts1 and all(caught.values())
+          and poisoned == [[], []])
+    if layout == "paged":
+        ok = ok and k2 == k2_want
+    else:
+        ok = ok and k2 == 0
+    if not ok:
+        raise SystemExit(
+            f"chip_smoke: fault [{layout}] failed: plan {kinds}, victims "
+            f"{victims}, diverged {bad}, graphs {counts} -> {counts1}, "
+            f"captures {caps0} -> {caps1}, K2 {k2} against {k2_want}, "
+            f"poisoned {poisoned}, planted faults caught {caught}")
+
+
+def fault_async_cancel(card: str, net, prompts) -> None:
+    """(b) A paged async engine serving the first N_SLOTS prompts; the
+    request FAULT_CANCELLED is cancelled while the engine's first round
+    is in flight. The neighbours' ids are those of the same engine run
+    without the cancel, the cancelled request's a prefix of its own.
+    The uncancelled run is greedy only, so its generator moves only
+    through the graph replays: a state read after it that equals the
+    seeded one would mean ``get_state()`` misses the replays (the
+    snapshot's ``torch_rng_state``). Fatal on failure."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    prompts = prompts[:N_SLOTS]
+    eng = fault_engine(net, "paged", async_rounds=True)
+    seeded = eng._gen.get_state().clone()
+    ref, _ = _serve_all(eng, prompts)
+    moved = not torch.equal(eng._gen.get_state(), seeded)
+    del eng
+    eng = fault_engine(net, "paged", async_rounds=True)
+    rids = [eng.submit(Request(list(p), FAULT_GEN)) for p in prompts]
+    res = {}
+    eng.step(res)
+    inflight = (eng._inflight is not None
+                and rids[FAULT_CANCELLED] in eng._inflight.rids.values())
+    cancelled = eng.cancel(rids[FAULT_CANCELLED])
+    while eng.has_work():
+        eng.step(res)
+    got = [res[i] for i in rids]
+    cut = got[FAULT_CANCELLED]
+    n = len(cut.tokens)
+    others = [i for i in range(len(prompts)) if i != FAULT_CANCELLED
+              and got[i].tokens != ref[i].tokens]
+    trie = {b for t in eng.prefix_cache.tables() for b in t.blocks.values()}
+    prefix = (cut.finish_reason == "cancelled" and 0 < n < FAULT_GEN
+              and cut.tokens == ref[FAULT_CANCELLED].tokens[:n])
+    log(f"fault async cancel [paged, float32]: request {FAULT_CANCELLED} "
+        f"cancelled with its round in flight {inflight and cancelled}, "
+        f"returned {n} tokens, a prefix of its uncancelled ids {prefix}; "
+        f"neighbours differing {others}; blocks in use at the end "
+        f"{eng.block_pool.used_blocks}, held by the trie {len(trie)}; "
+        f"generator state moved by the greedy run's replays {moved} "
+        f"[{card}]")
+    if not (inflight and cancelled and prefix and not others and moved
+            and eng.block_pool.used_blocks == len(trie)):
+        raise SystemExit(
+            f"chip_smoke: fault async cancel failed: in flight {inflight}, "
+            f"cancelled {cancelled}, prefix {prefix}, neighbours {others}, "
+            f"generator moved {moved}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def fault_sampled_restore(card: str, net, prompts) -> None:
+    """(c) The paged engine with the first FAULT_SAMPLED of N_SLOTS
+    requests sampled at temperature 1.0: a snapshot after round 0 (the
+    first 4 requests running, the sampled ones among them),
+    restored twice, each restore run to its end: identical ids, sampled
+    requests included. Fatal on failure."""
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine,
+        ManualClock,
+        Request,
+    )
+
+    eng = fault_engine(net, "paged")
+    for i, p in enumerate(prompts[:N_SLOTS]):
+        eng.submit(Request(list(p), FAULT_GEN,
+                           temperature=1.0 if i < FAULT_SAMPLED else 0.0))
+    eng.step()
+    snap = json.loads(json.dumps(eng.snapshot()))
+    del eng
+    runs = []
+    for _ in range(2):
+        eng = DecodeEngine.restore(net, snap, clock=ManualClock())
+        runs.append({k: r.tokens for k, r in eng.run().items()})
+        del eng
+        torch.cuda.empty_cache()
+    same = runs[0] == runs[1]
+    sampled = [snap["slots"][i]["request"]["id"] for i in range(N_SLOTS)
+               if snap["slots"][i] is not None
+               and snap["slots"][i]["request"]["temperature"] > 0]
+    log(f"fault sampled restore [paged, float32]: {len(runs[0])} requests "
+        f"({len(sampled)} sampled live at the snapshot) finish with "
+        f"identical ids on two restores {same} [{card}]")
+    if not same or len(runs[0]) != N_SLOTS or not sampled:
+        raise SystemExit(f"chip_smoke: fault sampled restore failed: "
+                         f"identical {same}, requests {len(runs[0])}, "
+                         f"sampled live {sampled}")
+
+
+def fault_phase(card: str) -> None:
+    """Phase 15: (a) chaos parity with snapshot/restore on both layouts,
+    (b) a cancel with an async round in flight, (c) two restores of a
+    snapshot with sampled requests."""
+    net = _serving_net("float32")
+    prompts = fault_prompts()
+    for layout in FAULT_LAYOUTS:
+        fault_layout_phase(card, net, prompts, layout)
+    fault_async_cancel(card, net, prompts)
+    fault_sampled_restore(card, net, prompts)
+    del net
+    torch.cuda.empty_cache()
+
+
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
 # bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
 # windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
@@ -3693,6 +4091,9 @@ def main() -> int:
     t14 = time.perf_counter()
     launches["paged_attention_verify"] = spec_phase(card)
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    fault_phase(card)
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
     k3_ms = {k["name"]: k["ms"] for k in conv}
     launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],

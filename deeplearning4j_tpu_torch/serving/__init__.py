@@ -1,9 +1,14 @@
 """Serving: the continuous-batching decode engine over a dense slot pool
-or the paged KV block pool, with the prefix caches, chunked admission
-and speculative decoding (port of ``deeplearning4j_tpu/serving``'s
-engine core)."""
+or the paged KV block pool, with the prefix caches, chunked admission,
+speculative decoding and fault handling (port of
+``deeplearning4j_tpu/serving``'s engine core)."""
 
 from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
+from deeplearning4j_tpu_torch.serving.faults import (
+    FaultEvent,
+    FaultPlan,
+    ManualClock,
+)
 from deeplearning4j_tpu_torch.serving.prefix_cache import (
     PagedPrefixCache,
     RadixPrefixCache,

@@ -103,7 +103,8 @@ class BlockTable:
 class BlockPool:
     """Host-side allocator + refcounts for the shared KV block pool,
     plus the two in-place device movers (``copy_block_device`` for
-    copy-on-write, ``scrub_block_device`` for zeroing a block)."""
+    copy-on-write, ``scrub_block_device`` for zeroing a block) and the
+    ``poisoned`` set of blocks waiting to be scrubbed."""
 
     def __init__(self, n_blocks: int, block_tokens: int):
         if n_blocks < 1:
@@ -115,6 +116,10 @@ class BlockPool:
         self.block_tokens = int(block_tokens)
         self._free: List[int] = list(range(self.n_blocks - 1, -1, -1))
         self._ref = np.zeros(self.n_blocks, np.int64)
+        #: blocks the paranoid health check found non-finite; each is
+        #: scrubbed when its last reference drops, never while a sharer
+        #: still reads it
+        self.poisoned: set = set()
         self.stats: Dict[str, int] = {
             "allocs": 0, "frees": 0, "cow_copies": 0,
             "spliced": 0, "scrubbed": 0,
@@ -150,7 +155,7 @@ class BlockPool:
 
     def deref(self, bid: int) -> bool:
         """Drop one reference; returns True when the block just became
-        free."""
+        free (the caller scrubs it first if it was poisoned)."""
         if self._ref[bid] < 1:
             raise AssertionError(f"deref of free block {bid}")
         self._ref[bid] -= 1
@@ -170,8 +175,11 @@ class BlockPool:
         return pool
 
     def scrub_block_device(self, pool, bid: int):
-        """Zero one (freed) block in place; returns ``pool``."""
+        """Zero one (freed, poisoned) block in place, so the paranoid
+        health check goes green again without touching live blocks;
+        returns ``pool``."""
         self.stats["scrubbed"] += 1
+        self.poisoned.discard(bid)
         for st in pool.values():
             for name in ("pk", "pv"):
                 st[name][bid].zero_()

@@ -116,11 +116,42 @@ Admission (prefill, chunk continuations, the prefix movers, CoW
 copies) always runs eagerly. ``histograms`` holds the two the
 JAX engine's fused and async paths observe: ``serving_fused_rounds``
 (K at each fused dispatch) and ``serving_host_step_s`` (from the last
-round's token sync to the next dispatch). Knobs of the JAX engine that
-this port does not carry yet (fault handling,
-queue bounds and shedding, tenancy, KV tiers, tensor parallelism,
-incremental delivery, the phase clock, tracing) raise
-``NotImplementedError`` when set to anything but their default.
+round's token sync to the next dispatch).
+
+**Failure handling** (JAX's "Failure-handling knobs"; every knob
+defaults off, and the engine is then the one described above, its ids,
+graphs and host syncs unchanged): ``Request.deadline_s`` and
+``queue_timeout_s`` end a request wherever it is (``_sweep_deadlines``,
+once a round after the requeue drain and the fault injection);
+``cancel(rid)`` ends a queued, requeued, admitting or running request;
+``max_queue`` with ``shed_policy`` bounds the queue; ``fault_plan``
+(serving/faults.py) injects NaN'd slots, failed admissions, stalls and
+corrupted prefix entries at chosen rounds, writing NaN into the pools
+IN PLACE (they are the graphs' static inputs); ``paranoid`` runs ONE
+health check per landed round over the pool and the current tokens
+(paged: a finiteness verdict per block of the first ``kv_blocks``, the
+scratch block never judged; dense: one per slot; both: the token range),
+on the card one captured graph (``compile_counts()["health_check"]``)
+whose verdict comes back through one pinned host copy, and quarantines
+each slot it condemns before any of the round's tokens is appended
+(its blocks released, a poisoned block scrubbed with its last
+reference, its prefix entries invalidated, its draft table dropped),
+requeueing the victim with exponential backoff up to ``max_retries``
+(then ``finish_reason="fault"``); ``stall_threshold_s`` counts slow
+rounds; ``clock`` is the time source. While a fault plan is set or a
+live request carries a deadline, no round is fused (a plan is indexed
+by round, and a deadline must be able to expire between rounds). An
+async round's landing commits only the rows whose slot still holds the
+request it was dispatched for. ``snapshot()`` returns the JAX engine's
+version-1 plain-JSON dict and ``DecodeEngine.restore`` rebuilds an
+engine from it (either package's) by re-prefilling recorded tokens; see
+their docstrings for the RNG. Knobs of the JAX engine that this port
+does not carry yet (tenancy, KV tiers, tensor parallelism, incremental
+delivery, the phase clock, the flight recorder, tracing) raise
+``NotImplementedError`` when set to anything but their default, and
+the branches of JAX's fault code that serve them are left out (the
+sampled-stream carve-out of quarantine and preemption, the tracer
+mirrors, the phase clock's attempts).
 """
 
 from __future__ import annotations
@@ -140,10 +171,16 @@ from deeplearning4j_tpu_torch.nn.streaming import (
     clear_state_rows,
     drop_newest_tokens,
     scan_length_bucket,
+    tree_leaves,
     tree_map,
 )
 from deeplearning4j_tpu_torch.profiler.tracer import Histogram
 from deeplearning4j_tpu_torch.serving.block_pool import BlockPool, BlockTable
+from deeplearning4j_tpu_torch.serving.faults import (
+    FaultEvent,
+    FaultPlan,
+    poison_rows,
+)
 from deeplearning4j_tpu_torch.serving.prefix_cache import (
     PagedPrefixCache,
     PrefixHit,
@@ -164,14 +201,14 @@ from deeplearning4j_tpu_torch.serving.spec import NgramDraftTable
 #: knobs of the JAX engine this port does not carry yet, with the only
 #: value it accepts for each (the JAX engine's default)
 _UNPORTED = {
-    "max_queue": None, "shed_policy": "reject-new", "paranoid": False,
-    "fault_plan": None, "max_retries": 2, "retry_backoff_rounds": 1,
-    "stall_threshold_s": None, "clock": None,
     "on_delta": None, "emit_deltas": False,
     "record_timing": True, "flight_recorder": 256, "tp": 1,
     "tenants": None, "kv_host_tier_bytes": 0, "kv_disk_tier_path": None,
     "kv_disk_tier_bytes": None, "tracer": None,
 }
+
+#: restore() keyword sentinel: None is a meaningful ``use_flash_paged``
+_UNSET = object()
 
 
 @dataclasses.dataclass
@@ -180,6 +217,9 @@ class _Slot:
     tokens: List[int]
     ttft_s: Optional[float] = None
     prefix_reused: int = 0
+    #: prefix-cache row this admission fetched from (quarantine
+    #: invalidates it if the slot turns out poisoned), or None
+    hit_row: Optional[int] = None
     #: tokens drafted for / accepted by this request (speculative)
     spec_drafted: int = 0
     spec_accepted: int = 0
@@ -194,9 +234,10 @@ class _Pending:
     the last segment's sampled token [1]; ``done`` the suffix tokens
     prefilled; ``matched`` the prompt tokens reused from the cache;
     ``hit`` the lease to release (or None); ``seq`` the sequence being
-    prefilled (the prompt); ``tab`` (paged) the slot's block table on a
-    warm hit (spliced trie blocks; the suffix streams THROUGH it), None
-    until a cold admission scatters."""
+    prefilled (the prompt of a live admission; prompt plus generated
+    ids for a restore's rebuild); ``tab`` (paged) the slot's block table
+    on a warm hit (spliced trie blocks; the suffix streams THROUGH it),
+    None until a cold admission scatters."""
 
     request: Request
     slot: int
@@ -206,10 +247,11 @@ class _Pending:
     matched: int
     hit: Optional[PrefixHit]
     tab: Optional[BlockTable] = None
+    seq: Sequence[int] = ()
 
-    @property
-    def seq(self) -> Sequence[int]:
-        return self.request.prompt
+    def __post_init__(self):
+        if not len(self.seq):
+            self.seq = [int(t) for t in self.request.prompt]
 
     @property
     def remaining(self) -> int:
@@ -225,9 +267,13 @@ class _InflightRound:
     what the device wrote per slot (K * chunk for a fused window). A
     speculative round also carries its ``drafts`` (slot -> draft) and ``verify`` = (lens
     [B] host array, emitted [B, W+1], acc [B], host tensors behind the
-    same event), so the landing commits the verify pass first."""
+    same event), so the landing commits the verify pass first. ``rids``
+    maps each active slot to the request it held at dispatch: a slot
+    cancelled before the landing (async rounds) is skipped, its rows
+    discarded."""
 
     active: List[int]
+    rids: Dict[int, int]
     seq: torch.Tensor
     n_valid: Optional[torch.Tensor]
     event: Any
@@ -235,6 +281,31 @@ class _InflightRound:
     decode_tokens: int
     drafts: Optional[Dict[int, List[int]]] = None
     verify: Optional[tuple] = None
+
+
+def _request_dict(req: Request) -> Dict[str, Any]:
+    """Plain-dict form of a Request (the snapshot wire format)."""
+    return {
+        "prompt": [int(t) for t in req.prompt],
+        "max_new_tokens": int(req.max_new_tokens),
+        "temperature": float(req.temperature),
+        "top_k": None if req.top_k is None else int(req.top_k),
+        "eos_id": None if req.eos_id is None else int(req.eos_id),
+        "id": req.id,
+        "deadline_s": req.deadline_s,
+        "queue_timeout_s": req.queue_timeout_s,
+        "trace": req.trace,
+        "tenant": req.tenant,
+        "priority": req.priority,
+    }
+
+
+def _jax_key_words(seed: int) -> List[int]:
+    """The two uint32 words ``jax.random.PRNGKey(seed)`` holds in JAX's
+    default 32-bit mode (``[0, seed mod 2**32]``), computed without JAX:
+    what a snapshot's ``rng_key`` carries so that the JAX package's
+    ``restore`` accepts it."""
+    return [0, int(seed) & 0xFFFFFFFF]
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -293,11 +364,29 @@ class DecodeEngine:
     ``pressure_low`` pace chunked admission (``Scheduler``; module
     docstring). ``spec_draft_len`` (0: off) is the most tokens a slot
     drafts a round for the verify pass, ``draft_source`` where drafts
-    come from (``DRAFT_SOURCES``)."""
+    come from (``DRAFT_SOURCES``). ``max_queue`` (None: unbounded) and
+    ``shed_policy`` (``SHED_POLICIES``) bound the queue; ``paranoid``
+    turns on the per-round health check and quarantine; ``fault_plan``
+    injects faults (serving/faults.py); ``max_retries`` and
+    ``retry_backoff_rounds`` cap and space a fault victim's retries;
+    ``stall_threshold_s`` (None: off) is the round wall past which a
+    round counts as a ``slow_steps`` event; ``clock`` (default
+    ``time.perf_counter``) is the time deadlines and stalls are read
+    on (module docstring)."""
+
+    #: valid shed policies for a full admission queue: reject the new
+    #: arrival, or shed the oldest queued request in its favour
+    SHED_POLICIES = ("reject-new", "shed-oldest")
 
     #: where speculative drafts come from: prompt-lookup n-gram tables
     #: (serving/spec.py), the only source the JAX engine has
     DRAFT_SOURCES = ("ngram",)
+
+    #: stats keys that count failure events (all present from the start)
+    FAILURE_KEYS = ("deadline_expired", "queue_timeouts", "cancelled",
+                    "shed", "faults_injected", "faults_detected",
+                    "quarantined", "retries", "retry_failures",
+                    "slow_steps")
 
     def __init__(self, net, n_slots: int = 8, decode_chunk: int = 8,
                  min_prompt_bucket: int = 8, seed: int = 0,
@@ -311,6 +400,11 @@ class DecodeEngine:
                  pressure_high: Optional[int] = None,
                  pressure_low: Optional[int] = None,
                  spec_draft_len: int = 0, draft_source: str = "ngram",
+                 max_queue: Optional[int] = None,
+                 shed_policy: str = "reject-new", paranoid: bool = False,
+                 fault_plan: Optional[FaultPlan] = None,
+                 max_retries: int = 2, retry_backoff_rounds: int = 1,
+                 stall_threshold_s: Optional[float] = None, clock=None,
                  **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -326,12 +420,21 @@ class DecodeEngine:
             raise ValueError(f"decode_chunk {decode_chunk} < 1")
         if fused_rounds < 0:
             raise ValueError(f"fused_rounds {fused_rounds} < 0")
+        if shed_policy not in self.SHED_POLICIES:
+            raise ValueError(
+                f"shed_policy {shed_policy!r}: expected one of "
+                f"{self.SHED_POLICIES}")
         if spec_draft_len < 0:
             raise ValueError(f"spec_draft_len {spec_draft_len} < 0")
         if draft_source not in self.DRAFT_SOURCES:
             raise ValueError(
                 f"draft_source {draft_source!r}: expected one of "
                 f"{self.DRAFT_SOURCES}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries {max_retries} < 0")
+        if retry_backoff_rounds < 0:
+            raise ValueError(
+                f"retry_backoff_rounds {retry_backoff_rounds} < 0")
         self.device = resolve_device(net.device)
         net.init()
         self.net = net
@@ -387,8 +490,8 @@ class DecodeEngine:
             self.window, min_bucket=min_prompt_bucket,
             prefill_chunk=self.prefill_chunk,
             prefill_budget=prefill_budget, policy=admission_policy,
-            pressure_high=pressure_high, pressure_low=pressure_low,
-            spec_draft_len=self.spec_draft_len)
+            max_queue=max_queue, pressure_high=pressure_high,
+            pressure_low=pressure_low, spec_draft_len=self.spec_draft_len)
         self.paged_kv = bool(paged_kv)
         self.block_tokens = int(block_tokens)
         self.kv_blocks = None
@@ -409,6 +512,15 @@ class DecodeEngine:
         #: per-slot n-gram draft tables (None: speculation off)
         self.spec: Optional[NgramDraftTable] = (
             NgramDraftTable() if self.spec_draft_len else None)
+        self.draft_source = draft_source
+        self.shed_policy = shed_policy
+        self.paranoid = bool(paranoid)
+        self.fault_plan = fault_plan
+        self.max_retries = int(max_retries)
+        self.retry_backoff_rounds = int(retry_backoff_rounds)
+        self.stall_threshold_s = stall_threshold_s
+        self._clock = clock if clock is not None else time.perf_counter
+        self._seed = int(seed)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         #: the decode round's captured graph, the fused windows' (one
@@ -432,7 +544,15 @@ class DecodeEngine:
         self._round_bufs: Dict[str, torch.Tensor] = {}
         self._round = 0
         self._terminal: Dict[int, GenerationResult] = {}
+        #: (ready_round, request): fault victims waiting out a backoff,
+        #: preempted and deferred admissions waiting one round
         self._requeue: List[Tuple[int, Request]] = []
+        self._retries: Dict[int, int] = {}
+        self._admit_fail_pending = 0
+        self._has_deadlines = False
+        #: ids whose admission has started at least once (a queue
+        #: timeout bounds the wait for the FIRST admission only)
+        self._started: set = set()
         #: the dispatched round not landed yet (async rounds)
         self._inflight: Optional[_InflightRound] = None
         #: pinned host buffers the rounds' outputs are copied into, by
@@ -456,6 +576,8 @@ class DecodeEngine:
             "spec_rounds": 0, "spec_fallback_rounds": 0,
             "spec_drafted": 0, "spec_accepted": 0,
         }
+        for key in self.FAILURE_KEYS:
+            self.stats[key] = 0
 
     def _size_block_pool(self, kv_blocks: Optional[int],
                          prefix_rows: int) -> None:
@@ -508,19 +630,61 @@ class DecodeEngine:
 
     # -- request lifecycle ---------------------------------------------
     def submit(self, request: Request) -> int:
-        """Queue a request; returns its id (``run()`` drains)."""
+        """Queue a request; returns its id (``run()`` drains). With a
+        bounded queue (``max_queue``) a full queue sheds per
+        ``shed_policy``: the result of the shed request (this one under
+        "reject-new", the oldest queued one under "shed-oldest") is
+        delivered with ``finish_reason="shed"`` at the next
+        ``run()``/``step()`` drain."""
         bad = [t for t in request.prompt if not 0 <= int(t) < self.vocab]
         if bad:
             raise ValueError(
                 f"prompt ids {bad[:4]} outside vocab [0, {self.vocab})")
+        self.scheduler.validate(request)
+        if self.scheduler.full:
+            if self.shed_policy == "reject-new":
+                rid = self.scheduler.assign_id(request)
+                self._shed(request)
+                return rid
+            self._shed(self.scheduler.shed_victim())
+        rid = self.scheduler.submit(request)
+        self._submit_t[rid] = self._clock()
         if (request.deadline_s is not None
                 or request.queue_timeout_s is not None):
-            raise NotImplementedError(
-                "request deadlines and queue timeouts are not ported to "
-                "the torch package yet")
-        rid = self.scheduler.submit(request)
-        self._submit_t[rid] = time.perf_counter()
+            self._has_deadlines = True
         return rid
+
+    def cancel(self, request_id: int) -> bool:
+        """Terminate a request wherever it is: queued, waiting out a
+        retry backoff, mid-admission (its prefix lease and reserved
+        slot released), or decoding in a slot (its partial tokens
+        returned). The result (``finish_reason="cancelled"``) is
+        delivered at the next ``run()``/``step()`` drain. False when the
+        id is unknown or already terminal."""
+        req = self.scheduler.remove(request_id)
+        if req is not None:
+            self._record_terminal(req, [], "cancelled")
+            self._failure_event("cancelled")
+            return True
+        for i, (_, queued) in enumerate(self._requeue):
+            if queued.id == request_id:
+                del self._requeue[i]
+                self._record_terminal(queued, [], "cancelled")
+                self._failure_event("cancelled")
+                return True
+        for pending in list(self._pending):
+            if pending.request.id == request_id:
+                self._abort_pending(pending)
+                self._record_terminal(pending.request, [], "cancelled")
+                self._failure_event("cancelled")
+                return True
+        for slot, state in enumerate(self._slots):
+            if state is not None and state.request.id == request_id:
+                self._record_slot_terminal(state, "cancelled")
+                self._failure_event("cancelled")
+                self._evict_slot(slot)
+                return True
+        return False
 
     def has_work(self) -> bool:
         """True while anything is queued, admitting, requeued,
@@ -544,17 +708,51 @@ class DecodeEngine:
             results.update(self._terminal)
             self._terminal.clear()
 
-    def _record_terminal(self, state: _Slot, reason: str) -> None:
-        req = state.request
-        self._terminal[req.id] = GenerationResult(
-            id=req.id, tokens=list(state.tokens), finish_reason=reason,
-            prompt_len=len(req.prompt),
-            prefix_tokens_reused=state.prefix_reused, ttft_s=state.ttft_s,
-            spec_drafted=state.spec_drafted,
-            spec_accepted=state.spec_accepted)
+    def _record_terminal(self, request: Request, tokens, reason: str,
+                         prefix_reused: int = 0,
+                         ttft: Optional[float] = None,
+                         spec_drafted: int = 0,
+                         spec_accepted: int = 0) -> None:
+        """Write a request's terminal result (drained into the caller's
+        dict by the next ``step()``) with the retries it survived, and
+        drop every piece of host bookkeeping keyed by its id."""
+        self._terminal[request.id] = GenerationResult(
+            id=request.id, tokens=list(tokens), finish_reason=reason,
+            prompt_len=len(request.prompt),
+            prefix_tokens_reused=prefix_reused, ttft_s=ttft,
+            retries=self._retries.pop(request.id, 0),
+            spec_drafted=spec_drafted, spec_accepted=spec_accepted)
         self.stats["requests_finished"] += 1
-        self._submit_t.pop(req.id, None)
-        self.scheduler.release(req.id)
+        self._submit_t.pop(request.id, None)
+        self._started.discard(request.id)
+        self.scheduler.release(request.id)
+
+    def _record_slot_terminal(self, state: _Slot, reason: str) -> None:
+        """:meth:`_record_terminal` of a running slot's request, with
+        its partial tokens and counters."""
+        self._record_terminal(state.request, state.tokens, reason,
+                              state.prefix_reused, state.ttft_s,
+                              state.spec_drafted, state.spec_accepted)
+
+    def _failure_event(self, kind: str) -> None:
+        """Count one failure event (a ``FAILURE_KEYS`` stat; JAX's
+        tracer mirror is not ported)."""
+        self.stats[kind] += 1
+
+    def _shed(self, request: Request) -> None:
+        self._record_terminal(request, [], "shed")
+        self._failure_event("shed")
+
+    def _abort_pending(self, pending: _Pending) -> None:
+        """Drop an admission in flight (cancel, deadline): release the
+        prefix-cache lease and any spliced or written blocks, and free
+        the reserved slot."""
+        if pending.hit is not None and self.prefix_cache is not None:
+            self.prefix_cache.release(pending.hit)
+        self._free_table(pending.tab)
+        pending.tab = None
+        self._reserved.discard(pending.slot)
+        self._pending.remove(pending)
 
     @staticmethod
     def _hit_eos(state: _Slot) -> bool:
@@ -568,8 +766,8 @@ class DecodeEngine:
 
     def _finish(self, state: _Slot, slot: int) -> None:
         # eos wins even on the max_new_tokens-th token
-        self._record_terminal(state, "eos" if self._hit_eos(state)
-                              else "length")
+        self._record_slot_terminal(state, "eos" if self._hit_eos(state)
+                                   else "length")
         self._evict_slot(slot)
 
     def _evict_slot(self, slot: int) -> None:
@@ -594,9 +792,13 @@ class DecodeEngine:
     # -- paged block-pool plumbing -------------------------------------
     def _release_block(self, bid: int) -> None:
         """Drop one reference to a pool block (the block returns to the
-        free list with its last reference); the one seam through which
-        slots, admissions and the prefix trie release blocks."""
-        self.block_pool.deref(bid)
+        free list with its last reference, scrubbed in place first if
+        the health check found it poisoned: never while a sharer still
+        reads it); the one seam through which slots, admissions and the
+        prefix trie release blocks."""
+        if (self.block_pool.deref(bid) and bid in self.block_pool.poisoned
+                and self._pool is not None):
+            self.block_pool.scrub_block_device(self._pool, bid)
 
     def _free_table(self, tab: Optional[BlockTable]) -> None:
         if tab is None:
@@ -640,6 +842,8 @@ class DecodeEngine:
         self._requeue.append((self._round + 1, state.request))
 
     def _drain_requeue(self) -> None:
+        """Move the requeued requests whose round has come back to the
+        queue (behind the requests already queued)."""
         ready = [q for r, q in self._requeue if r <= self._round]
         if not ready:
             return
@@ -831,6 +1035,7 @@ class DecodeEngine:
         below the matched length into a new table), then prefill the
         whole suffix now (blocking mode) or queue the admission for
         chunks between decode rounds (``prefill_chunk > 0``)."""
+        self._started.add(request.id)
         rnn, matched, hit, tab = None, 0, None, None
         if self.prefix_cache is not None:
             hit = self.prefix_cache.lookup(request.prompt)
@@ -927,6 +1132,7 @@ class DecodeEngine:
         prefix cache after releasing the hit's lease, and take the first
         token (its value fetch is the sync that makes TTFT honest)."""
         request, slot = pending.request, pending.slot
+        hit_row = None if pending.hit is None else pending.hit.row
         if self.paged_kv:
             if pending.tab is None:
                 self._ensure_pool(pending.rnn)
@@ -959,10 +1165,10 @@ class DecodeEngine:
         self._toks[slot] = pending.tok[0]
         first = int(pending.tok[0])
         submit_t = self._submit_t.get(request.id)
-        ttft = (time.perf_counter() - submit_t
+        ttft = (self._clock() - submit_t
                 if submit_t is not None else None)
         state = _Slot(request, [first], ttft_s=ttft,
-                      prefix_reused=pending.matched)
+                      prefix_reused=pending.matched, hit_row=hit_row)
         self._slots[slot] = state
         self._temps[slot] = request.temperature
         self._top_ks[slot] = request.top_k or self.vocab
@@ -972,7 +1178,282 @@ class DecodeEngine:
         self.stats["tokens_generated"] += 1
         self.stats["admitted"] += 1
         if self._finished(state):
+            # a request finishing at admission never reaches a round's
+            # health check: probe its row before its terminal drains
+            if self.paranoid and not self._row_healthy(slot):
+                self._quarantine_victim(slot, state)
+                return
             self._finish(state, slot)
+
+    # -- failure handling ----------------------------------------------
+    def _elapsed(self, request_id: int, now: float) -> Optional[float]:
+        t0 = self._submit_t.get(request_id)
+        return None if t0 is None else now - t0
+
+    def _sweep_deadlines(self) -> None:
+        """Expire deadlines and queue timeouts wherever the request is
+        (JAX's ``_sweep_deadlines``). Queued: removed before any device
+        work (a queue timeout sheds, and only before the first
+        admission). Requeued or mid-admission: dropped, the lease and
+        the reserved slot released. Running: the slot is evicted (its
+        neighbours keep decoding) and its partial tokens returned.
+        Nothing to do unless a live request carries a time budget."""
+        if not self._has_deadlines:
+            return
+        now = self._clock()
+        for req in self.scheduler.queued_requests():
+            el = self._elapsed(req.id, now)
+            if el is None:
+                continue
+            if req.deadline_s is not None and el > req.deadline_s:
+                self.scheduler.remove(req.id)
+                self._record_terminal(req, [], "deadline")
+                self._failure_event("deadline_expired")
+            elif (req.queue_timeout_s is not None
+                  and req.id not in self._started
+                  and el > req.queue_timeout_s):
+                self.scheduler.remove(req.id)
+                self._shed(req)
+                self._failure_event("queue_timeouts")
+        for ready, req in list(self._requeue):
+            el = self._elapsed(req.id, now)
+            if (el is not None and req.deadline_s is not None
+                    and el > req.deadline_s):
+                self._requeue.remove((ready, req))
+                self._record_terminal(req, [], "deadline")
+                self._failure_event("deadline_expired")
+        for pending in list(self._pending):
+            el = self._elapsed(pending.request.id, now)
+            if (el is not None and pending.request.deadline_s is not None
+                    and el > pending.request.deadline_s):
+                self._abort_pending(pending)
+                self._record_terminal(pending.request, [], "deadline")
+                self._failure_event("deadline_expired")
+        for slot, state in enumerate(self._slots):
+            if state is None:
+                continue
+            el = self._elapsed(state.request.id, now)
+            if (el is not None and state.request.deadline_s is not None
+                    and el > state.request.deadline_s):
+                self._record_slot_terminal(state, "deadline")
+                self._failure_event("deadline_expired")
+                self._evict_slot(slot)
+
+        # the flag also gates fused rounds: drop it once no live request
+        # carries a time budget
+        def timed(req: Request) -> bool:
+            return (req.deadline_s is not None
+                    or req.queue_timeout_s is not None)
+
+        self._has_deadlines = (
+            any(timed(r) for r in self.scheduler.queued_requests())
+            or any(timed(r) for _, r in self._requeue)
+            or any(timed(p.request) for p in self._pending)
+            or any(s is not None and timed(s.request)
+                   for s in self._slots))
+
+    def _inject_faults(self) -> None:
+        if self.fault_plan is None:
+            return
+        for event in self.fault_plan.events_at(self._round):
+            self._inject(event)
+
+    def _inject(self, event: FaultEvent) -> None:
+        """Apply one scheduled fault (JAX's ``_inject``), writing NaN
+        into the pools in place (:func:`faults.poison_rows`). An event
+        whose target does not exist this round (no active slot to NaN,
+        no stored entry to corrupt) is skipped and not recorded."""
+        if event.kind == "stall":
+            if hasattr(self._clock, "advance"):
+                self._clock.advance(event.seconds)
+            else:
+                time.sleep(event.seconds)
+        elif event.kind == "admit_fail":
+            self._admit_fail_pending += 1
+        elif event.kind == "nan":
+            slot = event.slot
+            if slot is None:
+                active = [i for i, s in enumerate(self._slots)
+                          if s is not None]
+                slot = active[0] if active else None
+            if (slot is None or slot >= self.n_slots
+                    or self._slots[slot] is None or self._pool is None):
+                return
+            if self.paged_kv:
+                # the slot's exclusively owned blocks (those its own
+                # decode writes touch); shared prefix blocks are the
+                # cache_corrupt fault's
+                tab = self._kv_tabs[slot]
+                excl = [b for b in (tab.blocks.values() if tab else [])
+                        if self.block_pool.refcount(b) == 1]
+                if not excl:
+                    return
+                poison_rows(self._pool, excl)
+            else:
+                poison_rows(self._pool, [slot])
+        elif event.kind == "cache_corrupt":
+            if self.prefix_cache is None:
+                return
+            if self.paged_kv and self._pool is None:
+                return
+            if not self.paged_kv and self.prefix_cache.pool is None:
+                return
+            rows = self.prefix_cache.stored_rows()
+            row = event.row if event.row is not None else (
+                rows[0] if rows else None)
+            if row is None or row not in rows:
+                return
+            if self.paged_kv:
+                # one block of the stored entry, inside the shared pool
+                blocks = self.prefix_cache.payload(row).blocks
+                if not blocks:
+                    return
+                poison_rows(self._pool, [blocks[min(blocks)]])
+            else:
+                poison_rows(self.prefix_cache.pool, [row])
+        self.fault_plan.record(event)
+        self._failure_event("faults_injected")
+
+    def _requeue_victim(self, request: Request) -> None:
+        """Schedule a fault victim's re-admission: capped retries with
+        exponential backoff in rounds; past the cap the request ends
+        with ``finish_reason="fault"``."""
+        attempts = self._retries.get(request.id, 0) + 1
+        if attempts > self.max_retries:
+            self._retries[request.id] = attempts - 1
+            self._record_terminal(request, [], "fault")
+            self._failure_event("retry_failures")
+            return
+        self._retries[request.id] = attempts
+        self._failure_event("retries")
+        ready = self._round + max(
+            1, self.retry_backoff_rounds * (2 ** (attempts - 1)))
+        self._requeue.append((ready, request))
+
+    def _health_body(self, ops) -> Dict[str, torch.Tensor]:
+        """The paranoid health check, JAX's ``paged_health``/``health``:
+        ``ops`` = {"pool": the pool, "toks": [B] current tokens}.
+        Returns {"ok": bool}: paged, ``[kv_blocks + B]``, each of the
+        first ``kv_blocks`` blocks finite in every layer's K and V (the
+        scratch block, which dropped rows of any slot may reach, is not
+        judged), then each current token inside the vocabulary; dense,
+        ``[B]``, each slot's rows finite and its token in range. A row
+        is finite when its minimum and maximum are (one ``aminmax``
+        pass: a NaN propagates into both, an infinity into one). Plain
+        torch ops with no host read: on the card the graph of
+        ``"health_check"``."""
+        def finite(a, n):
+            lo, hi = torch.aminmax(a.reshape(n, -1), dim=1)
+            return torch.isfinite(lo) & torch.isfinite(hi)
+
+        pool, toks = ops["pool"], ops["toks"]
+        ok = (toks >= 0) & (toks < self.vocab)
+        if self.paged_kv:
+            nb = self.kv_blocks
+            blocks = None
+            for st in pool.values():
+                for name in ("pk", "pv"):
+                    fin = finite(st[name][:nb], nb)
+                    blocks = fin if blocks is None else blocks & fin
+            return {"ok": torch.cat([blocks, ok])}
+        for leaf in tree_leaves(pool):
+            if leaf.is_floating_point():
+                ok = ok & finite(leaf, leaf.shape[0])
+        return {"ok": ok}
+
+    def _health(self) -> np.ndarray:
+        """Run the health check (:meth:`_health_body`, a graph replay on
+        the card) and bring its verdict to the host: one pinned copy
+        behind one event, the paranoid round's second host sync."""
+        out = self._run_graph("health_check", self._health_body,
+                              {"pool": self._pool, "toks": self._toks})
+        host = self._to_host({"health": out["ok"]})["health"]
+        event = self._round_event()
+        if event is not None:
+            event.synchronize()
+        return host.numpy().copy()
+
+    def _paged_health(self):
+        """The health verdict folded back through the host block tables
+        (JAX's ``_paged_health``): ``(bad_blocks, toks_ok [B])``, the
+        bad blocks being those a table or the trie still references.
+        They join the pool's ``poisoned`` set, so each is scrubbed when
+        its last reference drops."""
+        ok = self._health()
+        blocks_ok, toks_ok = ok[:self.kv_blocks], ok[self.kv_blocks:]
+        bad = {b for b in np.nonzero(~blocks_ok)[0].tolist()
+               if self.block_pool.refcount(b) > 0}
+        self.block_pool.poisoned.update(bad)
+        return bad, toks_ok
+
+    def _slot_blocks_bad(self, slot: int, bad: set) -> bool:
+        tab = self._kv_tabs[slot]
+        return bool(tab and (set(tab.blocks.values()) & bad))
+
+    def _row_healthy(self, slot: int) -> bool:
+        """One slot's verdict: the at-admission probe of a request that
+        finishes before any round could check it."""
+        if self.paged_kv:
+            bad, toks_ok = self._paged_health()
+            return bool(toks_ok[slot]) and not self._slot_blocks_bad(
+                slot, bad)
+        return bool(self._health()[slot])
+
+    def _quarantine_victim(self, slot: int, state: _Slot) -> None:
+        """Quarantine one poisoned slot (JAX's ``_quarantine_victim``):
+        invalidate its prefix-cache footprint (the row its admission
+        fetched, if that row still holds the matched prefix, and the
+        entry it inserted: either end may carry the corruption), evict
+        it (dense rows zeroed, paged blocks released, a poisoned one
+        scrubbed with its last reference; its draft table dropped) and
+        requeue the request with backoff. JAX's carve-out for a sampled
+        request that already streamed tokens belongs to incremental
+        delivery, which is not ported."""
+        self._failure_event("faults_detected")
+        self._failure_event("quarantined")
+        if self.prefix_cache is not None:
+            if state.hit_row is not None:
+                held = self.prefix_cache.row_prefix(state.hit_row)
+                prompt = tuple(int(t) for t in state.request.prompt)
+                m = state.prefix_reused
+                if (held is not None and len(held) >= m
+                        and held[:m] == prompt[:m]):
+                    self.prefix_cache.invalidate_row(state.hit_row)
+            self.prefix_cache.invalidate(state.request.prompt)
+        self._evict_slot(slot)
+        self._requeue_victim(state.request)
+
+    def _quarantine(self, active: List[int]) -> List[int]:
+        """The paranoid sweep of a landed round (JAX's ``_quarantine``):
+        one health check over the pool and the current tokens; every
+        condemned slot goes to :meth:`_quarantine_victim`, and paged,
+        every trie entry still holding a poisoned block is invalidated.
+        Returns the healthy subset of ``active``: the poisoned round's
+        tokens never reach a result."""
+        if self.paged_kv:
+            bad, toks_ok = self._paged_health()
+            healthy, victims = [], []
+            for slot in active:
+                if bool(toks_ok[slot]) and not self._slot_blocks_bad(
+                        slot, bad):
+                    healthy.append(slot)
+                else:
+                    victims.append(slot)
+            for slot in victims:
+                self._quarantine_victim(slot, self._slots[slot])
+            if bad and self.prefix_cache is not None:
+                for row in list(self.prefix_cache.stored_rows()):
+                    payload = self.prefix_cache.payload(row)
+                    if set(payload.blocks.values()) & bad:
+                        self.prefix_cache.invalidate_row(row)
+                        self._failure_event("faults_detected")
+            return healthy
+        ok = self._health()
+        healthy = [s for s in active if bool(ok[s])]
+        for slot in active:
+            if not bool(ok[slot]):
+                self._quarantine_victim(slot, self._slots[slot])
+        return healthy
 
     # -- the scheduling round ------------------------------------------
     def _decode_steps(self, ops, n: int) -> torch.Tensor:
@@ -1087,12 +1568,16 @@ class DecodeEngine:
         = a stepped round; K >= 1 = one K-round window, only when no
         host decision is pending (no queued arrival, no admission
         part-way through its chunks, no requeued victim, no draft this
-        round: a verify pass needs its per-round host lookup). K is the
+        round: a verify pass needs its per-round host lookup; no fault
+        plan: its events are indexed by round; no live deadline: it
+        must be able to expire between rounds). K is the
         pow2 bucket covering the widest live
         request's remaining rounds, capped at ``fused_rounds``, so at
         most log2(fused_rounds) + 1 windows are ever captured."""
         if (not self.fused_rounds or spec_round or self._pending
-                or self._requeue or self.scheduler.decision_pending()):
+                or self._requeue or self.fault_plan is not None
+                or self._has_deadlines
+                or self.scheduler.decision_pending()):
             return 0
         max_rem = max(self._slots[s].request.max_new_tokens
                       - len(self._slots[s].tokens) for s in active)
@@ -1263,7 +1748,9 @@ class DecodeEngine:
             out = self._run_graph("decode", self._round_body, ops)
             host = self._to_host({"seq": out["seq"]})
         inf = _InflightRound(
-            active=list(active), seq=host["seq"],
+            active=list(active),
+            rids={s: self._slots[s].request.id for s in active},
+            seq=host["seq"],
             n_valid=host.get("n_valid"), event=self._round_event(), t0=t0,
             decode_tokens=n_tok,
             drafts=drafts if spec_round else None,
@@ -1277,13 +1764,17 @@ class DecodeEngine:
 
     def _land_round(self, inf: _InflightRound) -> None:
         """Commit a dispatched round (JAX's ``_land_round``): wait for
-        its tokens (the round's one host sync), land a verify pass's
-        accounting first (:meth:`_land_verify`), advance the host tables
-        by the tokens the device wrote (the decode chunk, plus a verify
-        pass's ``acc + 1``) and free blocks that slid out of every
-        window (paged), append each slot's committed tokens (a verify
-        pass's accepted draft and new token, then the decode chunk; a
-        fused window's ``n_valid`` prefix; overshoot past it is
+        its tokens (the round's one host sync), keep only the slots
+        that still hold the request they were dispatched for (a cancel
+        between an async round's dispatch and its landing discards the
+        slot's rows), land a verify pass's accounting first
+        (:meth:`_land_verify`), advance the host tables by the tokens
+        the device wrote (the decode chunk, plus a verify pass's ``acc
+        + 1``) and free blocks that slid out of every window (paged),
+        run the paranoid sweep (:meth:`_quarantine`) before any token
+        is appended, append each healthy slot's committed tokens (a
+        verify pass's accepted draft and new token, then the decode
+        chunk; a fused window's ``n_valid`` prefix; overshoot past it is
         dropped), finish requests and extend the n-gram tables of those
         that go on."""
         if inf.event is not None:
@@ -1291,19 +1782,26 @@ class DecodeEngine:
         seq = inf.seq.numpy()
         n_valid = None if inf.n_valid is None else inf.n_valid.numpy()
         self._last_sync_end = time.perf_counter()
+        active = [s for s in inf.active
+                  if self._slots[s] is not None
+                  and self._slots[s].request.id == inf.rids.get(s)]
         v_emitted = v_n = None
         if inf.verify is not None:
             lens, v_emitted, v_acc = inf.verify
             v_emitted = v_emitted.numpy()
-            v_n = self._land_verify(inf.drafts, lens, v_emitted,
-                                    v_acc.numpy())
-        emitted = 0
-        for slot in inf.active:
-            if self.paged_kv:
+            v_n = self._land_verify(
+                {s: d for s, d in inf.drafts.items() if s in active},
+                lens, v_emitted, v_acc.numpy())
+        if self.paged_kv:
+            for slot in active:
                 tab = self._kv_tabs[slot]
                 tab.length += inf.decode_tokens + (
                     0 if v_n is None else int(v_n[slot]))
                 self._free_expired_blocks(tab)
+        if self.paranoid:
+            active = self._quarantine(active)
+        emitted = 0
+        for slot in active:
             state = self._slots[slot]
             if v_n is not None:
                 row = (list(v_emitted[slot][:int(v_n[slot])])
@@ -1329,7 +1827,7 @@ class DecodeEngine:
         self.stats["decode_time_s"] += self._last_sync_end - inf.t0
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += inf.decode_tokens
-        self.stats["occupancy_sum"] += len(inf.active) / self.n_slots
+        self.stats["occupancy_sum"] += len(active) / self.n_slots
 
     def compile_counts(self) -> Dict[str, int]:
         """The JAX engine's ``compile_counts`` keys for this layout and
@@ -1339,7 +1837,8 @@ class DecodeEngine:
         only with ``fused_rounds``) counts the fused windows, one per
         pow2 K dispatched; ``verify`` (present only with
         ``spec_draft_len``) the verify passes, one per pow2 draft width
-        dispatched; the paths that run eagerly (prefill, chunk
+        dispatched; ``health_check`` (present only with ``paranoid``)
+        the health check's graph, 1 once it has run; the paths that run eagerly (prefill, chunk
         continuations, admission, the paged movers, the dense prefix
         cache's ``prefix_fetch`` and ``prefix_store``) and every path on
         the CPU read 0. A paged prefix cache adds no key."""
@@ -1355,6 +1854,8 @@ class DecodeEngine:
             counts["fused_decode"] = n("fused")
         if self.spec_draft_len:
             counts["verify"] = n("verify")
+        if self.paranoid:
+            counts["health_check"] = keys.count("health_check")
         if self.paged_kv:
             counts.update(paged_scatter=0, paged_tok=0, kv_import=0,
                           kv_gather=0, paged_copy=0, paged_zero=0)
@@ -1395,10 +1896,14 @@ class DecodeEngine:
     def step(self, results: Optional[Dict[int, GenerationResult]] = None
              ) -> Dict[int, GenerationResult]:
         """One scheduling round: land the round in flight (async),
-        requeue, start admissions into free slots, advance chunked
-        admissions under the round's prefill budget and complete those
-        whose suffix is done, one decode chunk or fused window (its
-        reservation and CoW first, paged), evictions. Terminal results
+        requeue, inject the fault plan's events for this round, expire
+        deadlines, start admissions into free slots (an injected
+        admission failure requeues the request it pops instead),
+        advance chunked admissions under the round's prefill budget and
+        complete those whose suffix is done, one decode chunk or fused
+        window (its reservation and CoW first, paged; the paranoid sweep
+        at its landing), evictions. Public so a caller can interleave
+        ``cancel()`` and ``snapshot()`` with progress. Terminal results
         accumulate into (and are returned via) ``results``."""
         if results is None:
             results = {}
@@ -1408,11 +1913,28 @@ class DecodeEngine:
                 # dispatched before any of this round's decisions
                 inf, self._inflight = self._inflight, None
                 self._land_round(inf)
+            t_start = (self._clock()
+                       if self.stall_threshold_s is not None else None)
+            # an admit_fail is scoped to its round: one no admission
+            # consumed expires
+            self._admit_fail_pending = 0
             self._drain_requeue()
+            self._inject_faults()
+            self._sweep_deadlines()
             for slot in range(self.n_slots):
                 if (self._slots[slot] is None
                         and slot not in self._reserved
                         and self.scheduler.pending):
+                    if self._admit_fail_pending > 0:
+                        # injected admission failure: the request it
+                        # pops counts as started and is requeued with
+                        # backoff; no device work ran
+                        self._admit_fail_pending -= 1
+                        victim = self.scheduler.pop()
+                        self._started.add(victim.id)
+                        self._failure_event("faults_detected")
+                        self._requeue_victim(victim)
+                        continue
                     nxt = self.scheduler.pop_admissible()
                     if nxt is None:
                         break
@@ -1434,5 +1956,322 @@ class DecodeEngine:
                 tabs.extend(self.prefix_cache.tables())
             self.stats["frag_tokens"] = pool.fragmentation_tokens(tabs)
         self._round += 1
+        if (t_start is not None
+                and self._clock() - t_start > self.stall_threshold_s):
+            self._failure_event("slow_steps")
         self._drain_terminal(results)
         return results
+
+    # -- snapshot and restore --------------------------------------------
+    def _prefill_sequence(self, seq: Sequence[int],
+                          temperature: float = 0.0,
+                          top_k: Optional[int] = None):
+        """Prefill a token sequence to a B=1 dense streaming state
+        through the regular admission path (segments of
+        ``prefill_chunk``, or of the window in blocking mode, so a
+        sequence longer than the window rolls exactly as live decoding
+        rolled it): the rebuild primitive of ``restore``. Returns
+        ``(rnn, tok)``."""
+        probe = Request(list(seq), 1, temperature=temperature, top_k=top_k)
+        pending = _Pending(probe, -1, None, None, 0, 0, None,
+                           seq=[int(t) for t in seq])
+        step_max = min(self.prefill_chunk or self.window, self.window)
+        while pending.remaining:
+            self._advance_prefill(pending, min(step_max, pending.remaining))
+        return pending.rnn, pending.tok
+
+    def _prime_prefix(self, prefix) -> None:
+        """Recompute one snapshotted prefix-cache entry (prefill is
+        deterministic, so the entry holds what the lost one held).
+        Paged: written into fresh blocks that the trie then owns; an
+        entry the pool cannot hold is skipped (the cache is a cache, not
+        state)."""
+        if self.prefix_cache is None or not len(prefix):
+            return
+        prefix = [int(t) for t in prefix]
+        rnn, _ = self._prefill_sequence(prefix)
+        if self.paged_kv:
+            self._ensure_pool(rnn)
+            tab = self._alloc_window_tab(len(prefix))
+            if tab is None:
+                return
+            table_row, _ = tab.arrays(self._ring_slots)
+            self._scatter_row(rnn, table_row, tab.length)
+            self.prefix_cache.insert_blocks(prefix, tab)
+            self._free_table(tab)
+            return
+        self.prefix_cache.insert(prefix, rnn)
+
+    def _rebuild_slot(self, slot: int, request: Request, tokens: List[int],
+                      prefix_reused: int, spec_drafted: int = 0,
+                      spec_accepted: int = 0) -> None:
+        """Rebuild a snapshotted running slot: re-prefill the prompt and
+        the generated ids less the last (exactly the cache a slot holds
+        between rounds: its newest id is the current token, not yet in
+        the cache), write that state into the slot (dense: its pool
+        rows; paged: a scatter into fresh blocks), set the current token
+        and rebuild the n-gram table from the same ids."""
+        tokens = [int(t) for t in tokens]
+        seq = [int(t) for t in request.prompt] + tokens[:-1]
+        rnn, _ = self._prefill_sequence(seq, request.temperature,
+                                        request.top_k)
+        self._ensure_pool(rnn)
+        if self.paged_kv:
+            tab = self._alloc_window_tab(len(seq))
+            if tab is None:
+                raise RuntimeError(
+                    "paged restore could not allocate blocks for a "
+                    "snapshotted slot: kv_blocks is smaller than the "
+                    "snapshot's working set")
+            table_row, _ = tab.arrays(self._ring_slots)
+            self._scatter_row(rnn, table_row, tab.length)
+            self._kv_tabs[slot] = tab
+        else:
+            tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool, rnn)
+        self._toks[slot] = tokens[-1]
+        self._slots[slot] = _Slot(request, tokens,
+                                  prefix_reused=prefix_reused,
+                                  spec_drafted=spec_drafted,
+                                  spec_accepted=spec_accepted)
+        self._started.add(request.id)
+        self._temps[slot] = request.temperature
+        self._top_ks[slot] = request.top_k or self.vocab
+        if self.spec is not None:
+            self.spec.seed(slot, [int(t) for t in request.prompt] + tokens)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Everything needed to finish this engine's work in a fresh
+        process, as the JAX engine's version-1 plain (JSON-serialisable)
+        dict, key for key: config, RNG, queue, each running slot's
+        request and generated ids, admissions in flight (restored as
+        queued), requeued requests with their remaining delay, retries,
+        the prefix trie's prefixes and undelivered terminal results. No
+        device tensor is captured: ``restore`` rebuilds the KV state by
+        re-prefilling recorded tokens. An async round in flight lands
+        first.
+
+        ``config`` carries the knobs this port refuses at their only
+        accepted values, so the JAX package's ``restore`` accepts the
+        dict. ``paged`` lists the slots' block tables and the refcounts
+        of the first ``kv_blocks`` blocks (the pool's scratch block is
+        never named). The RNG: ``rng_key`` holds what
+        ``jax.random.PRNGKey(seed)`` holds for this engine's seed (a
+        torch generator cannot seed JAX's key), and ``torch_rng_state``,
+        a key of the port's own that the JAX package ignores, holds the
+        engine's generator state as ints (read after the captured
+        graphs' replays advanced it)."""
+        if self._inflight is not None:
+            inf, self._inflight = self._inflight, None
+            with torch.no_grad():
+                self._land_round(inf)
+        now = self._clock()
+
+        def entry(req: Request) -> Dict[str, Any]:
+            return {"request": _request_dict(req),
+                    "elapsed_s": self._elapsed(req.id, now),
+                    "started": req.id in self._started}
+
+        slots: List[Optional[Dict[str, Any]]] = []
+        for state in self._slots:
+            if state is None:
+                slots.append(None)
+                continue
+            slots.append({
+                "request": _request_dict(state.request),
+                "tokens": list(state.tokens),
+                "prefix_reused": state.prefix_reused,
+                "elapsed_s": self._elapsed(state.request.id, now),
+                "spec_drafted": state.spec_drafted,
+                "spec_accepted": state.spec_accepted,
+                "delta_sent": len(state.tokens),
+            })
+        sched = self.scheduler
+        paged = None
+        if self.paged_kv:
+            pool = self.block_pool
+            paged = {
+                "block_tokens": self.block_tokens,
+                "kv_blocks": self.kv_blocks,
+                "tables": {
+                    str(slot): {"length": tab.length, "floor": tab.floor,
+                                "blocks": {str(g): int(b)
+                                           for g, b in tab.blocks.items()}}
+                    for slot, tab in enumerate(self._kv_tabs)
+                    if tab is not None},
+                "refcounts": {str(b): pool.refcount(b)
+                              for b in range(self.kv_blocks)
+                              if pool.refcount(b) > 0},
+            }
+        return {
+            "version": 1,
+            "config": {
+                "n_slots": self.n_slots,
+                "decode_chunk": self.decode_chunk,
+                "min_prompt_bucket": sched.min_bucket,
+                "prefix_cache_rows": (self.prefix_cache.rows
+                                      if self.prefix_cache else 0),
+                "prefill_chunk": self.prefill_chunk,
+                "admission_policy": sched.policy,
+                "prefill_budget": sched._budget_ceiling,
+                "max_queue": sched.max_queue,
+                "shed_policy": self.shed_policy,
+                "adaptive_prefill": self.adaptive_prefill,
+                "paranoid": self.paranoid,
+                "max_retries": self.max_retries,
+                "retry_backoff_rounds": self.retry_backoff_rounds,
+                "stall_threshold_s": self.stall_threshold_s,
+                "spec_draft_len": self.spec_draft_len,
+                "draft_source": self.draft_source,
+                "paged_kv": self.paged_kv,
+                "block_tokens": self.block_tokens,
+                "kv_blocks": self.kv_blocks or 0,
+                "record_timing": _UNPORTED["record_timing"],
+                "flight_recorder": _UNPORTED["flight_recorder"],
+                "tp": _UNPORTED["tp"],
+                "use_flash_paged": self.use_flash_paged,
+                "async_rounds": self.async_rounds,
+                "fused_rounds": self.fused_rounds,
+                "kv_host_tier_bytes": _UNPORTED["kv_host_tier_bytes"],
+                "kv_disk_tier_path": _UNPORTED["kv_disk_tier_path"],
+                "kv_disk_tier_bytes": _UNPORTED["kv_disk_tier_bytes"],
+            },
+            "paged": paged,
+            "tenants": None,
+            "spec": ({"draft_len": sched.draft_len,
+                      "drafted": sched._spec_drafted,
+                      "accepted": sched._spec_accepted,
+                      "rounds": sched._spec_rounds}
+                     if self.spec is not None else None),
+            "rng_key": _jax_key_words(self._seed),
+            "torch_rng_state": self._gen.get_state().tolist(),
+            "round": self._round,
+            "slots": slots,
+            "pending": [entry(p.request) for p in self._pending],
+            "queue": [entry(r) for r in sched.queued_requests()],
+            "requeue": [dict(entry(req),
+                             delay_rounds=max(0, ready - self._round))
+                        for ready, req in self._requeue],
+            "retries": {str(k): v for k, v in self._retries.items()},
+            "prefix_prompts": (
+                [list(p) for p in self.prefix_cache.cached_prefixes()]
+                if self.prefix_cache is not None else []),
+            "terminal": [dataclasses.asdict(r)
+                         for r in self._terminal.values()],
+        }
+
+    @classmethod
+    def restore(cls, net, snapshot: Dict[str, Any],
+                fault_plan: Optional[FaultPlan] = None, clock=None,
+                seed: int = 0, use_flash_paged=_UNSET) -> "DecodeEngine":
+        """Rebuild an engine from a ``snapshot()`` dict of either
+        package (JAX's ``restore``): the same config, the prefix trie
+        re-primed by re-prefill, every running slot's KV state
+        re-prefilled from its recorded ids (the prompt and the ids less
+        the last, through the chunked path; paged, scattered into fresh
+        blocks), the queue (admissions that were in flight first), the
+        requeue with its remaining delays, retries, terminals, issued
+        ids and deadlines' elapsed time. ``run()`` then finishes the
+        same greedy ids a crash-free engine would. Rounds count from 0
+        again, as in JAX (a ``fault_plan`` given here is indexed from
+        the restore).
+
+        The RNG: the engine's generator takes the snapshot's
+        ``torch_rng_state`` when it has one (a port snapshot), after the
+        re-prefill, so two restores of one snapshot draw the same
+        samples; otherwise it keeps ``seed`` (a JAX key cannot seed a
+        torch generator). Sampled streams across the two packages match
+        only in distribution.
+
+        ``use_flash_paged`` overrides the snapshot's toggle (a value the
+        port does not know, such as JAX's ``"interpret"``, reads as
+        None). A snapshot with tenants, ``tp > 1`` or KV tiers is
+        refused as ``__init__`` refuses them."""
+        cfg = snapshot["config"]
+        if use_flash_paged is _UNSET:
+            use_flash_paged = cfg.get("use_flash_paged")
+            if use_flash_paged not in (None, True, False):
+                use_flash_paged = None
+        eng = cls(
+            net, n_slots=cfg["n_slots"], decode_chunk=cfg["decode_chunk"],
+            min_prompt_bucket=cfg["min_prompt_bucket"], seed=seed,
+            prefix_cache_rows=cfg["prefix_cache_rows"],
+            prefill_chunk=cfg["prefill_chunk"],
+            admission_policy=cfg["admission_policy"],
+            prefill_budget=cfg["prefill_budget"],
+            max_queue=cfg["max_queue"], shed_policy=cfg["shed_policy"],
+            adaptive_prefill=cfg["adaptive_prefill"],
+            paranoid=cfg["paranoid"], fault_plan=fault_plan,
+            max_retries=cfg["max_retries"],
+            retry_backoff_rounds=cfg["retry_backoff_rounds"],
+            stall_threshold_s=cfg["stall_threshold_s"], clock=clock,
+            spec_draft_len=cfg.get("spec_draft_len", 0),
+            draft_source=cfg.get("draft_source", "ngram"),
+            paged_kv=cfg.get("paged_kv", False),
+            block_tokens=cfg.get("block_tokens", 16),
+            kv_blocks=cfg.get("kv_blocks") or None,
+            use_flash_paged=use_flash_paged,
+            async_rounds=cfg.get("async_rounds", False),
+            fused_rounds=cfg.get("fused_rounds", 0),
+            tp=int(cfg.get("tp", 1)), tenants=snapshot.get("tenants"),
+            kv_host_tier_bytes=cfg.get("kv_host_tier_bytes", 0),
+            kv_disk_tier_path=cfg.get("kv_disk_tier_path"),
+            kv_disk_tier_bytes=cfg.get("kv_disk_tier_bytes"))
+        spec_state = snapshot.get("spec")
+        if spec_state and eng.spec is not None:
+            eng.scheduler.draft_len = int(spec_state["draft_len"])
+            eng.scheduler._spec_drafted = int(spec_state.get("drafted", 0))
+            eng.scheduler._spec_accepted = int(
+                spec_state.get("accepted", 0))
+            eng.scheduler._spec_rounds = int(spec_state.get("rounds", 0))
+        now = eng._clock()
+        max_id = -1
+
+        def arm(req: Request, elapsed) -> None:
+            nonlocal max_id
+            eng._submit_t[req.id] = now - (elapsed or 0.0)
+            if (req.deadline_s is not None
+                    or req.queue_timeout_s is not None):
+                eng._has_deadlines = True
+            max_id = max(max_id, req.id)
+
+        with torch.no_grad():
+            for prefix in snapshot.get("prefix_prompts", []):
+                eng._prime_prefix(prefix)
+            for slot, sd in enumerate(snapshot["slots"]):
+                if sd is None:
+                    continue
+                req = Request(**sd["request"])
+                eng._rebuild_slot(slot, req, list(sd["tokens"]),
+                                  int(sd.get("prefix_reused", 0)),
+                                  int(sd.get("spec_drafted", 0)),
+                                  int(sd.get("spec_accepted", 0)))
+                eng.scheduler._issued.add(req.id)
+                arm(req, sd.get("elapsed_s"))
+        # admissions in flight were the oldest waiters: they re-enter at
+        # the front of the queue
+        for entry in (list(snapshot.get("pending", []))
+                      + list(snapshot["queue"])):
+            req = Request(**entry["request"])
+            eng.scheduler.requeue(req)
+            arm(req, entry.get("elapsed_s"))
+            if entry.get("started"):
+                eng._started.add(req.id)
+        for entry in snapshot.get("requeue", []):
+            req = Request(**entry["request"])
+            eng._requeue.append(
+                (eng._round + int(entry.get("delay_rounds", 0)), req))
+            eng.scheduler._issued.add(req.id)
+            arm(req, entry.get("elapsed_s"))
+            if entry.get("started"):
+                eng._started.add(req.id)
+        eng._retries = {int(k): int(v)
+                        for k, v in snapshot.get("retries", {}).items()}
+        for rd in snapshot.get("terminal", []):
+            eng._terminal[rd["id"]] = GenerationResult(**rd)
+            max_id = max(max_id, rd["id"])
+        if max_id >= 0:
+            eng.scheduler.reserve_ids_through(max_id)
+        state = snapshot.get("torch_rng_state")
+        if state is not None:
+            eng._gen.set_state(torch.tensor(state, dtype=torch.uint8))
+        return eng

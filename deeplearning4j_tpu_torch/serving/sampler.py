@@ -37,6 +37,18 @@ def _scaled_filtered_logits(probs, temps, top_ks):
     return filtered / torch.clamp(temps, min=1e-6)[..., None]
 
 
+def _draw(p, gen):
+    """One class per row of the distributions ``p`` [B, V]
+    (``torch.multinomial``). A row that is not finite (a slot whose K/V
+    a fault poisoned) draws from the uniform distribution instead:
+    ``multinomial`` asserts on the device when any row holds a NaN, and
+    that assert would end the process, not the one request. Finite rows
+    and the generator's draws are untouched. int32 [B]."""
+    ok = torch.isfinite(p).all(dim=-1, keepdim=True)
+    p = torch.where(ok, p, torch.ones_like(p))
+    return torch.multinomial(p, 1, generator=gen)[:, 0].to(torch.int32)
+
+
 def sample_tokens(probs, temps, top_ks, gen=None):
     """One token per slot from softmax rows.
 
@@ -59,8 +71,7 @@ def sample_tokens(probs, temps, top_ks, gen=None):
     temps = torch.as_tensor(temps, dtype=torch.float32).to(probs.device)
     top_ks = torch.as_tensor(top_ks).to(probs.device)
     scaled = _scaled_filtered_logits(probs.float(), temps, top_ks)
-    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                                generator=gen)[:, 0].to(torch.int32)
+    sampled = _draw(torch.softmax(scaled, dim=-1), gen)
     return torch.where(temps > 0, sampled, greedy)
 
 
@@ -148,6 +159,5 @@ def residual_sample(probs, ban_tok, do_ban, temps, top_ks, gen=None):
                              == ban_tok.long()[:, None])
     scaled = torch.where(ban, torch.full_like(scaled, -float("inf")),
                          scaled)
-    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                                generator=gen)[:, 0].to(torch.int32)
+    sampled = _draw(torch.softmax(scaled, dim=-1), gen)
     return torch.where(temps > 0, sampled, greedy)

@@ -129,9 +129,10 @@ def test_eos_and_sampling(tmp_path):
 
 
 #: knobs this test once listed as unported that the port now carries
-#: (chunked prefill and the prefix caches): they must be accepted
+#: (chunked prefill and the prefix caches, speculative decoding, fault
+#: handling): they must be accepted
 PORTED_KNOBS = ("prefix_cache_rows", "prefill_chunk", "adaptive_prefill",
-                "spec_draft_len")
+                "spec_draft_len", "paranoid", "max_queue", "fault_plan")
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -157,8 +158,9 @@ def test_unknown_knob_and_deadlines_raise(tmp_path):
     with pytest.raises(TypeError, match="bogus"):
         TEngine(net, bogus=1)
     eng = TEngine(net, **GEOMETRY)
-    with pytest.raises(NotImplementedError, match="deadline"):
-        eng.submit(TRequest([1], 2, deadline_s=1.0))
+    # deadlines are ported (fault handling): accepted, and the sweep armed
+    assert eng.submit(TRequest([1], 2, deadline_s=1.0)) >= 0
+    assert eng._has_deadlines
     with pytest.raises(ValueError, match="outside vocab"):
         eng.submit(TRequest([V], 2))
     with pytest.raises(ValueError, match="window"):
