@@ -189,6 +189,32 @@ JAX or of the JAX package. Phases, each fatal on failure:
    the generator state ``snapshot`` reads. (c) A paged snapshot with 2
    sampled requests running, restored twice: identical ids. The
    kernels line does not change.
+16. gateway — bench.py's ``bench_gateway_streaming``: the serving net
+   at bf16 behind a ``ServingGateway`` (keep-alive 1 s, admission grace
+   0.25 s), 8 slots, chunk 32, 8 concurrent SSE clients (in a process
+   of their own) of 128-token prompts and 128 new tokens, on the dense
+   and the paged layout: a
+   warm round on an in-process engine and one through the gateway
+   (while a client scrapes the lock-free endpoints and a profile hook
+   records any torch call another thread makes while the stepping
+   thread captures), then 3 interleaved in-process and HTTP rounds and
+   one HTTP round under a ``/v1/metrics`` scraper. Reports: HTTP
+   against in-process tokens/s, client TTFT p50 / p99 against the
+   engine's, each engine's host time a step, the scrape's time. Gates:
+   every stream's ids equal the in-process engine's, no graph captured
+   across the timed rounds, the gateway's handler threads ran during a
+   capture and made no torch call then; paged, K2 launched N_LAYERS times per decode step of the
+   gateway's engine, counted over the HTTP rounds alone. At
+   f32: the paged engine with ``spec_draft_len=32`` and
+   ``prefix_cache_rows=4`` (the trie primed through ``/v1/warmup``)
+   over HTTP, ids equal the in-process engine's with verify passes and
+   splices in the run; observability (``record_timing`` and a tracer)
+   on against off in process: ids and graphs identical, tokens/s of
+   both; a paranoid paged engine with one NaN'd slot over HTTP: every
+   stream equals the fault-free ids (the victim's retry streams
+   nothing twice), and a fan-out that drops one delta and an
+   ``_emit_delta`` that re-sends a retried request's tokens must each
+   break that.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -198,8 +224,9 @@ at training B's shape, its f32 entries ``flash_attention_f32`` and
 ``flash_attention_f32_bwd`` at training A's, their launches from phase
 A's f32 ``fit`` and counted ``fit_scan`` graph window, each plus its
 prefill launches in phase 8 at its dtype; K2's from phase 6's stepped
-and fused runs, ``paged_attention_chunk`` (K2 at t=256) from phase 13a's
-paged warm chunks, ``paged_attention_verify`` (K2 at t=33) from phase
+and fused runs and phase 16's bf16 paged gateway's HTTP rounds,
+``paged_attention_chunk`` (K2 at t=256) from phase 13a's paged warm
+chunks, ``paged_attention_verify`` (K2 at t=33) from phase
 14's paged timed rounds; K3's ``conv_taps`` and ``conv_taps_f32`` with their
 launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
@@ -215,6 +242,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3581,8 +3609,8 @@ def _fault_planted(name):
         return np.ones(self.n_slots + (self.kv_blocks if self.paged_kv
                                        else 0), bool)
 
-    def with_current(self, slot, request, tokens, *rest):
-        orig(self, slot, request, list(tokens) + [tokens[-1]], *rest)
+    def with_current(self, slot, request, tokens, *rest, **kw):
+        orig(self, slot, request, list(tokens) + [tokens[-1]], *rest, **kw)
         self._slots[slot].tokens = list(tokens)
 
     setattr(DecodeEngine, attr,
@@ -3846,6 +3874,597 @@ def fault_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# Phase 16: the gateway, bench.py's bench_gateway_streaming: the serving
+# net at bf16, 8 slots, chunk 32, 8 concurrent SSE clients (one thread
+# each, in a process of their own: _Clients) of 128-token prompts
+# (serving seed 0) and 128 new tokens through
+# a ServingGateway (keep-alive 1 s, admission grace 0.25 s: the burst
+# shares round 1), on both layouts: a warm round on an in-process engine
+# (the reference ids) and one through the gateway's own engine, then
+# GATEWAY_TRIALS interleaved in-process and HTTP rounds, then one more
+# HTTP round while a client scrapes /v1/metrics. At f32 (the phase's
+# gates): the paged engine with spec_draft_len 32 and prefix_cache_rows
+# 4 over HTTP (the trie primed with the prompts' shared head through
+# /v1/warmup, so every admission splices the same blocks whatever the
+# arrival order); a paranoid paged engine with one NaN'd slot over HTTP,
+# correct and with two planted delta faults; and observability
+# (record_timing and a tracer) on against off in process.
+GATEWAY_TRIALS = 3
+GATEWAY_KEEPALIVE_S, GATEWAY_GRACE_S = 1.0, 0.25
+GATEWAY_LAYOUTS = {"dense": {},
+                   "paged": dict(paged_kv=True, block_tokens=BLOCK_TOKENS,
+                                 use_flash_paged=True)}
+GATEWAY_GEN32 = 64
+#: timed pairs of the in-process observability on / off runs
+GATEWAY_OBS_PAIRS = 5
+GATEWAY_SPEC = dict(spec_draft_len=32, prefix_cache_rows=4)
+GATEWAY_PLANTED = ("drops one delta", "re-sends the tail after a retry")
+#: the endpoints a scraper hammers while the stepping thread captures:
+#: those that answer without the gateway's lock (a handler that takes
+#: it, as ``/v1/requests/<id>`` does, waits out the stepping thread's
+#: round and cannot race its capture)
+GATEWAY_SCRAPED = ("/v1/healthz", "/v1/metrics", "/v1/trace")
+#: the pause after each pass of that scraper (an unpaused one made
+#: 2,208-2,439 requests during one capture and stretched phase 16 to
+#: 66.8 s on an NVIDIA H100 80GB HBM3 at 700.00 W)
+GATEWAY_SCRAPE_PAUSE_S = 0.02
+
+
+def gateway_head_prompts() -> tuple:
+    """The f32 speculative run's prompts: a shared FAULT_HEAD-token head
+    (whole blocks) and FAULT_TAIL-token tails whose first tokens all
+    differ, so every admission's longest cached prefix is the head."""
+    rng = np.random.default_rng(16)
+    head = rng.integers(0, VOCAB, FAULT_HEAD).tolist()
+    prompts = []
+    for i in range(N_SLOTS):
+        tail = rng.integers(0, VOCAB, FAULT_TAIL).tolist()
+        tail[0] = i
+        prompts.append(head + tail)
+    return head, prompts
+
+
+def _inproc_round(eng, prompts, n_gen) -> tuple:
+    """Submit ``prompts`` (``n_gen`` new tokens) to ``eng`` and run it
+    in process: (tokens/s from the first submit to the last token, ids
+    in order, results in order)."""
+    from deeplearning4j_tpu_torch.serving import Request
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(Request(list(p), n_gen)) for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = [res[i] for i in rids]
+    return sum(len(r.tokens) for r in out) / dt, [r.tokens for r in out], out
+
+
+def _client_round(job) -> dict:
+    """One round of gateway clients, one thread per prompt, all started
+    together: ``job`` is {"address", "prompts", "n_gen", "mode": "sse"
+    (streams) or "blocking" (``/v1/generate``)}. Returns each client's
+    concatenated ids, its terminal and (SSE) its time to the first
+    delta, the clients' errors by index, and the round's wall."""
+    from deeplearning4j_tpu_torch.serving.client import GatewayClient
+
+    client = GatewayClient(job["address"], timeout_s=600.0)
+    prompts, n_gen = job["prompts"], job["n_gen"]
+    n = len(prompts)
+    outs, results, ttfts, errors = [None] * n, [None] * n, [None] * n, {}
+
+    def one(i):
+        try:
+            t_sub = time.perf_counter()
+            if job["mode"] == "blocking":
+                results[i] = client.generate(prompts[i], n_gen)
+                outs[i] = results[i]["tokens"]
+                return
+            st = client.stream(prompts[i], n_gen)
+            toks, first = [], None
+            for delta in st:
+                if first is None:
+                    first = time.perf_counter() - t_sub
+                toks.extend(delta)
+            outs[i], results[i], ttfts[i] = toks, st.result, first
+        except Exception as e:      # the phase names the failed client
+            errors[i] = repr(e)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    errors.update({i: "still running" for i, t in enumerate(threads)
+                   if t.is_alive()})
+    return {"outs": outs, "results": results, "ttfts": ttfts,
+            "errors": errors, "wall": wall}
+
+
+def _client_loop() -> None:
+    """The client process's body (``_Clients``): one JSON job a line in,
+    one ``_client_round`` result a line out, until stdin closes."""
+    print("ready", flush=True)
+    for line in sys.stdin:
+        print(json.dumps(_client_round(json.loads(line))), flush=True)
+
+
+class _Clients:
+    """The gateway phase's clients, in a process of their own: clients
+    that are threads of the server's process would take its interpreter
+    lock from the gateway's stepping and handler threads, which no user
+    of a gateway pays. ``round`` runs one ``_client_round`` there and
+    adds its tokens/s over the round's wall; a client that fails fails
+    the phase. A context manager: the process ends on exit."""
+
+    def __init__(self):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke._client_loop()"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            env=env)
+        if self.proc.stdout.readline().strip() != "ready":
+            self.close()
+            raise SystemExit("chip_smoke: the client process did not start")
+
+    def round(self, address, prompts, n_gen, mode="sse") -> dict:
+        self.proc.stdin.write(json.dumps(
+            {"address": address, "prompts": prompts, "n_gen": n_gen,
+             "mode": mode}) + "\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        if not line:
+            raise SystemExit("chip_smoke: the client process ended")
+        out = json.loads(line)
+        if out["errors"]:
+            raise SystemExit(f"chip_smoke: gateway clients failed: "
+                             f"{out['errors']}")
+        out["rate"] = sum(len(o) for o in out["outs"]) / out["wall"]
+        return out
+
+    def close(self) -> None:
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=60)
+        except Exception:
+            self.proc.kill()
+            self.proc.wait()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+SCRAPER_THREAD = "chip_smoke scraper"
+
+
+class _Scraper:
+    """A client thread that GETs ``paths`` in turn until stopped, only
+    while ``while_()`` holds where one is given (it polls it every
+    millisecond), pausing ``pause_s`` after each pass; the wall of each
+    ``/v1/metrics`` scrape is kept."""
+
+    def __init__(self, address, paths, while_=None, pause_s=0.0):
+        import http.client
+        import urllib.parse
+
+        self._http = http.client
+        self.host = urllib.parse.urlsplit(address).netloc
+        self.paths = paths
+        self.while_ = while_
+        self.pause_s = pause_s
+        self.metrics_s: list = []
+        self.n = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=SCRAPER_THREAD)
+
+    def _run(self):
+        while not self._stop.is_set():
+            if self.while_ is not None and not self.while_():
+                time.sleep(0.001)
+                continue
+            for path in self.paths:
+                conn = self._http.HTTPConnection(self.host, timeout=60)
+                t0 = time.perf_counter()
+                conn.request("GET", path)
+                conn.getresponse().read()
+                if path == "/v1/metrics":
+                    self.metrics_s.append(time.perf_counter() - t0)
+                conn.close()
+                self.n += 1
+            time.sleep(self.pause_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+class _CaptureWatch:
+    """Records every call into torch made by a thread other than the
+    gateway's stepping thread while a ``GraphRunner`` captures a graph
+    (the stepping thread captures; CUDA work from a handler thread
+    meanwhile would break the capture, and no handler may launch any).
+    ``threading.setprofile`` reaches the threads started inside
+    ``watching()`` (the gateway's stepping thread, each connection's
+    handler thread); the hook removes itself from the stepping thread
+    and from the scraper's own thread. ``overlap`` counts the events
+    the gateway's other threads ran during captures: that they raced
+    the capture at all."""
+
+    def __init__(self):
+        self.capturing = 0
+        self.stepper = None
+        self.stray: list = []
+        self.overlap = 0
+        self.captures = 0
+        self._torch_dir = os.path.dirname(torch.__file__)
+
+    def _hook(self, frame, event, arg):
+        if (threading.get_ident() == self.stepper
+                or threading.current_thread().name == SCRAPER_THREAD):
+            sys.setprofile(None)
+            return
+        if not self.capturing:
+            return
+        self.overlap += 1
+        name = None
+        if event == "call":
+            if frame.f_code.co_filename.startswith(self._torch_dir):
+                name = frame.f_code.co_name
+        elif event == "c_call":
+            mod = getattr(arg, "__module__", None) or ""
+            if (mod.startswith("torch")
+                    or isinstance(getattr(arg, "__self__", None),
+                                  torch.Tensor)):
+                name = getattr(arg, "__name__", repr(arg))
+        if name is not None:
+            self.stray.append((threading.current_thread().name, name))
+
+    @contextlib.contextmanager
+    def watching(self):
+        from deeplearning4j_tpu_torch.nn import cuda_graphs
+
+        orig = cuda_graphs.GraphRunner._capture
+        watch = self
+
+        def capture(runner, *args, **kw):
+            watch.capturing += 1
+            watch.captures += 1
+            try:
+                return orig(runner, *args, **kw)
+            finally:
+                watch.capturing -= 1
+
+        cuda_graphs.GraphRunner._capture = capture
+        threading.setprofile(self._hook)
+        try:
+            yield self
+        finally:
+            threading.setprofile(None)
+            cuda_graphs.GraphRunner._capture = orig
+
+
+def _gateway(engine, watch=None):
+    """A started ServingGateway over ``engine`` at the phase's keep-alive
+    and admission grace (its stepping thread registered with ``watch``)."""
+    from deeplearning4j_tpu_torch.serving import ServingGateway
+
+    gw = ServingGateway(engine, keepalive_s=GATEWAY_KEEPALIVE_S,
+                        admission_grace_s=GATEWAY_GRACE_S).start()
+    if watch is not None:
+        watch.stepper = gw._stepper.ident
+    return gw
+
+
+def _quantile_ms(values, q) -> float:
+    return float(np.quantile(np.asarray(values, np.float64), q)) * 1e3
+
+
+def _host_step_ms(eng) -> float:
+    """The engine's median host time between a round's token sync and
+    the next dispatch (``serving_host_step_s``), ms."""
+    return eng.histograms["serving_host_step_s"].quantile(0.5) * 1e3
+
+
+def gateway_layout_phase(card: str, net, layout: str, clients) -> int:
+    """bench_gateway_streaming on ``layout`` at bf16, the SSE clients in
+    ``clients``' process. Gates: every stream's ids equal the in-process
+    engine's, no graph captured across the timed HTTP rounds, handler
+    threads ran during the stepping thread's capture and made no torch
+    call; paged,
+    K2 launched N_LAYERS times per decode step of the gateway's engine
+    (its capture's warm-up steps included). Returns K2's t = 1 launches
+    under the gateway, counted over its HTTP rounds alone (the
+    in-process engine's rounds, which give the ids and the rate the
+    gateway is held to, are not counted)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    prompts = serving_prompts(0, n=N_SLOTS)
+    geometry = dict(n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                    **GATEWAY_LAYOUTS[layout])
+    inproc = DecodeEngine(net, **geometry)
+    _, ref, _ = _inproc_round(inproc, prompts, N_GEN)
+    gw_eng = DecodeEngine(net, **geometry)
+    launches = 0
+
+    def http_round(address):
+        nonlocal launches
+        paged_attention.launches = paged_attention.chunk_launches = 0
+        h = clients.round(address, prompts, N_GEN)
+        launches += _k2_step_launches()
+        return h
+
+    watch = _CaptureWatch()
+    with watch.watching():
+        gw = _gateway(gw_eng, watch)
+        try:
+            # scraping only while the stepping thread captures, a pass
+            # every GATEWAY_SCRAPE_PAUSE_S, keeps the profile hook's cost
+            # (the GIL the handler threads take) small
+            with _Scraper(gw.address, GATEWAY_SCRAPED,
+                          lambda: watch.capturing > 0,
+                          GATEWAY_SCRAPE_PAUSE_S) as scraper:
+                warm = http_round(gw.address)
+        except BaseException:
+            gw.close()
+            raise
+    diverged = [i for i in range(N_SLOTS)
+                if warm["outs"][i] != ref[i]
+                or warm["results"][i]["tokens"] != ref[i]]
+    try:
+        counts0 = gw_eng.compile_counts()
+        in_rates, http_rates, ttft_client, ttft_engine = [], [], [], []
+        for _ in range(GATEWAY_TRIALS):
+            rate, ids, _ = _inproc_round(inproc, prompts, N_GEN)
+            in_rates.append(rate)
+            diverged += [i for i in range(N_SLOTS) if ids[i] != ref[i]]
+            h = http_round(gw.address)
+            http_rates.append(h["rate"])
+            ttft_client += h["ttfts"]
+            ttft_engine += [r["ttft_s"] for r in h["results"]]
+            diverged += [i for i in range(N_SLOTS)
+                         if h["outs"][i] != ref[i]]
+        counts1 = gw_eng.compile_counts()
+        with _Scraper(gw.address, ("/v1/metrics",)) as metrics:
+            scraped = http_round(gw.address)
+    finally:
+        gw.close()
+    steps = (gw_eng.stats["decode_steps"]
+             + DECODE_CHUNK * gw_eng._graphs.captures)
+    want_k2 = N_LAYERS * steps if layout == "paged" else 0
+    in_rate, http_rate = float(np.median(in_rates)), float(np.median(
+        http_rates))
+    log(f"gateway [{layout}, bf16]: {N_SLOTS} SSE clients x {N_GEN} "
+        f"tokens in a process of their own, chunk {DECODE_CHUNK}; HTTP "
+        f"{http_rate:.1f} tokens/s (trials "
+        f"{[round(r, 1) for r in http_rates]}) against in-process "
+        f"run() {in_rate:.1f} from submit (trials "
+        f"{[round(r, 1) for r in in_rates]}): {http_rate / in_rate:.3f}x "
+        f"(a report; JAX gates 0.9x); client "
+        f"TTFT p50 {_quantile_ms(ttft_client, 0.5):.1f} ms, p99 "
+        f"{_quantile_ms(ttft_client, 0.99):.1f} against the engine's "
+        f"timing p50 {_quantile_ms(ttft_engine, 0.5):.1f}, p99 "
+        f"{_quantile_ms(ttft_engine, 0.99):.1f}; host time a step "
+        f"(token sync to next dispatch, p50) gateway "
+        f"{_host_step_ms(gw_eng):.3f} ms, in-process "
+        f"{_host_step_ms(inproc):.3f}; /v1/metrics while streaming "
+        f"p50 {_quantile_ms(metrics.metrics_s, 0.5):.2f} ms, max "
+        f"{max(metrics.metrics_s) * 1e3:.2f} over "
+        f"{len(metrics.metrics_s)} scrapes (that round "
+        f"{scraped['rate']:.1f} tokens/s); during the warm round's "
+        f"{watch.captures} captures the scraper made {scraper.n} requests "
+        f"and the gateway's other threads ran {watch.overlap} Python "
+        f"calls, {len(watch.stray)} into torch; graphs {counts0} -> "
+        f"{counts1}; ids diverged {sorted(set(diverged))}; K2 t = 1 "
+        f"launches under the gateway {launches} (want {want_k2}"
+        + (f": {N_LAYERS} layers x {steps} steps" if want_k2 else "")
+        + f") [{card}]")
+    if (diverged or counts1 != counts0 or watch.stray
+            or watch.captures < 1 or watch.overlap < 1
+            or launches != want_k2 or metrics.metrics_s == []):
+        raise SystemExit(
+            f"chip_smoke: gateway {layout} failed: diverged "
+            f"{sorted(set(diverged))}, graphs {counts0} -> {counts1}, "
+            f"torch calls during captures {watch.stray[:8]}, captures "
+            f"{watch.captures}, calls raced {watch.overlap}, K2 launches "
+            f"{launches} (want {want_k2})")
+    del inproc, gw_eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stream_failures(h, want) -> list:
+    """The clients whose concatenated deltas or terminal tokens differ
+    from ``want``."""
+    return [i for i in range(len(want))
+            if h["outs"][i] != want[i]
+            or h["results"][i]["tokens"] != want[i]]
+
+
+def gateway_spec_phase(card: str, net32, clients) -> None:
+    """The f32 paged engine with speculation and the prefix cache over
+    HTTP: every stream's ids equal the in-process engine's (deltas from
+    verify passes, splices and the admissions' first tokens), with
+    verify passes and splices in the gateway's run."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, GatewayClient
+
+    head, prompts = gateway_head_prompts()
+    geometry = dict(n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                    **GATEWAY_LAYOUTS["paged"], **GATEWAY_SPEC)
+    inproc = DecodeEngine(net32, **geometry)
+    _inproc_round(inproc, [head], 1)          # what /v1/warmup does
+    _, ref, _ = _inproc_round(inproc, prompts, N_GEN)
+    gw_eng = DecodeEngine(net32, **geometry)
+    gw = _gateway(gw_eng)
+    try:
+        warmed = GatewayClient(gw.address).warmup([head])
+        h = clients.round(gw.address, prompts, N_GEN)
+    finally:
+        gw.close()
+    bad = _stream_failures(h, ref)
+    st = gw_eng.stats
+    log(f"gateway [paged, f32, spec_draft_len 32, prefix_cache_rows 4]: "
+        f"warmup {warmed}; {len(bad)} of {N_SLOTS} streams differ from "
+        f"the in-process ids; verify passes {st['spec_rounds']}, drafted "
+        f"{st['spec_drafted']}, accepted {st['spec_accepted']}; blocks "
+        f"spliced {st['prefix_blocks_spliced']}, prompt tokens skipped "
+        f"{st['prefill_tokens_skipped']}; graphs "
+        f"{gw_eng.compile_counts()} [{card}]")
+    if (bad or st["spec_rounds"] < 1 or st["spec_accepted"] < 1
+            or st["prefix_blocks_spliced"] < 1):
+        raise SystemExit(f"chip_smoke: gateway f32 speculative run failed:"
+                         f" streams {bad} differ, stats {st}")
+    del inproc, gw_eng
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _delta_planted(name, eng):
+    """A planted fault of delivery, within the block: "drops one delta"
+    drops the first delta the gateway's fan-out receives; "re-sends the
+    tail after a retry" forgets a retried request's high-water mark once,
+    so its regenerated tokens stream again."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    if name == "drops one delta":
+        fan_out, dropped = eng.on_delta, []
+
+        def dropping(rid, tokens):
+            if dropped:
+                fan_out(rid, tokens)
+            else:
+                dropped.append(rid)
+
+        eng.on_delta = dropping
+        try:
+            yield
+        finally:
+            eng.on_delta = fan_out
+        return
+    orig, resent = DecodeEngine._emit_delta, set()
+
+    def resend(self, rid, tokens):
+        if self._retries.get(rid) and rid not in resent:
+            resent.add(rid)
+            self._delta_sent[rid] = 0
+        orig(self, rid, tokens)
+
+    DecodeEngine._emit_delta = resend
+    try:
+        yield
+    finally:
+        DecodeEngine._emit_delta = orig
+
+
+def gateway_f32_phase(card: str, clients) -> None:
+    """At f32: the speculative run; observability on against off in
+    process (ids and graphs identical, tokens/s of both); then a paranoid
+    paged engine with one NaN'd slot over HTTP: the victim's greedy
+    retry streams nothing twice and every stream equals the fault-free
+    ids, and each planted delta fault breaks that."""
+    from deeplearning4j_tpu_torch.profiler.tracer import Tracer
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine,
+        FaultEvent,
+        FaultPlan,
+    )
+
+    net32 = _serving_net("float32")
+    gateway_spec_phase(card, net32, clients)
+    prompts = serving_prompts(1, n=N_SLOTS)
+    geometry = dict(n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK,
+                    paranoid=True, max_retries=2, **GATEWAY_LAYOUTS["paged"])
+    tracer = Tracer()
+    on = DecodeEngine(net32, tracer=tracer, **geometry)
+    off = DecodeEngine(net32, record_timing=False, flight_recorder=0,
+                       **geometry)
+    runs = {"on": [], "off": []}
+    for _ in range(1 + GATEWAY_OBS_PAIRS):
+        for name, eng in (("on", on), ("off", off)):
+            runs[name].append(_inproc_round(eng, prompts, GATEWAY_GEN32))
+    same = all(a[1] == b[1] for a, b in zip(runs["on"], runs["off"]))
+    timed = runs["on"][-1][2][0].timing is not None
+    graphs = (on.compile_counts(), off.compile_counts())
+    rate = {k: [r[0] for r in v[1:]] for k, v in runs.items()}
+    med = {k: float(np.median(v)) for k, v in rate.items()}
+    log(f"gateway observability [paged, f32]: record_timing and a tracer "
+        f"on against off, {N_SLOTS} x {GATEWAY_GEN32} tokens: ids "
+        f"identical {same}; graphs {graphs[0]} / {graphs[1]}; tokens/s "
+        f"median of {GATEWAY_OBS_PAIRS} interleaved pairs after a warm "
+        f"pair {med['on']:.1f} / {med['off']:.1f} "
+        f"({med['on'] / med['off']:.3f}x; on "
+        f"{[round(r, 1) for r in rate['on']]}, off "
+        f"{[round(r, 1) for r in rate['off']]}); "
+        f"{len(tracer.spans())} spans, timing filled {timed} [{card}]")
+    if not same or graphs[0] != graphs[1] or not timed:
+        raise SystemExit(f"chip_smoke: observability changed the run: ids "
+                         f"identical {same}, graphs {graphs}")
+    want = runs["off"][0][1]
+    del on, off
+    torch.cuda.empty_cache()
+    gw_eng = DecodeEngine(net32, **geometry)
+    gw = _gateway(gw_eng)
+    caught = {}
+    try:
+        for name in (None,) + GATEWAY_PLANTED:
+            with gw._engine_access():
+                # the first round admits and decodes all 8; the NaN lands
+                # in the second, after slot 0 streamed its first delta
+                gw_eng.fault_plan = FaultPlan([FaultEvent(
+                    gw_eng._round + 1, "nan", slot=0)])
+                retries0 = gw_eng.stats["retries"]
+            with (_delta_planted(name, gw_eng) if name
+                  else contextlib.nullcontext()):
+                h = clients.round(gw.address, prompts, GATEWAY_GEN32)
+            bad = _stream_failures(h, want)
+            retried = gw_eng.stats["retries"] - retries0
+            if name is None:
+                log(f"gateway faults [paged, f32, paranoid]: a NaN'd slot "
+                    f"over HTTP: {retried} retry, {len(bad)} streams "
+                    f"differ from the fault-free ids [{card}]")
+                if bad or retried < 1:
+                    raise SystemExit(
+                        f"chip_smoke: gateway fault run failed: streams "
+                        f"{bad} differ, {retried} retries")
+            else:
+                caught[name] = bool(bad) and retried >= 1
+    finally:
+        gw.close()
+    log(f"gateway planted delta faults caught: {caught} [{card}]")
+    if not all(caught.values()):
+        raise SystemExit(f"chip_smoke: a planted delta fault passed the "
+                         f"stream check: {caught}")
+    del gw_eng, net32
+    torch.cuda.empty_cache()
+
+
+def gateway_phase(card: str) -> int:
+    """Phase 16: the gateway on both layouts at bf16, then the f32 gates,
+    every client in one process of their own. Returns K2's t = 1
+    launches under the bf16 gateways."""
+    net = _serving_net("bfloat16")
+    launches = 0
+    with _Clients() as clients:
+        for layout in GATEWAY_LAYOUTS:
+            launches += gateway_layout_phase(card, net, layout, clients)
+        del net
+        torch.cuda.empty_cache()
+        gateway_f32_phase(card, clients)
+    return launches
+
+
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
 # bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
 # windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
@@ -4094,6 +4713,9 @@ def main() -> int:
     t15 = time.perf_counter()
     fault_phase(card)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    launches["paged_attention"] += gateway_phase(card)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
     k3_ms = {k["name"]: k["ms"] for k in conv}
     launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],

@@ -113,10 +113,11 @@ graphs in one memory pool); with ``spec_draft_len`` it adds
 prefix cache adds its
 ``prefix_fetch`` and ``prefix_store`` (0: eager), a paged one nothing.
 Admission (prefill, chunk continuations, the prefix movers, CoW
-copies) always runs eagerly. ``histograms`` holds the two the
-JAX engine's fused and async paths observe: ``serving_fused_rounds``
-(K at each fused dispatch) and ``serving_host_step_s`` (from the last
-round's token sync to the next dispatch).
+copies) always runs eagerly. ``histograms`` holds, with
+``record_timing``, JAX's engine histograms (``ENGINE_HISTOGRAMS``),
+among them ``serving_fused_rounds`` (K at each fused dispatch) and
+``serving_host_step_s`` (from the last round's token sync to the next
+dispatch).
 
 **Failure handling** (JAX's "Failure-handling knobs"; every knob
 defaults off, and the engine is then the one described above, its ids,
@@ -145,19 +146,47 @@ async round's landing commits only the rows whose slot still holds the
 request it was dispatched for. ``snapshot()`` returns the JAX engine's
 version-1 plain-JSON dict and ``DecodeEngine.restore`` rebuilds an
 engine from it (either package's) by re-prefilling recorded tokens; see
-their docstrings for the RNG. Knobs of the JAX engine that this port
-does not carry yet (tenancy, KV tiers, tensor parallelism, incremental
-delivery, the phase clock, the flight recorder, tracing) raise
-``NotImplementedError`` when set to anything but their default, and
-the branches of JAX's fault code that serve them are left out (the
-sampled-stream carve-out of quarantine and preemption, the tracer
-mirrors, the phase clock's attempts).
+their docstrings for the RNG.
+
+**Incremental delivery** (``on_delta=callback``, or ``emit_deltas=True``
+with ``drain_deltas()``; JAX's): every COMMITTED token surfaces in the
+step that commits it, through a per-request high-water mark
+(``_delta_sent``, snapshotted as ``delta_sent``): a decode chunk, a
+fused window (up to K * ``decode_chunk`` tokens), a verify pass's
+accepted draft and new token (never a rejected tail: deltas are taken
+after the landing and after the paranoid sweep), the admission's first
+token (with its first round) and a restore's resumed stream. A greedy
+retry reproduces its streamed prefix, so nothing is sent twice; a
+SAMPLED request that already streamed ends ``"fault"`` when quarantine
+or preemption would retry it (a redraw could not be spliced onto what
+was sent). This is what the gateway (serving/gateway.py) fans out.
+
+**Request-scoped observability** (JAX's; pure host bookkeeping: ids,
+the generator's draws and the captured graphs are the same with it on
+or off, and no stamp adds a host sync): ``record_timing`` (default on)
+stamps a :class:`_PhaseClock` on every request, read where the round
+already syncs (the token fetch, an async round's landing) and, for a
+fused window or a verify pass, from the host's view of the dispatch;
+its breakdown fills ``GenerationResult.timing`` and the histograms of
+``ENGINE_HISTOGRAMS``. ``flight_recorder`` keeps the last N terminal
+requests' timelines (``request_trace``). A ``tracer``
+(``profiler.tracer.Tracer``) gets JAX's spans (``serving.admit``,
+``prefill``, ``prefill_chunk``, ``decode_chunk``, ``spec_verify``,
+``prefix_fetch``, ``prefix_splice``, ``cow_copy``, each with its
+request ids), the per-round counters, the failure events as cumulative
+``serving_<key>`` tracks and the histograms (``describe_metrics``).
+
+Knobs of the JAX engine that this port does not carry yet (tenancy, KV
+tiers, tensor parallelism) raise ``NotImplementedError`` when set to
+anything but their default.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -201,14 +230,179 @@ from deeplearning4j_tpu_torch.serving.spec import NgramDraftTable
 #: knobs of the JAX engine this port does not carry yet, with the only
 #: value it accepts for each (the JAX engine's default)
 _UNPORTED = {
-    "on_delta": None, "emit_deltas": False,
-    "record_timing": True, "flight_recorder": 256, "tp": 1,
-    "tenants": None, "kv_host_tier_bytes": 0, "kv_disk_tier_path": None,
-    "kv_disk_tier_bytes": None, "tracer": None,
+    "tp": 1, "tenants": None, "kv_host_tier_bytes": 0,
+    "kv_disk_tier_path": None, "kv_disk_tier_bytes": None,
 }
 
 #: restore() keyword sentinel: None is a meaningful ``use_flash_paged``
 _UNSET = object()
+
+#: the histograms a ``record_timing`` engine owns, JAX's names: the
+#: five of the phase clock, the admission split, and the fused and
+#: async paths' two. The JAX engine also owns those of tensor
+#: parallelism and KV transfer and tiers; they come with those knobs
+#: (ROADMAP item 8)
+ENGINE_HISTOGRAMS = ("serving_ttft_s", "serving_itl_s",
+                     "serving_queue_wait_s", "serving_round_s",
+                     "serving_e2e_s", "serving_admission_warm_s",
+                     "serving_admission_cold_s", "serving_host_step_s",
+                     "serving_fused_rounds")
+
+
+class _PhaseClock:
+    """Host-side per-request phase clock: every
+    request accumulates a monotone, DISJOINT-interval phase breakdown
+    — queue wait, admission (split cold-prefill / chunked-suffix /
+    prefix-splice / prefix-fetch), per-round decode / verify / stall —
+    plus an ordered event timeline, one entry per phase transition
+    (capped: a pathological million-round request cannot grow the
+    recorder without bound). Because every attributed interval is a
+    sub-interval of [submit, terminal] and no two overlap, the phase
+    sums can never exceed the request's end-to-end wall time — the
+    invariant the gateway soak gates over HTTP.
+
+    Fault retries and paged preemptions open a NEW attempt (the
+    timeline keeps absolute ``t_s`` offsets from submit, so attempts
+    read as consecutive chapters of one request), and ``enqueue_t``
+    resets so each attempt's queue wait is its own."""
+
+    #: ordered-event cap PER ATTEMPT; past it, events are counted
+    #: (``events_dropped``) instead of stored — phase totals stay exact
+    MAX_EVENTS = 512
+
+    __slots__ = ("submit_t", "enqueue_t", "attempts", "ttft_s",
+                 "last_commit_t", "rounds")
+
+    def __init__(self, submit_t: float):
+        self.submit_t = submit_t
+        self.enqueue_t = submit_t
+        self.attempts: List[Dict[str, Any]] = [self._attempt()]
+        self.ttft_s: Optional[float] = None
+        self.last_commit_t: Optional[float] = None
+        self.rounds = 0
+
+    @staticmethod
+    def _attempt() -> Dict[str, Any]:
+        return {"phases": {}, "events": [], "events_dropped": 0}
+
+    def add(self, now: float, phase: str, dur_s: float,
+            **detail: Any) -> None:
+        """Accumulate ``dur_s`` into ``phase`` and append a timeline
+        event at ``now`` (offsets are relative to submit)."""
+        att = self.attempts[-1]
+        phases = att["phases"]
+        phases[phase] = phases.get(phase, 0.0) + dur_s
+        if len(att["events"]) < self.MAX_EVENTS:
+            event = {"t_s": now - self.submit_t, "phase": phase,
+                     "dur_s": dur_s}
+            if detail:
+                event.update(detail)
+            att["events"].append(event)
+        else:
+            att["events_dropped"] += 1
+
+    def event(self, now: float, phase: str, **detail: Any) -> None:
+        self.add(now, phase, 0.0, **detail)
+
+    def new_attempt(self, now: float, reason: str) -> None:
+        """A retry/preemption/defer requeued the request: close the
+        current attempt and start the next (distinct attempts in the
+        timeline — the soak's retried-request gate)."""
+        self.event(now, "requeue", reason=reason)
+        self.attempts.append(self._attempt())
+        self.enqueue_t = now
+
+    def phase_totals(self) -> Dict[str, float]:
+        totals: Dict[str, float] = {}
+        for att in self.attempts:
+            for phase, dur in att["phases"].items():
+                totals[phase] = totals.get(phase, 0.0) + dur
+        return totals
+
+    def summary(self, now: float, tokens: int) -> Dict[str, Any]:
+        """The terminal timing breakdown (``GenerationResult.timing``
+        + the flight-recorder record)."""
+        p = self.phase_totals()
+        admission = (p.get("admit_cold", 0.0)
+                     + p.get("admit_chunk", 0.0)
+                     + p.get("admit_splice", 0.0)
+                     + p.get("admit_fetch", 0.0))
+        return {
+            "queue_wait_s": p.get("queue_wait", 0.0),
+            "admission_s": admission,
+            "admission_cold_s": p.get("admit_cold", 0.0),
+            "admission_chunked_s": p.get("admit_chunk", 0.0),
+            "admission_splice_s": (p.get("admit_splice", 0.0)
+                                   + p.get("admit_fetch", 0.0)),
+            "decode_s": p.get("decode", 0.0),
+            "verify_s": p.get("verify", 0.0),
+            "stall_s": p.get("stall", 0.0),
+            "ttft_s": self.ttft_s,
+            "e2e_s": now - self.submit_t,
+            "attempts": len(self.attempts),
+            "rounds": self.rounds,
+            "tokens": int(tokens),
+        }
+
+
+#: one-line HELP text per serving track, emitted on /v1/metrics via
+#: ``Tracer.describe`` (registered by ``DecodeEngine`` at init)
+SERVING_TRACK_HELP = {
+    "serving_ttft_s": "submit-to-first-token latency distribution",
+    "serving_itl_s": "inter-token latency distribution (per-round "
+                     "commit gap / tokens committed)",
+    "serving_queue_wait_s": "queue-entry-to-admission-start wait "
+                            "distribution (per attempt)",
+    "serving_round_s": "scheduling-round wall-time distribution",
+    "serving_e2e_s": "submit-to-terminal latency distribution",
+    "serving_tokens_generated": "tokens committed across all requests",
+    "serving_admitted": "requests admitted into a slot",
+    "serving_evicted": "slots freed (finish, cancel, quarantine)",
+    "serving_tokens_per_sec": "per-round decode throughput",
+    "serving_prefill_tokens": "prompt tokens prefilled",
+    "serving_prefill_tokens_skipped": "prompt tokens served from the "
+                                      "prefix cache instead",
+    "serving_deadline_expired": "requests past their end-to-end "
+                                "deadline",
+    "serving_shed": "requests shed by backpressure",
+    "serving_cancelled": "requests cancelled by the caller",
+    "serving_quarantined": "slots quarantined by the paranoid sweep",
+    "serving_retries": "fault-retry re-admissions",
+    "serving_retry_failures": "requests that exhausted the retry cap",
+    "serving_tp_shards": "tensor-parallel shard count (1 = "
+                         "single-chip engine)",
+    "serving_blocks_free": "free KV pool blocks (per-shard "
+                           "{shard=...} copies under tp > 1 — block "
+                           "ids are shard-invariant, so every shard "
+                           "reports the same count over its own "
+                           "head-sliced bytes)",
+    "serving_blocks_used": "used KV pool blocks (per-shard copies "
+                           "under tp > 1, as serving_blocks_free)",
+    "serving_frag_tokens": "allocated-but-masked pool tokens "
+                           "(per-shard copies under tp > 1)",
+    "serving_admission_warm_s": "admission device-work wall for "
+                                "requests that reused a cached "
+                                "prefix (splice/fetch + suffix "
+                                "prefill) — the warm half of the "
+                                "warm-vs-recompute comparison",
+    "serving_admission_cold_s": "admission device-work wall for "
+                                "requests prefilled from scratch — "
+                                "the recompute half of the "
+                                "warm-vs-recompute comparison",
+    "serving_host_step_s": "inter-dispatch host wall (previous "
+                           "round's token sync to the next decode "
+                           "dispatch) — the per-round host-loop cost "
+                           "fused decode amortizes over K rounds",
+    "serving_fused_rounds": "rounds fused per decode scan dispatch "
+                            "(the pow2 K-bucket actually run; "
+                            "fused_rounds > 0 engines only)",
+}
+
+
+def _targs(req: Request) -> Dict[str, Any]:
+    """Span-args fragment carrying the request's fleet trace context
+    (empty for untraced requests, so local traffic adds nothing)."""
+    return {"trace": req.trace} if req.trace else {}
 
 
 @dataclasses.dataclass
@@ -270,7 +464,11 @@ class _InflightRound:
     same event), so the landing commits the verify pass first. ``rids``
     maps each active slot to the request it held at dispatch: a slot
     cancelled before the landing (async rounds) is skipped, its rows
-    discarded."""
+    discarded. ``td0`` and ``dispatch_end`` are the engine clock's
+    readings around the decode dispatch, ``ver_dt`` the verify pass's
+    dispatch wall and ``n_rounds`` the rounds the dispatch ran (K for a
+    fused window): the phase clocks' share of the round (0.0 with
+    ``record_timing`` off)."""
 
     active: List[int]
     rids: Dict[int, int]
@@ -281,6 +479,10 @@ class _InflightRound:
     decode_tokens: int
     drafts: Optional[Dict[int, List[int]]] = None
     verify: Optional[tuple] = None
+    td0: float = 0.0
+    dispatch_end: float = 0.0
+    ver_dt: float = 0.0
+    n_rounds: int = 1
 
 
 def _request_dict(req: Request) -> Dict[str, Any]:
@@ -371,8 +573,11 @@ class DecodeEngine:
     ``retry_backoff_rounds`` cap and space a fault victim's retries;
     ``stall_threshold_s`` (None: off) is the round wall past which a
     round counts as a ``slow_steps`` event; ``clock`` (default
-    ``time.perf_counter``) is the time deadlines and stalls are read
-    on (module docstring)."""
+    ``time.perf_counter``) is the time deadlines, stalls and the phase
+    clocks are read on. ``on_delta`` (a callable ``(rid, tokens)``) or
+    ``emit_deltas`` turn on incremental delivery; ``record_timing``,
+    ``flight_recorder`` (terminal traces kept, 0: none) and ``tracer``
+    the request-scoped observability (module docstring)."""
 
     #: valid shed policies for a full admission queue: reject the new
     #: arrival, or shed the oldest queued request in its favour
@@ -405,6 +610,8 @@ class DecodeEngine:
                  fault_plan: Optional[FaultPlan] = None,
                  max_retries: int = 2, retry_backoff_rounds: int = 1,
                  stall_threshold_s: Optional[float] = None, clock=None,
+                 tracer=None, on_delta=None, emit_deltas: bool = False,
+                 record_timing: bool = True, flight_recorder: int = 256,
                  **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -435,6 +642,8 @@ class DecodeEngine:
         if retry_backoff_rounds < 0:
             raise ValueError(
                 f"retry_backoff_rounds {retry_backoff_rounds} < 0")
+        if flight_recorder < 0:
+            raise ValueError(f"flight_recorder {flight_recorder} < 0")
         self.device = resolve_device(net.device)
         net.init()
         self.net = net
@@ -520,6 +729,23 @@ class DecodeEngine:
         self.retry_backoff_rounds = int(retry_backoff_rounds)
         self.stall_threshold_s = stall_threshold_s
         self._clock = clock if clock is not None else time.perf_counter
+        #: JAX's attributes of the refused tenancy and KV-tier knobs,
+        #: read by the gateway
+        self.tenants = None
+        self.kv_tier = None
+        self.tracer = tracer
+        #: incremental delivery: per-request high-water mark of the
+        #: delivered tokens, and the deltas buffered for drain_deltas()
+        self.on_delta = on_delta
+        self.emit_deltas = bool(emit_deltas)
+        self._delta_sent: Dict[int, int] = {}
+        self._delta_buf: Dict[int, List[int]] = {}
+        self.record_timing = bool(record_timing)
+        self.flight_recorder = int(flight_recorder)
+        #: per-live-request phase clocks (popped at terminal), and the
+        #: ring of the last ``flight_recorder`` terminal traces by id
+        self._clocks: Dict[int, _PhaseClock] = {}
+        self._flight: "OrderedDict[int, Dict[str, Any]]" = OrderedDict()
         self._seed = int(seed)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
@@ -560,11 +786,17 @@ class DecodeEngine:
         #: share one); reused only after the landing waited on their
         #: event
         self._pinned: Dict[tuple, torch.Tensor] = {}
-        #: wall stamp of the last token sync (serving_host_step_s)
+        #: engine-clock stamp of the last token sync
+        #: (serving_host_step_s)
         self._last_sync_end: Optional[float] = None
-        self.histograms: Dict[str, Histogram] = {
-            name: Histogram() for name in ("serving_host_step_s",
-                                           "serving_fused_rounds")}
+        #: the round's phase-clock anchors, set by step(): its start and
+        #: the (slot, rid) pairs running when it began
+        self._rt0 = 0.0
+        self._running_at_start: Sequence[Tuple[int, int]] = ()
+        #: engine-owned histograms (registered into the tracer)
+        self.histograms: Dict[str, Histogram] = (
+            {name: Histogram() for name in ENGINE_HISTOGRAMS}
+            if self.record_timing else {})
         self.stats: Dict[str, Any] = {
             "tokens_generated": 0, "requests_finished": 0,
             "decode_time_s": 0.0, "chunks": 0, "decode_steps": 0,
@@ -578,6 +810,7 @@ class DecodeEngine:
         }
         for key in self.FAILURE_KEYS:
             self.stats[key] = 0
+        self.describe_metrics()
 
     def _size_block_pool(self, kv_blocks: Optional[int],
                          prefix_rows: int) -> None:
@@ -644,11 +877,13 @@ class DecodeEngine:
         if self.scheduler.full:
             if self.shed_policy == "reject-new":
                 rid = self.scheduler.assign_id(request)
+                self._mint_clock(rid)
                 self._shed(request)
                 return rid
             self._shed(self.scheduler.shed_victim())
         rid = self.scheduler.submit(request)
         self._submit_t[rid] = self._clock()
+        self._mint_clock(rid, self._submit_t[rid])
         if (request.deadline_s is not None
                 or request.queue_timeout_s is not None):
             self._has_deadlines = True
@@ -708,23 +943,131 @@ class DecodeEngine:
             results.update(self._terminal)
             self._terminal.clear()
 
+    # -- request-scoped observability -----------------------------------
+    def _span(self, name, **args):
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, **args)
+
+    def _traces_of(self, slots) -> Dict[str, Any]:
+        """Span-args fragment mapping request id -> fleet trace context
+        for a span over several slots (empty when none is traced)."""
+        traces = {
+            str(self._slots[s].request.id): self._slots[s].request.trace
+            for s in slots
+            if self._slots[s] is not None and self._slots[s].request.trace}
+        return {"traces": traces} if traces else {}
+
+    def describe_metrics(self) -> None:
+        """Register the engine's histograms and the HELP text of its
+        tracks with the attached tracer (nothing without one).
+        Idempotent; the gateway calls it again after attaching its
+        own tracer."""
+        if self.tracer is None:
+            return
+        if hasattr(self.tracer, "register_histogram"):
+            for name, hist in self.histograms.items():
+                self.tracer.register_histogram(name, hist)
+        if hasattr(self.tracer, "describe"):
+            for name, help_text in SERVING_TRACK_HELP.items():
+                self.tracer.describe(name, help_text)
+
+    def _mint_clock(self, rid: int,
+                    submit_t: Optional[float] = None) -> None:
+        if self.record_timing:
+            self._clocks[rid] = _PhaseClock(
+                self._clock() if submit_t is None else submit_t)
+
+    def _clock_of(self, rid) -> Optional[_PhaseClock]:
+        return self._clocks.get(rid) if self.record_timing else None
+
+    def _observe(self, name: str, value, n: int = 1) -> None:
+        hist = self.histograms.get(name)
+        if hist is not None and value is not None:
+            hist.observe(value, n)
+
+    def request_trace(self, rid: int) -> Optional[Dict[str, Any]]:
+        """The flight recorder's record of one TERMINAL request: its
+        timing breakdown and its per-attempt phase timeline. None once
+        evicted from the ring, for an unknown or live id, or with
+        ``record_timing`` off (the gateway maps that to 404 / 202).
+        Host values only."""
+        return self._flight.get(rid)
+
+    def _note_progress(self, state: _Slot) -> None:
+        """Surface a slot's newly committed tokens as a delta. Called
+        only where tokens COMMIT (after a round's appends, which
+        post-date the paranoid sweep and hold only accepted speculative
+        tokens), so a consumer never sees a token the engine later
+        disowns."""
+        self._emit_delta(state.request.id, state.tokens)
+
+    def _emit_delta(self, rid: int, tokens: List[int]) -> None:
+        cb = self.on_delta
+        if cb is None and not self.emit_deltas:
+            return
+        sent = self._delta_sent.get(rid, 0)
+        fresh = tokens[sent:]
+        if not fresh:
+            return
+        self._delta_sent[rid] = len(tokens)
+        if cb is not None:
+            cb(rid, [int(t) for t in fresh])
+        else:
+            self._delta_buf.setdefault(rid, []).extend(
+                int(t) for t in fresh)
+
+    def drain_deltas(self) -> Dict[int, List[int]]:
+        """Return (and clear) the committed-token deltas accumulated
+        since the last drain (``emit_deltas=True`` engines without an
+        ``on_delta`` callback), by request id, in order."""
+        buf = self._delta_buf
+        self._delta_buf = {}
+        return buf
+
     def _record_terminal(self, request: Request, tokens, reason: str,
                          prefix_reused: int = 0,
                          ttft: Optional[float] = None,
                          spec_drafted: int = 0,
                          spec_accepted: int = 0) -> None:
         """Write a request's terminal result (drained into the caller's
-        dict by the next ``step()``) with the retries it survived, and
-        drop every piece of host bookkeeping keyed by its id."""
+        dict by the next ``step()``) with the retries it survived, its
+        phase-clock breakdown and its flight record, and drop every
+        piece of host bookkeeping keyed by its id. A committed tail not
+        yet streamed flushes as a last delta first, so the deltas
+        concatenate to the terminal's tokens (a capped-retry ``"fault"``
+        terminal delivers none: its streamed attempts were disowned)."""
+        self._emit_delta(request.id, list(tokens))
+        timing = None
+        clock = self._clocks.pop(request.id, None)
+        if clock is not None:
+            now = self._clock()
+            clock.ttft_s = ttft
+            clock.event(now, "terminal", reason=reason)
+            timing = clock.summary(now, len(tokens))
+            self._observe("serving_e2e_s", timing["e2e_s"])
+            if self.flight_recorder:
+                self._flight[request.id] = {
+                    "id": request.id, "finish_reason": reason,
+                    "timing": timing, "attempts": clock.attempts,
+                    **_targs(request)}
+                while len(self._flight) > self.flight_recorder:
+                    self._flight.popitem(last=False)
+            if self.tracer is not None:
+                self.tracer.instant("serving.request_done",
+                                    rid=request.id, reason=reason,
+                                    timing=timing, **_targs(request))
         self._terminal[request.id] = GenerationResult(
             id=request.id, tokens=list(tokens), finish_reason=reason,
             prompt_len=len(request.prompt),
             prefix_tokens_reused=prefix_reused, ttft_s=ttft,
             retries=self._retries.pop(request.id, 0),
-            spec_drafted=spec_drafted, spec_accepted=spec_accepted)
+            spec_drafted=spec_drafted, spec_accepted=spec_accepted,
+            timing=timing, trace=request.trace)
         self.stats["requests_finished"] += 1
         self._submit_t.pop(request.id, None)
         self._started.discard(request.id)
+        self._delta_sent.pop(request.id, None)
         self.scheduler.release(request.id)
 
     def _record_slot_terminal(self, state: _Slot, reason: str) -> None:
@@ -735,9 +1078,11 @@ class DecodeEngine:
                               state.spec_drafted, state.spec_accepted)
 
     def _failure_event(self, kind: str) -> None:
-        """Count one failure event (a ``FAILURE_KEYS`` stat; JAX's
-        tracer mirror is not ported)."""
+        """Count one failure event (a ``FAILURE_KEYS`` stat), mirrored
+        into the tracer's cumulative ``serving_<kind>`` track."""
         self.stats[kind] += 1
+        if self.tracer is not None:
+            self.tracer.incr(f"serving_{kind}")
 
     def _shed(self, request: Request) -> None:
         self._record_terminal(request, [], "shed")
@@ -828,9 +1173,14 @@ class DecodeEngine:
         """Release a running slot's blocks under pool pressure and
         requeue its request for the next round (it prefills again from
         scratch, or from the trie; a greedy request regenerates
-        identical ids). Blocks it shares with the trie stay."""
+        identical ids, and the delta high-water mark keeps them from
+        streaming twice). Blocks it shares with the trie stay. A SAMPLED
+        request that already streamed ends ``"fault"`` instead (a
+        redraw would splice two sequences), as in quarantine."""
         state = self._slots[slot]
         self.stats["preempted"] += 1
+        if self.tracer is not None:
+            self.tracer.incr("serving_preempted")
         tab = self._kv_tabs[slot]
         self._kv_tabs[slot] = None
         self._free_table(tab)
@@ -839,7 +1189,21 @@ class DecodeEngine:
         self._top_ks[slot] = self.vocab
         if self.spec is not None:
             self.spec.drop(slot)
+        if self._streamed_sampled(state):
+            self._record_slot_terminal(state, "fault")
+            return
+        clock = self._clock_of(state.request.id)
+        if clock is not None:
+            clock.new_attempt(self._clock(), "preempted")
         self._requeue.append((self._round + 1, state.request))
+
+    def _streamed_sampled(self, state: _Slot) -> bool:
+        """Whether ``state``'s request samples and has already streamed
+        tokens to a delta consumer: a retry's redraw could not be
+        spliced onto what was sent."""
+        return bool((self.on_delta is not None or self.emit_deltas)
+                    and state.request.temperature > 0
+                    and self._delta_sent.get(state.request.id, 0) > 0)
 
     def _drain_requeue(self) -> None:
         """Move the requeued requests whose round has come back to the
@@ -853,7 +1217,7 @@ class DecodeEngine:
             self.scheduler.requeue(req)
 
     def _ensure_tab(self, tab: BlockTable, n_tokens: int,
-                    protect=()) -> bool:
+                    protect=(), rid: Optional[int] = None) -> bool:
         """Make ``tab`` writable for the next ``n_tokens`` appends:
         copy-on-write the partial tail block if the trie or another slot
         still references it (one block copied in place, then swapped
@@ -868,7 +1232,9 @@ class DecodeEngine:
         if cow:
             g, src = tab.tail_block()
             dst = pool.alloc()
-            pool.copy_block_device(self._pool, src, dst)
+            with self._span("serving.cow_copy", rid=rid, src=src,
+                            dst=dst):
+                pool.copy_block_device(self._pool, src, dst)
             tab.blocks[g] = dst
             self._release_block(src)
         for g in tab.new_logical_blocks(n_tokens):
@@ -1036,6 +1402,11 @@ class DecodeEngine:
         whole suffix now (blocking mode) or queue the admission for
         chunks between decode rounds (``prefill_chunk > 0``)."""
         self._started.add(request.id)
+        clock = self._clock_of(request.id)
+        if clock is not None:
+            now = self._clock()
+            self._observe("serving_queue_wait_s", now - clock.enqueue_t)
+            clock.add(now, "queue_wait", now - clock.enqueue_t, slot=slot)
         rnn, matched, hit, tab = None, 0, None, None
         if self.prefix_cache is not None:
             hit = self.prefix_cache.lookup(request.prompt)
@@ -1059,12 +1430,28 @@ class DecodeEngine:
                             spliced += 1
                     self.block_pool.stats["spliced"] += spliced
                     self.stats["prefill_tokens_skipped"] += matched
+                    with self._span("serving.prefix_splice",
+                                    rid=request.id, row=hit.row,
+                                    matched=matched, blocks=spliced,
+                                    **_targs(request)):
+                        pass
+                    if clock is not None:
+                        clock.event(self._clock(), "admit_splice",
+                                    matched=matched, blocks=spliced)
                 else:
                     self.prefix_cache.release(hit)
                     hit = None
             elif hit is not None:
                 matched = hit.matched
-                rnn = self.prefix_cache.fetch(hit)
+                t_fetch = self._clock()
+                with self._span("serving.prefix_fetch", rid=request.id,
+                                row=hit.row, matched=matched,
+                                drop=hit.drop, **_targs(request)):
+                    rnn = self.prefix_cache.fetch(hit)
+                if clock is not None:
+                    now = self._clock()
+                    clock.add(now, "admit_fetch", now - t_fetch,
+                              matched=matched)
                 self.stats["prefill_tokens_skipped"] += matched
         pending = _Pending(request, slot, rnn, None, 0, matched, hit,
                            tab=tab)
@@ -1094,6 +1481,9 @@ class DecodeEngine:
         if pending in self._pending:
             self._pending.remove(pending)
         self.stats["paged_admit_deferred"] += 1
+        clock = self._clock_of(pending.request.id)
+        if clock is not None:
+            clock.new_attempt(self._clock(), "admit_deferred")
         self._requeue.append((self._round + 1, pending.request))
 
     def _advance_prefill(self, pending: _Pending, max_tokens: int) -> bool:
@@ -1111,14 +1501,32 @@ class DecodeEngine:
         width = self.prefill_chunk or self.scheduler.bucket_of(len(seg))
         x, mask = self._one_hot_prompt(seg, width)
         if pending.tab is not None:
-            if not self._ensure_tab(pending.tab, len(seg)):
+            if not self._ensure_tab(pending.tab, len(seg), rid=req.id):
                 return False
-            out, _ = self._forward(x, mask,
-                                   self._paged_chunk_rows(pending.tab))
+            rnn_in = self._paged_chunk_rows(pending.tab)
+            phase, span = "admit_chunk", "serving.prefill_chunk"
+            args = dict(width=width, tokens=len(seg), done=pending.done,
+                        paged=True)
+        elif pending.rnn is None:
+            # the first cold segment establishes the carried state
+            rnn_in, phase, span = None, "admit_cold", "serving.prefill"
+            args = dict(bucket=width, tokens=len(seg))
+        else:
+            rnn_in, phase, span = pending.rnn, "admit_chunk", (
+                "serving.prefill_chunk")
+            args = dict(width=width, tokens=len(seg), done=pending.done)
+        t0 = self._clock()
+        with self._span(span, rid=req.id, **args, **_targs(req)):
+            out, rnn = self._forward(x, mask, rnn_in)
+            pending.tok = self._sample_one(out[:, :, len(seg) - 1], req)
+        if pending.tab is not None:
             pending.tab.length += len(seg)
         else:
-            out, pending.rnn = self._forward(x, mask, pending.rnn)
-        pending.tok = self._sample_one(out[:, :, len(seg) - 1], req)
+            pending.rnn = rnn
+        clock = self._clock_of(req.id)
+        if clock is not None:
+            now = self._clock()
+            clock.add(now, phase, now - t0, tokens=len(seg))
         pending.done += len(seg)
         self.stats["prefill_tokens"] += len(seg)
         self.stats["chunks_scheduled"] += 1
@@ -1141,7 +1549,9 @@ class DecodeEngine:
                     self._defer_admission(pending)
                     return
                 table_row, _ = tab.arrays(self._ring_slots)
-                self._scatter_row(pending.rnn, table_row, tab.length)
+                with self._span("serving.admit", rid=request.id,
+                                slot=slot, paged=True, **_targs(request)):
+                    self._scatter_row(pending.rnn, table_row, tab.length)
             else:
                 tab, pending.tab = pending.tab, None
             if self.prefix_cache is not None:
@@ -1153,8 +1563,10 @@ class DecodeEngine:
             self._kv_tabs[slot] = tab
         else:
             self._ensure_pool(pending.rnn)
-            tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool,
-                     pending.rnn)
+            with self._span("serving.admit", rid=request.id, slot=slot,
+                            **_targs(request)):
+                tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool,
+                         pending.rnn)
             if self.prefix_cache is not None:
                 # release BEFORE insert: on a tight cache the freed row
                 # lets the insert evict the stale ancestor
@@ -1167,6 +1579,21 @@ class DecodeEngine:
         submit_t = self._submit_t.get(request.id)
         ttft = (self._clock() - submit_t
                 if submit_t is not None else None)
+        clock = self._clock_of(request.id)
+        if clock is not None:
+            now = self._clock()
+            clock.event(now, "first_token", ttft_s=ttft,
+                        prefix_reused=pending.matched)
+            clock.last_commit_t = now   # ITL starts after this token
+            self._observe("serving_ttft_s", ttft)
+            # warm-against-cold admission: the attempt's admission work,
+            # split by whether a cached prefix was reused
+            phases = clock.attempts[-1]["phases"]
+            adm = (phases.get("admit_cold", 0.0)
+                   + phases.get("admit_chunk", 0.0)
+                   + phases.get("admit_fetch", 0.0))
+            self._observe("serving_admission_warm_s" if pending.matched
+                          else "serving_admission_cold_s", adm)
         state = _Slot(request, [first], ttft_s=ttft,
                       prefix_reused=pending.matched, hit_row=hit_row)
         self._slots[slot] = state
@@ -1326,6 +1753,9 @@ class DecodeEngine:
             return
         self._retries[request.id] = attempts
         self._failure_event("retries")
+        clock = self._clock_of(request.id)
+        if clock is not None:
+            clock.new_attempt(self._clock(), "fault_retry")
         ready = self._round + max(
             1, self.retry_backoff_rounds * (2 ** (attempts - 1)))
         self._requeue.append((ready, request))
@@ -1406,9 +1836,10 @@ class DecodeEngine:
         entry it inserted: either end may carry the corruption), evict
         it (dense rows zeroed, paged blocks released, a poisoned one
         scrubbed with its last reference; its draft table dropped) and
-        requeue the request with backoff. JAX's carve-out for a sampled
-        request that already streamed tokens belongs to incremental
-        delivery, which is not ported."""
+        requeue the request with backoff. A sampled request that already
+        streamed tokens ends ``"fault"`` with the tokens it streamed
+        (the poisoned round never appended): a retry's redraw could not
+        be spliced onto them."""
         self._failure_event("faults_detected")
         self._failure_event("quarantined")
         if self.prefix_cache is not None:
@@ -1421,6 +1852,10 @@ class DecodeEngine:
                     self.prefix_cache.invalidate_row(state.hit_row)
             self.prefix_cache.invalidate(state.request.prompt)
         self._evict_slot(slot)
+        if self._streamed_sampled(state):
+            self._record_slot_terminal(state, "fault")
+            self._failure_event("retry_failures")
+            return
         self._requeue_victim(state.request)
 
     def _quarantine(self, active: List[int]) -> List[int]:
@@ -1652,9 +2087,14 @@ class DecodeEngine:
             lens[slot] = len(toks)
         vops = dict(ops, draft=self._round_buffer(f"draft{width}", draft),
                     lens=self._round_buffer("lens", lens))
-        out = self._run_graph(
-            ("verify", width),
-            lambda o, _w=width: self._verify_body(o, _w), vops)
+        live = [s for s, d in drafts.items() if d]
+        with self._span("serving.spec_verify", width=width,
+                        drafted=int(lens.sum()),
+                        rids=[self._slots[s].request.id for s in live],
+                        **self._traces_of(live)):
+            out = self._run_graph(
+                ("verify", width),
+                lambda o, _w=width: self._verify_body(o, _w), vops)
         return lens, self._to_host({"verify_emitted": out["emitted"],
                                     "verify_acc": out["acc"]})
 
@@ -1674,6 +2114,11 @@ class DecodeEngine:
             state.spec_drafted += int(lens[slot])
             state.spec_accepted += int(acc[slot])
         self.scheduler.record_acceptance(drafted, accepted)
+        if self.tracer is not None:
+            self.tracer.counter("serving_spec_accept_rate",
+                                accepted / max(drafted, 1))
+            self.tracer.counter("serving_spec_draft_len",
+                                self.scheduler.draft_len)
         return acc + 1
 
     def _decode_round(self, active: List[int]) -> None:
@@ -1696,7 +2141,8 @@ class DecodeEngine:
                 need = n_tok + (len(drafts.get(slot, ())) + 1
                                 if spec_round else 0)
                 if self._ensure_tab(self._kv_tabs[slot], need,
-                                    protect=ensured | {slot}):
+                                    protect=ensured | {slot},
+                                    rid=self._slots[slot].request.id):
                     ensured.add(slot)
                 else:
                     self._preempt_slot(slot)
@@ -1711,42 +2157,65 @@ class DecodeEngine:
             if not active:
                 return
         t0 = time.perf_counter()
-        if self._last_sync_end is not None:
-            self.histograms["serving_host_step_s"].observe(
-                t0 - self._last_sync_end)
+        timing = self.record_timing
+        if timing:
+            # stall phase: round start to decode dispatch, for the slots
+            # running the whole time (disjoint from their own decode and
+            # verify shares below)
+            t_pre = self._clock()
+            if t_pre > self._rt0:
+                for slot, rid0 in self._running_at_start:
+                    state = self._slots[slot]
+                    if state is None or state.request.id != rid0:
+                        continue
+                    clock = self._clocks.get(rid0)
+                    if clock is not None:
+                        clock.add(t_pre, "stall", t_pre - self._rt0)
         rnn = (self._paged_rnn_rows(self._kv_tabs) if self.paged_kv
                else self._pool)
         ops = {"rnn": rnn, "toks": self._toks,
                "temps": self._round_buffer("temps", self._temps),
                "top_ks": self._round_buffer("top_ks", self._top_ks)}
         verify = None
+        ver_dt = 0.0
         if spec_round:
             # the verify pass first; the decode round below chains onto
             # the state it leaves (the pool, ``filled``, the tokens)
+            tv0 = self._clock() if timing else 0.0
             verify = self._dispatch_verify(drafts, ops)
+            if timing:
+                ver_dt = self._clock() - tv0
         elif self.spec is not None:
             # no slot drafted: the plain decode graph alone
             self.stats["spec_fallback_rounds"] += 1
-        if fuse_k:
-            eos_ids = np.full(self.n_slots, -1, np.int64)
-            remaining = np.zeros(self.n_slots, np.int64)
-            for s in active:
-                req = self._slots[s].request
-                if req.eos_id is not None:
-                    eos_ids[s] = int(req.eos_id)
-                remaining[s] = req.max_new_tokens - len(
-                    self._slots[s].tokens)
-            ops["eos_ids"] = self._round_buffer("eos_ids", eos_ids)
-            ops["remaining"] = self._round_buffer("remaining", remaining)
-            out = self._run_graph(
-                ("fused", fuse_k),
-                lambda o, _k=fuse_k: self._fused_body(o, _k), ops)
-            host = self._to_host({"seq": out["seq"],
-                                  "n_valid": out["n_valid"]})
-            self.histograms["serving_fused_rounds"].observe(fuse_k)
-        else:
-            out = self._run_graph("decode", self._round_body, ops)
-            host = self._to_host({"seq": out["seq"]})
+        td0 = self._clock() if timing else 0.0
+        if timing and self._last_sync_end is not None:
+            self._observe("serving_host_step_s", td0 - self._last_sync_end)
+        with self._span("serving.decode_chunk", active=len(active),
+                        fused=fuse_k,
+                        rids=[self._slots[s].request.id for s in active],
+                        **self._traces_of(active)):
+            if fuse_k:
+                eos_ids = np.full(self.n_slots, -1, np.int64)
+                remaining = np.zeros(self.n_slots, np.int64)
+                for s in active:
+                    req = self._slots[s].request
+                    if req.eos_id is not None:
+                        eos_ids[s] = int(req.eos_id)
+                    remaining[s] = req.max_new_tokens - len(
+                        self._slots[s].tokens)
+                ops["eos_ids"] = self._round_buffer("eos_ids", eos_ids)
+                ops["remaining"] = self._round_buffer("remaining",
+                                                      remaining)
+                out = self._run_graph(
+                    ("fused", fuse_k),
+                    lambda o, _k=fuse_k: self._fused_body(o, _k), ops)
+                host = self._to_host({"seq": out["seq"],
+                                      "n_valid": out["n_valid"]})
+                self._observe("serving_fused_rounds", fuse_k)
+            else:
+                out = self._run_graph("decode", self._round_body, ops)
+                host = self._to_host({"seq": out["seq"]})
         inf = _InflightRound(
             active=list(active),
             rids={s: self._slots[s].request.id for s in active},
@@ -1756,11 +2225,21 @@ class DecodeEngine:
             drafts=drafts if spec_round else None,
             verify=(None if verify is None else
                     (verify[0], verify[1]["verify_emitted"],
-                     verify[1]["verify_acc"])))
+                     verify[1]["verify_acc"])),
+            td0=td0, dispatch_end=self._clock() if timing else 0.0,
+            ver_dt=ver_dt, n_rounds=max(fuse_k, 1))
         if self.async_rounds:
+            # the round lands at the next step(); the round histogram
+            # reads the dispatch wall (the landing belongs to the next
+            # round's timeline)
             self._inflight = inf
+            if timing:
+                self._observe("serving_round_s",
+                              inf.dispatch_end - self._rt0)
         else:
             self._land_round(inf)
+            if timing:
+                self._observe("serving_round_s", self._clock() - self._rt0)
 
     def _land_round(self, inf: _InflightRound) -> None:
         """Commit a dispatched round (JAX's ``_land_round``): wait for
@@ -1775,13 +2254,23 @@ class DecodeEngine:
         is appended, append each healthy slot's committed tokens (a
         verify pass's accepted draft and new token, then the decode
         chunk; a fused window's ``n_valid`` prefix; overshoot past it is
-        dropped), finish requests and extend the n-gram tables of those
-        that go on."""
+        dropped), stream each slot's committed tokens as a delta, stamp
+        the phase clocks (the dispatch walls plus this sync's, read
+        here, where the round syncs anyway), finish requests and extend
+        the n-gram tables of those that go on."""
+        timing = self.record_timing
+        t_sync0 = self._clock() if timing else 0.0
         if inf.event is not None:
             inf.event.synchronize()
         seq = inf.seq.numpy()
         n_valid = None if inf.n_valid is None else inf.n_valid.numpy()
-        self._last_sync_end = time.perf_counter()
+        # decode attribution: the dispatch wall plus the sync's (an
+        # async round's gap between steps belongs to no phase)
+        dec_dt = ((inf.dispatch_end - inf.td0) + (self._clock() - t_sync0)
+                  if timing else 0.0)
+        if timing:
+            self._last_sync_end = self._clock()
+        dt = time.perf_counter() - inf.t0
         active = [s for s in inf.active
                   if self._slots[s] is not None
                   and self._slots[s].request.id == inf.rids.get(s)]
@@ -1817,6 +2306,22 @@ class DecodeEngine:
                 emitted += 1
                 if self._finished(state):
                     break
+            # after the paranoid sweep: a quarantined slot's round never
+            # streams; the admission's first token goes with this one
+            self._note_progress(state)
+            clock = (self._clocks.get(state.request.id)
+                     if timing and appended else None)
+            if clock is not None:
+                now_c = self._clock()
+                if inf.ver_dt:
+                    clock.add(now_c, "verify", inf.ver_dt)
+                clock.add(now_c, "decode", dec_dt)
+                if clock.last_commit_t is not None:
+                    gap = (now_c - clock.last_commit_t) / len(appended)
+                    self._observe("serving_itl_s", gap, n=len(appended))
+                clock.last_commit_t = now_c
+                clock.rounds += inf.n_rounds
+                clock.event(now_c, "commit", n=len(appended))
             if self._finished(state):
                 self._finish(state, slot)
             elif self.spec is not None:
@@ -1824,10 +2329,55 @@ class DecodeEngine:
                 # finished slot dropped its table at eviction)
                 self.spec.extend(slot, appended)
         self.stats["tokens_generated"] += emitted
-        self.stats["decode_time_s"] += self._last_sync_end - inf.t0
+        self.stats["decode_time_s"] += dt
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += inf.decode_tokens
-        self.stats["occupancy_sum"] += len(active) / self.n_slots
+        occ = len(active) / self.n_slots
+        self.stats["occupancy_sum"] += occ
+        if self.tracer is not None:
+            self.tracer.counter("slot_occupancy", occ)
+            self.tracer.rate("serving_tokens_per_sec", emitted, dt)
+            self._emit_counters()
+
+    def _paged_stats_refresh(self) -> None:
+        """Mirror the block pool's gauges into ``stats``."""
+        pool = self.block_pool
+        self.stats["blocks_free"] = pool.free_blocks
+        self.stats["blocks_used"] = pool.used_blocks
+        self.stats["cow_copies"] = pool.stats["cow_copies"]
+        self.stats["prefix_blocks_spliced"] = pool.stats["spliced"]
+        tabs = list(self._kv_tabs) + [p.tab for p in self._pending]
+        if self.prefix_cache is not None:
+            tabs.extend(self.prefix_cache.tables())
+        self.stats["frag_tokens"] = pool.fragmentation_tokens(tabs)
+
+    def _emit_counters(self) -> None:
+        """Mirror the engine's cumulative counters into the tracer, one
+        track each (JAX's tracks; the failure events mirror when they
+        happen, in :meth:`_failure_event`)."""
+        for key in ("admitted", "evicted", "chunks_scheduled",
+                    "tokens_generated", "prefill_tokens",
+                    "prefill_tokens_skipped", "spec_rounds",
+                    "spec_fallback_rounds", "spec_drafted",
+                    "spec_accepted"):
+            self.tracer.counter(f"serving_{key}", self.stats[key])
+        if self.paged_kv:
+            self._paged_stats_refresh()
+            for key in ("blocks_free", "blocks_used", "cow_copies",
+                        "prefix_blocks_spliced", "frag_tokens",
+                        "preempted", "paged_admit_deferred"):
+                self.tracer.counter(f"serving_{key}", self.stats[key])
+        if self.prefix_cache is not None:
+            for key in ("hits", "misses", "evictions"):
+                self.tracer.counter(f"serving_prefix_{key}",
+                                    self.prefix_cache.stats[key])
+        # JAX's shard gauge: one shard (tensor parallelism is refused)
+        self.tracer.gauge("serving_tp_shards", 1)
+
+    @property
+    def mean_occupancy(self) -> float:
+        chunks = self.stats["chunks"]
+        return self.stats["occupancy_sum"] / chunks if chunks else 0.0
 
     def compile_counts(self) -> Dict[str, int]:
         """The JAX engine's ``compile_counts`` keys for this layout and
@@ -1872,7 +2422,11 @@ class DecodeEngine:
         the next round), and complete the admissions whose suffix is
         done."""
         if self.adaptive_prefill:
-            self.scheduler.adapt_budget()
+            budget = self.scheduler.adapt_budget()
+            if self.tracer is not None:
+                self.tracer.counter("serving_prefill_budget", budget)
+                self.tracer.counter("serving_pressure",
+                                    self.scheduler.pressure())
         verify_reserve = 0
         if self.spec is not None and any(s is not None
                                          for s in self._slots):
@@ -1888,6 +2442,9 @@ class DecodeEngine:
             if not self._advance_prefill(p, self.prefill_chunk):
                 self._defer_admission(p)
                 deferred.add(id(p))
+        if self.tracer is not None:
+            self.tracer.counter("serving_round_prefill_chunks",
+                                len(grants))
         for p in [p for p in self._pending if p.remaining == 0]:
             self._complete_admission(p)
             if p in self._pending:
@@ -1913,6 +2470,13 @@ class DecodeEngine:
                 # dispatched before any of this round's decisions
                 inf, self._inflight = self._inflight, None
                 self._land_round(inf)
+            # the phase clocks' round anchors: the gap before the decode
+            # dispatch is the stall of every slot already running
+            if self.record_timing:
+                self._rt0 = self._clock()
+                self._running_at_start = [
+                    (i, s.request.id) for i, s in enumerate(self._slots)
+                    if s is not None]
             t_start = (self._clock()
                        if self.stall_threshold_s is not None else None)
             # an admit_fail is scoped to its round: one no admission
@@ -1945,16 +2509,8 @@ class DecodeEngine:
                       if s is not None]
             if active:
                 self._decode_round(active)
-        pool = self.block_pool
-        if pool is not None:
-            self.stats["blocks_free"] = pool.free_blocks
-            self.stats["blocks_used"] = pool.used_blocks
-            self.stats["cow_copies"] = pool.stats["cow_copies"]
-            self.stats["prefix_blocks_spliced"] = pool.stats["spliced"]
-            tabs = list(self._kv_tabs) + [p.tab for p in self._pending]
-            if self.prefix_cache is not None:
-                tabs.extend(self.prefix_cache.tables())
-            self.stats["frag_tokens"] = pool.fragmentation_tokens(tabs)
+        if self.block_pool is not None:
+            self._paged_stats_refresh()
         self._round += 1
         if (t_start is not None
                 and self._clock() - t_start > self.stall_threshold_s):
@@ -2004,13 +2560,16 @@ class DecodeEngine:
 
     def _rebuild_slot(self, slot: int, request: Request, tokens: List[int],
                       prefix_reused: int, spec_drafted: int = 0,
-                      spec_accepted: int = 0) -> None:
+                      spec_accepted: int = 0,
+                      delta_sent: Optional[int] = None) -> None:
         """Rebuild a snapshotted running slot: re-prefill the prompt and
         the generated ids less the last (exactly the cache a slot holds
         between rounds: its newest id is the current token, not yet in
         the cache), write that state into the slot (dense: its pool
-        rows; paged: a scatter into fresh blocks), set the current token
-        and rebuild the n-gram table from the same ids."""
+        rows; paged: a scatter into fresh blocks), set the current token,
+        the delta high-water mark (``delta_sent``, default every token:
+        the resumed stream re-sends only what never left) and rebuild
+        the n-gram table from the same ids."""
         tokens = [int(t) for t in tokens]
         seq = [int(t) for t in request.prompt] + tokens[:-1]
         rnn, _ = self._prefill_sequence(seq, request.temperature,
@@ -2024,15 +2583,22 @@ class DecodeEngine:
                     "snapshotted slot: kv_blocks is smaller than the "
                     "snapshot's working set")
             table_row, _ = tab.arrays(self._ring_slots)
-            self._scatter_row(rnn, table_row, tab.length)
+            with self._span("serving.admit", rid=request.id, slot=slot,
+                            paged=True, **_targs(request)):
+                self._scatter_row(rnn, table_row, tab.length)
             self._kv_tabs[slot] = tab
         else:
-            tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool, rnn)
+            with self._span("serving.admit", rid=request.id, slot=slot,
+                            **_targs(request)):
+                tree_map(lambda p, o: p[slot].copy_(o[0]), self._pool,
+                         rnn)
         self._toks[slot] = tokens[-1]
         self._slots[slot] = _Slot(request, tokens,
                                   prefix_reused=prefix_reused,
                                   spec_drafted=spec_drafted,
                                   spec_accepted=spec_accepted)
+        self._delta_sent[request.id] = (len(tokens) if delta_sent is None
+                                        else int(delta_sent))
         self._started.add(request.id)
         self._temps[slot] = request.temperature
         self._top_ks[slot] = request.top_k or self.vocab
@@ -2052,7 +2618,9 @@ class DecodeEngine:
 
         ``config`` carries the knobs this port refuses at their only
         accepted values, so the JAX package's ``restore`` accepts the
-        dict. ``paged`` lists the slots' block tables and the refcounts
+        dict. A slot's ``delta_sent`` counts the tokens already streamed
+        to a consumer (buffered, undrained deltas count as not
+        streamed). ``paged`` lists the slots' block tables and the refcounts
         of the first ``kv_blocks`` blocks (the pool's scratch block is
         never named). The RNG: ``rng_key`` holds what
         ``jax.random.PRNGKey(seed)`` holds for this engine's seed (a
@@ -2083,7 +2651,10 @@ class DecodeEngine:
                 "elapsed_s": self._elapsed(state.request.id, now),
                 "spec_drafted": state.spec_drafted,
                 "spec_accepted": state.spec_accepted,
-                "delta_sent": len(state.tokens),
+                "delta_sent": (
+                    self._delta_sent.get(state.request.id,
+                                         len(state.tokens))
+                    - len(self._delta_buf.get(state.request.id, []))),
             })
         sched = self.scheduler
         paged = None
@@ -2125,8 +2696,8 @@ class DecodeEngine:
                 "paged_kv": self.paged_kv,
                 "block_tokens": self.block_tokens,
                 "kv_blocks": self.kv_blocks or 0,
-                "record_timing": _UNPORTED["record_timing"],
-                "flight_recorder": _UNPORTED["flight_recorder"],
+                "record_timing": self.record_timing,
+                "flight_recorder": self.flight_recorder,
                 "tp": _UNPORTED["tp"],
                 "use_flash_paged": self.use_flash_paged,
                 "async_rounds": self.async_rounds,
@@ -2160,7 +2731,7 @@ class DecodeEngine:
         }
 
     @classmethod
-    def restore(cls, net, snapshot: Dict[str, Any],
+    def restore(cls, net, snapshot: Dict[str, Any], tracer=None,
                 fault_plan: Optional[FaultPlan] = None, clock=None,
                 seed: int = 0, use_flash_paged=_UNSET) -> "DecodeEngine":
         """Rebuild an engine from a ``snapshot()`` dict of either
@@ -2182,7 +2753,10 @@ class DecodeEngine:
         torch generator). Sampled streams across the two packages match
         only in distribution.
 
-        ``use_flash_paged`` overrides the snapshot's toggle (a value the
+        Each restored request gets a fresh phase clock back-dated by its
+        elapsed time, its timeline marked ``restored``; ``tracer`` is
+        attached to the new engine. ``use_flash_paged`` overrides the
+        snapshot's toggle (a value the
         port does not know, such as JAX's ``"interpret"``, reads as
         None). A snapshot with tenants, ``tp > 1`` or KV tiers is
         refused as ``__init__`` refuses them."""
@@ -2194,6 +2768,9 @@ class DecodeEngine:
         eng = cls(
             net, n_slots=cfg["n_slots"], decode_chunk=cfg["decode_chunk"],
             min_prompt_bucket=cfg["min_prompt_bucket"], seed=seed,
+            tracer=tracer,
+            record_timing=cfg.get("record_timing", True),
+            flight_recorder=cfg.get("flight_recorder", 256),
             prefix_cache_rows=cfg["prefix_cache_rows"],
             prefill_chunk=cfg["prefill_chunk"],
             admission_policy=cfg["admission_policy"],
@@ -2229,6 +2806,14 @@ class DecodeEngine:
         def arm(req: Request, elapsed) -> None:
             nonlocal max_id
             eng._submit_t[req.id] = now - (elapsed or 0.0)
+            # e2e keeps the elapsed time; the timeline marks the restore
+            # and the queue wait restarts here
+            eng._mint_clock(req.id, eng._submit_t[req.id])
+            clock = eng._clock_of(req.id)
+            if clock is not None:
+                clock.event(now, "restored",
+                            elapsed_s=float(elapsed or 0.0))
+                clock.enqueue_t = now
             if (req.deadline_s is not None
                     or req.queue_timeout_s is not None):
                 eng._has_deadlines = True
@@ -2244,7 +2829,8 @@ class DecodeEngine:
                 eng._rebuild_slot(slot, req, list(sd["tokens"]),
                                   int(sd.get("prefix_reused", 0)),
                                   int(sd.get("spec_drafted", 0)),
-                                  int(sd.get("spec_accepted", 0)))
+                                  int(sd.get("spec_accepted", 0)),
+                                  delta_sent=sd.get("delta_sent"))
                 eng.scheduler._issued.add(req.id)
                 arm(req, sd.get("elapsed_s"))
         # admissions in flight were the oldest waiters: they re-enter at

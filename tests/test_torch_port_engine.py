@@ -130,9 +130,10 @@ def test_eos_and_sampling(tmp_path):
 
 #: knobs this test once listed as unported that the port now carries
 #: (chunked prefill and the prefix caches, speculative decoding, fault
-#: handling): they must be accepted
+#: handling, incremental delivery): they must be accepted
 PORTED_KNOBS = ("prefix_cache_rows", "prefill_chunk", "adaptive_prefill",
-                "spec_draft_len", "paranoid", "max_queue", "fault_plan")
+                "spec_draft_len", "paranoid", "max_queue", "fault_plan",
+                "emit_deltas")
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -1063,9 +1063,8 @@ def test_scheduler_steps_budget_down_and_recovers():
 
 def test_unported_knobs_stay_refused(zip_path):
     net = _net(PORT, zip_path)
-    for name, value in (("tracer", object()), ("tenants", object()),
-                        ("tp", 2), ("on_delta", print),
-                        ("record_timing", False)):
+    for name, value in (("tenants", object()), ("tp", 2),
+                        ("kv_host_tier_bytes", 1 << 20)):
         with pytest.raises(NotImplementedError, match=name):
             TEngine(net, n_slots=1, **{name: value})
     snap = TEngine(net, n_slots=1).snapshot()
@@ -1079,9 +1078,8 @@ def test_unported_knobs_stay_refused(zip_path):
     with pytest.raises(NotImplementedError, match="tenants"):
         TEngine.restore(net, bad)
     assert set(engine_module._UNPORTED) == {
-        "on_delta", "emit_deltas", "record_timing", "flight_recorder",
         "tp", "tenants", "kv_host_tier_bytes", "kv_disk_tier_path",
-        "kv_disk_tier_bytes", "tracer"}
+        "kv_disk_tier_bytes"}
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])

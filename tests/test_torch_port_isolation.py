@@ -42,6 +42,9 @@ def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "deeplearning4j_tpu_torch.serving.engine" in mods
     assert "deeplearning4j_tpu_torch.nn.layers.attention" in mods
+    for mod in ("serving.gateway", "serving.client", "util.httpjson",
+                "profiler.tracer", "cli.driver", "cli.__main__"):
+        assert f"deeplearning4j_tpu_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
