@@ -215,6 +215,41 @@ JAX or of the JAX package. Phases, each fatal on failure:
    nothing twice), and a fan-out that drops one delta and an
    ``_emit_delta`` that re-sends a retried request's tokens must each
    break that.
+17. tenancy, KV transfer and the KV spill tiers — (a) bench.py's
+   ``bench_tenant_qos_overhead`` shape on the serving net at bf16 (8
+   slots, chunk 32, 8 x 128-token prompts, 128 new tokens; paged, bt
+   16): a default-tenant ``TenantRegistry`` against none, 3 interleaved
+   rounds after a warm round; tokens/s ratio as a report (JAX gates
+   0.97x); gates: ids identical, no preemption or shed, no graph
+   captured across the timed rounds, K2 launched N_LAYERS times per
+   decode step. (b) At f32: 8 flood requests fill the slots, the flood
+   quota drops to 6 and a premium arrival is admitted in the round it
+   arrives by one QoS preemption; every request's ids equal a
+   tenancy-off engine's; K2 N_LAYERS times per decode step. (c)
+   ``bench_kv_transfer`` row 1's shape (width 512, 4 layers, window
+   1024, 3 x 512-token prompts, 16 new tokens, 2 slots, chunk 8,
+   ``prefix_cache_rows=4, prefill_chunk=64``): at bf16 warm admission
+   (DKV1 import + TTFT) against recompute TTFT, median of 3, as a
+   report; gates: >= 511 tokens spliced per warm admission, K2 launched
+   STORM_LAYERS times per warm chunk (t > 1) and per decode step, each
+   payload unpacked and packed back to the same bytes; a gateway whose
+   ``/v1/kv/export`` and ``/v1/kv/import`` are hit while its stepping
+   thread captures: the handler threads ran then and made no torch
+   call. At f32 a receiver that imports the donor's payloads gives the
+   donor's ids with the imported K/V bit-identical; a payload with two
+   blocks swapped and one written one position off must each break
+   that (the model has no positional encoding, so the swap shows in
+   the K/V, not the ids). (d) ``bench_kv_tier`` row 1's shape (window
+   544, 6 x 512-token prompts over a 48-block pool, 1 slot, chunk 8,
+   ``prefix_cache_rows=8, prefill_chunk=64``, a 64 MiB host tier):
+   tiered against untiered tokens/s over 2 timed passes after 2 set-up
+   passes (JAX gates 2x; here a report) and the host time a round with
+   a staged spill spends staging and draining; gates: every timed
+   tiered admission reloaded, the tier's books reconcile, no graph
+   captured across the timed passes; at f32 tiered ids identical to
+   untiered with every revisit reloaded, and one prompt spilled to a
+   disk ring and reloaded from it. Phase 17's K2 launches are gated in
+   each part and not added to the kernels line, as phase 15's.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -227,8 +262,9 @@ prefill launches in phase 8 at its dtype; K2's from phase 6's stepped
 and fused runs and phase 16's bf16 paged gateway's HTTP rounds,
 ``paged_attention_chunk`` (K2 at t=256) from phase 13a's paged warm
 chunks, ``paged_attention_verify`` (K2 at t=33) from phase
-14's paged timed rounds; K3's ``conv_taps`` and ``conv_taps_f32`` with their
-launches from phases 10 and 11; every f32 operations bound at the
+14's paged timed rounds (phases 15 and 17 add none: their K2 launches
+are gated in the phase); K3's ``conv_taps`` and ``conv_taps_f32`` with
+their launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when any phase fails or no card is present.
@@ -3054,7 +3090,9 @@ STORM_WARM_GEN = (257, 97, 65, 33, 2)
 STORM_TRIPLES = 3
 
 
-def _storm_net(compute_dtype: str):
+def _storm_net(compute_dtype: str, window: int = None):
+    """bench.py's width-512, 4-layer serving net (the storm's, the KV
+    transfer rows' and, at window 544, the KV tier rows')."""
     from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
@@ -3065,7 +3103,7 @@ def _storm_net(compute_dtype: str):
         if compute_dtype != "float32":
             c.compute_dtype = compute_dtype
         if hasattr(c.layer, "stream_max_t"):
-            c.layer.stream_max_t = STORM_WINDOW
+            c.layer.stream_max_t = window or STORM_WINDOW
     return MultiLayerNetwork(conf, device=DEVICE).init()
 
 
@@ -4045,10 +4083,12 @@ SCRAPER_THREAD = "chip_smoke scraper"
 
 
 class _Scraper:
-    """A client thread that GETs ``paths`` in turn until stopped, only
+    """A client thread that sends ``paths`` in turn until stopped, only
     while ``while_()`` holds where one is given (it polls it every
-    millisecond), pausing ``pause_s`` after each pass; the wall of each
-    ``/v1/metrics`` scrape is kept."""
+    millisecond), pausing ``pause_s`` after each pass: a path is a GET,
+    a ``(method, path, body)`` triple any request. The wall of each
+    ``/v1/metrics`` scrape is kept, and every answer's status by
+    (method, path less its query)."""
 
     def __init__(self, address, paths, while_=None, pause_s=0.0):
         import http.client
@@ -4060,6 +4100,7 @@ class _Scraper:
         self.while_ = while_
         self.pause_s = pause_s
         self.metrics_s: list = []
+        self.statuses: collections.Counter = collections.Counter()
         self.n = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -4070,13 +4111,18 @@ class _Scraper:
             if self.while_ is not None and not self.while_():
                 time.sleep(0.001)
                 continue
-            for path in self.paths:
+            for item in self.paths:
+                method, path, body = (("GET", item, None)
+                                      if isinstance(item, str) else item)
                 conn = self._http.HTTPConnection(self.host, timeout=60)
                 t0 = time.perf_counter()
-                conn.request("GET", path)
-                conn.getresponse().read()
+                conn.request(method, path, body=body)
+                resp = conn.getresponse()
+                resp.read()
                 if path == "/v1/metrics":
                     self.metrics_s.append(time.perf_counter() - t0)
+                self.statuses[(method, path.partition("?")[0],
+                               resp.status)] += 1
                 conn.close()
                 self.n += 1
             time.sleep(self.pause_s)
@@ -4465,6 +4511,570 @@ def gateway_phase(card: str) -> int:
     return launches
 
 
+# Phase 17: tenancy, KV transfer and the KV spill tiers. (a) bench.py's
+# bench_tenant_qos_overhead shape on the serving net at bf16 (8 slots,
+# chunk 32, 8 x 128-token prompts, 128 new tokens; paged, bt 16): a
+# default-tenant registry against none, TENANT_TIMED interleaved rounds
+# after a warm round. (b) At f32 on the same engine geometry: a flooder
+# fills every slot, its quota is then cut to TENANT_FLOOD_QUOTA slots
+# (a live re-registration: the flooder is over it) and a premium
+# arrival preempts an over-quota slot. (c) bench_kv_transfer row 1's
+# shape (the width-512 4-layer net, window 1024, 3 x 512-token prompts,
+# 16 new tokens, 2 slots, chunk 8, prefix_cache_rows 4, prefill_chunk
+# 64): warm admission (import + TTFT) against recompute TTFT at bf16;
+# at f32 the receiver's ids and imported K/V against the donor's, with
+# two planted payload faults; a gateway whose /v1/kv/export and
+# /v1/kv/import are hit while its stepping thread captures. (d)
+# bench_kv_tier row 1's shape (the same net at window 544, 6 x 512-token
+# prompts over a 48-block pool, 1 slot, chunk 8, prefix_cache_rows 8,
+# prefill_chunk 64, a 64 MiB host tier): tiered against untiered
+# tokens/s over 2 timed passes after 2 set-up passes, the host time a
+# staged spill costs a round, ids at f32 and one disk-ring reload.
+TENANT_TIMED = 3
+TENANT_FLOOD_GEN, TENANT_PREMIUM_GEN, TENANT_FLOOD_QUOTA = 64, 16, 6
+KV_PROMPT_LEN, KV_GEN, KV_TRIALS = 512, 16, 3
+KV_ENGINE = dict(n_slots=2, decode_chunk=8, paged_kv=True,
+                 block_tokens=BLOCK_TOKENS, prefix_cache_rows=4,
+                 prefill_chunk=64, seed=0, use_flash_paged=True)
+KV_FAULTS = ("two blocks swapped", "written one position off")
+TIER_WINDOW, TIER_PROMPTS, TIER_GEN, TIER_BLOCKS = 544, 6, 8, 48
+TIER_ENGINE = dict(n_slots=1, decode_chunk=8, paged_kv=True,
+                   block_tokens=BLOCK_TOKENS, kv_blocks=TIER_BLOCKS,
+                   prefix_cache_rows=8, prefill_chunk=64, seed=0,
+                   use_flash_paged=True)
+TIER_HOST_BYTES, TIER_SETUP, TIER_TIMED = 64 << 20, 2, 2
+
+
+def _paged_geometry() -> dict:
+    return dict(n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK, paged_kv=True,
+                block_tokens=BLOCK_TOKENS, use_flash_paged=True)
+
+
+def _decode_steps(eng) -> int:
+    """Decode steps the engine's device ran: its rounds' and each graph
+    capture's (a capture runs the round's body once)."""
+    return eng.stats["decode_steps"] + eng.decode_chunk * eng._graphs.captures
+
+
+def tenant_overhead_phase(card: str) -> None:
+    """17a: the FIFO engine and one with a default-tenant registry at
+    bf16, a warm round each, then TENANT_TIMED interleaved rounds.
+    Report: tokens/s of both and their ratio (JAX gates 0.97x; here a
+    report). Gates: ids identical, no preemption or shed, no graph
+    captured across the timed rounds, K2 launched N_LAYERS times per
+    decode step."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, TenantRegistry
+
+    net = _serving_net("bfloat16")
+    prompts = serving_prompts(0, n=N_SLOTS)
+    engines = {"fifo": DecodeEngine(net, **_paged_geometry()),
+               "fair": DecodeEngine(net, tenants=TenantRegistry(),
+                                    **_paged_geometry())}
+    ref = {name: _inproc_round(eng, prompts, N_GEN)[1]
+           for name, eng in engines.items()}
+    diverged = ref["fair"] != ref["fifo"]
+    counts0 = {k: e.compile_counts() for k, e in engines.items()}
+    steps0 = sum(_decode_steps(e) for e in engines.values())
+    paged_attention.launches = paged_attention.chunk_launches = 0
+    rates = {name: [] for name in engines}
+    for _ in range(TENANT_TIMED):
+        for name, eng in engines.items():
+            rate, ids, _ = _inproc_round(eng, prompts, N_GEN)
+            rates[name].append(rate)
+            diverged |= ids != ref["fifo"]
+    launches = _k2_step_launches()
+    steps = sum(_decode_steps(e) for e in engines.values()) - steps0
+    counts1 = {k: e.compile_counts() for k, e in engines.items()}
+    fair = engines["fair"].stats
+    acted = {k: fair[k] for k in ("qos_preempted", "preempted", "shed")}
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    graphs = {k: (counts0[k]["decode"], counts1[k]["decode"])
+              for k in engines}
+    log(f"tenancy overhead [paged, bf16]: {N_SLOTS} x {N_GEN} tokens, "
+        f"chunk {DECODE_CHUNK}; default-tenant registry "
+        f"{med['fair']:.1f} tokens/s against none {med['fifo']:.1f} "
+        f"(median of {TENANT_TIMED} interleaved rounds; fair "
+        f"{[round(r, 1) for r in rates['fair']]}, fifo "
+        f"{[round(r, 1) for r in rates['fifo']]}): "
+        f"{med['fair'] / med['fifo']:.3f}x (a report; JAX gates 0.97x); "
+        f"ids identical {not diverged}; QoS acted {acted}; decode graphs "
+        f"before / after the timed rounds {graphs}, all counts unchanged "
+        f"{counts0 == counts1}; K2 t = 1 launches {launches} (want "
+        f"{N_LAYERS} x {steps} steps) [{card}]")
+    if (diverged or any(acted.values()) or counts1 != counts0
+            or launches != N_LAYERS * steps):
+        raise SystemExit(
+            f"chip_smoke: tenancy overhead failed: diverged {diverged}, "
+            f"QoS acted {acted}, graphs {counts0} -> {counts1}, K2 "
+            f"launches {launches} (want {N_LAYERS * steps})")
+    del engines, net
+    torch.cuda.empty_cache()
+
+
+def tenant_preemption_phase(card: str) -> None:
+    """17b at f32: N_SLOTS flood requests fill every slot, the flood
+    quota drops to TENANT_FLOOD_QUOTA (the flooder is over it) and a
+    premium request arrives. Gates: one QoS preemption, the premium
+    request admitted in the round it arrives, every request's ids equal
+    a tenancy-off engine's, K2 launched N_LAYERS times per decode
+    step."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine,
+        Request,
+        TenantRegistry,
+        TenantSpec,
+    )
+
+    net32 = _serving_net("float32")
+    flood_prompts = serving_prompts(2, n=N_SLOTS)
+    premium = serving_prompts(3, n=1)[0]
+    reg = TenantRegistry((TenantSpec("premium", priority=2),
+                          TenantSpec("flood")))
+    eng = DecodeEngine(net32, tenants=reg, **_paged_geometry())
+    admitted_at = {}
+    start = eng._start_admission
+
+    def record(request, slot):
+        admitted_at.setdefault(request.id, eng._round)
+        return start(request, slot)
+
+    eng._start_admission = record
+    paged_attention.launches = paged_attention.chunk_launches = 0
+    flood = [eng.submit(Request(list(p), TENANT_FLOOD_GEN, tenant="flood"))
+             for p in flood_prompts]
+    res = {}
+    eng.step(res)
+    full = all(s is not None for s in eng._slots)
+    reg.register(TenantSpec("flood", max_slots=TENANT_FLOOD_QUOTA))
+    arrival = eng._round
+    prem = eng.submit(Request(list(premium), TENANT_PREMIUM_GEN,
+                              tenant="premium"))
+    while eng.has_work():
+        eng.step(res)
+    launches = _k2_step_launches()
+    steps = _decode_steps(eng)
+    off = DecodeEngine(net32, **_paged_geometry())
+    rids = [off.submit(Request(list(p), TENANT_FLOOD_GEN))
+            for p in flood_prompts]
+    rids.append(off.submit(Request(list(premium), TENANT_PREMIUM_GEN)))
+    want = off.run()
+    diverged = [i for i, (a, b) in enumerate(zip(flood + [prem], rids))
+                if res[a].tokens != want[b].tokens]
+    log(f"tenancy preemption [paged, f32]: {N_SLOTS} flood requests fill "
+        f"the slots ({full}), the flood quota drops to "
+        f"{TENANT_FLOOD_QUOTA}, a premium request arrives in round "
+        f"{arrival} and is admitted in round {admitted_at.get(prem)}; "
+        f"QoS preemptions {eng.stats['qos_preempted']}, preempted "
+        f"{eng.stats['preempted']}; tenant_stats {eng.tenant_stats}; ids "
+        f"against a tenancy-off engine diverged {diverged}; K2 t = 1 "
+        f"launches {launches} (want {N_LAYERS} x {steps} steps) [{card}]")
+    if (not full or admitted_at.get(prem) != arrival
+            or eng.stats["qos_preempted"] != 1 or diverged
+            or any(res[i].finish_reason != "length" for i in res)
+            or launches != N_LAYERS * steps):
+        raise SystemExit(
+            f"chip_smoke: tenancy preemption failed: full {full}, premium "
+            f"admitted in {admitted_at.get(prem)} (arrived {arrival}), QoS "
+            f"preemptions {eng.stats['qos_preempted']}, diverged "
+            f"{diverged}, K2 launches {launches} (want "
+            f"{N_LAYERS * steps})")
+    del eng, off, net32
+    torch.cuda.empty_cache()
+
+
+def kv_prompts() -> list:
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, VOCAB, KV_PROMPT_LEN).tolist()
+            for _ in range(KV_TRIALS)]
+
+
+def _run_one(eng, prompt, n_gen):
+    from deeplearning4j_tpu_torch.serving import Request
+
+    rid = eng.submit(Request(list(prompt), n_gen))
+    return eng.run()[rid]
+
+
+def _donor_payloads(net, prompts) -> tuple:
+    """A donor engine's ids for each prompt and its export after it."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    donor = DecodeEngine(net, **KV_ENGINE)
+    refs, payloads = [], []
+    for p in prompts:
+        refs.append(_run_one(donor, p, KV_GEN).tokens)
+        payloads.append(donor.export_kv(p))
+    if any(pay is None for pay in payloads):
+        raise SystemExit("chip_smoke: the KV donor exported nothing")
+    return refs, payloads
+
+
+def _kv_fault(payload: bytes, name: str) -> bytes:
+    """A planted payload fault: "two blocks swapped" exchanges the
+    first two blocks of every layer's K and V (the same keys in another
+    order: a model without positional encoding cannot see it in its
+    ids, the imported K/V check does); "written one position off" moves
+    every token's K and V one position later (the first kept, the last
+    lost)."""
+    from deeplearning4j_tpu_torch.serving import pack_prefix, unpack_prefix
+
+    u = unpack_prefix(payload)
+    h = u["header"]
+    layers = []
+    for name_ in sorted(u["layers"]):
+        out = []
+        for t in u["layers"][name_]:
+            t = t.clone()
+            if name == "two blocks swapped":
+                t[[0, 1]] = t[[1, 0]]
+            else:
+                flat = t.reshape(-1, *t.shape[2:])
+                flat[1:] = flat[:-1].clone()
+            out.append(t)
+        layers.append((name_,) + tuple(out))
+    return pack_prefix(h["tokens"], h["blocks"], h["floor"],
+                       h["block_tokens"], layers)
+
+
+def _imported_kv_err(eng, rid, payload) -> float:
+    """Max |slot K/V - payload K/V| over the payload's positions (the
+    donor's K/V), read through the table of the slot holding ``rid``
+    (after its admission, before it finishes)."""
+    from deeplearning4j_tpu_torch.serving import unpack_prefix
+
+    u = unpack_prefix(payload)
+    n = u["header"]["length"] - u["header"]["floor"]
+    slot = next(i for i, s in enumerate(eng._slots)
+                if s is not None and s.request.id == rid)
+    tab = eng._kv_tabs[slot]
+    got = slot_kv(eng, slot, tab.length)
+    err = 0.0
+    for (k, v), name in zip(got, sorted(u["layers"])):
+        for have, want in zip((k, v), u["layers"][name]):
+            want = want.reshape(-1, *want.shape[2:])[:n].transpose(0, 1)
+            err = max(err, float((have[:, :n].float().cpu()
+                                  - want.float()).abs().max()))
+    return err
+
+
+def _warm_receiver_ids(net32, prompts, payloads, donor) -> tuple:
+    """A fresh f32 receiver imports each payload, then serves its
+    prompt: (ids, the K/V errors against the ``donor`` payloads after
+    each admission)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
+
+    recv = DecodeEngine(net32, **KV_ENGINE)
+    ids, errs = [], []
+    for p, pay, truth in zip(prompts, payloads, donor):
+        if not recv.import_kv(pay)["imported"]:
+            raise SystemExit("chip_smoke: an f32 KV import was declined")
+        rid = recv.submit(Request(list(p), KV_GEN))
+        res = recv.step()
+        errs.append(_imported_kv_err(recv, rid, truth) if rid not in res
+                    else np.inf)
+        res.update(recv.run())
+        ids.append(res[rid].tokens)
+    return ids, errs
+
+
+def kv_capture_watch(card: str, net, prompts, payloads) -> None:
+    """A fresh paged gateway with a prefix cache: while its stepping
+    thread captures its first decode graph, a client hits
+    ``/v1/kv/export`` and ``/v1/kv/import`` (a donor's payload) again
+    and again. Gates: those handler threads ran during the capture and
+    made no torch call then, and every hit answered (export 200 or 404,
+    import 200)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, GatewayClient
+
+    eng = DecodeEngine(net, **KV_ENGINE)
+    export = "/v1/kv/export?tokens=" + ",".join(map(str, prompts[1]))
+    paths = (export, ("POST", "/v1/kv/import", payloads[1]))
+    watch = _CaptureWatch()
+    with watch.watching():
+        gw = _gateway(eng, watch)
+        try:
+            with _Scraper(gw.address, paths, lambda: watch.capturing > 0,
+                          GATEWAY_SCRAPE_PAUSE_S) as scraper:
+                out = GatewayClient(gw.address, timeout_s=600.0).generate(
+                    prompts[0], KV_GEN)
+        finally:
+            gw.close()
+    bad = {k: n for k, n in scraper.statuses.items()
+           if k[2] not in ((200, 404) if k[0] == "GET" else (200,))}
+    kv_hits = sum(scraper.statuses.values())
+    log(f"KV gateway capture watch [paged, bf16]: {watch.captures} "
+        f"captures; the client made {kv_hits} /v1/kv hits "
+        f"({dict(scraper.statuses)}) and the gateway's other threads ran "
+        f"{watch.overlap} Python calls during them, {len(watch.stray)} "
+        f"into torch; generate finished {out['finish_reason']} [{card}]")
+    if (watch.stray or watch.captures < 1 or watch.overlap < 1
+            or kv_hits < 2 or bad or out["finish_reason"] != "length"):
+        raise SystemExit(
+            f"chip_smoke: KV capture watch failed: torch calls during "
+            f"captures {watch.stray[:8]}, captures {watch.captures}, calls "
+            f"raced {watch.overlap}, hits {kv_hits}, bad answers {bad}")
+    del eng
+
+
+def kv_transfer_phase(card: str) -> None:
+    """17c. bf16: a donor warms and exports KV_TRIALS prompts (each
+    payload unpacks and packs back to the same bytes); a cold receiver's
+    recompute TTFT against a warm receiver's import wall + TTFT, median
+    of KV_TRIALS. Gates: every warm admission splices >= 511 tokens and
+    runs K2 STORM_LAYERS times per warm chunk (t > 1) and per decode
+    step. f32: a receiver that imports the donor's payloads gives the
+    donor's ids with the imported K/V bit-identical to the payload;
+    each planted payload fault (KV_FAULTS) must break that. Then the
+    gateway capture watch."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine,
+        pack_prefix,
+        unpack_prefix,
+    )
+
+    net = _storm_net("bfloat16")
+    prompts = kv_prompts()
+    refs, payloads = _donor_payloads(net, prompts)
+    repack = []
+    for pay in payloads:
+        u = unpack_prefix(pay)
+        h = u["header"]
+        repack.append(pack_prefix(
+            h["tokens"], h["blocks"], h["floor"], h["block_tokens"],
+            [(n,) + u["layers"][n] for n in sorted(u["layers"])]) == pay)
+    cold = DecodeEngine(net, **KV_ENGINE)
+    warm = DecodeEngine(net, **KV_ENGINE)
+    cold_ttft, warm_cost, reused, agree, k2 = [], [], [], [], []
+    for i, p in enumerate(prompts):
+        cold_ttft.append(_run_one(cold, p, KV_GEN).ttft_s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = warm.import_kv(payloads[i])
+        torch.cuda.synchronize()
+        t_import = time.perf_counter() - t0
+        if not out["imported"]:
+            raise SystemExit(f"chip_smoke: KV import declined: {out}")
+        chunks0, steps0 = warm.stats["chunks_scheduled"], _decode_steps(warm)
+        paged_attention.launches = paged_attention.chunk_launches = 0
+        res = _run_one(warm, p, KV_GEN)
+        k2.append((paged_attention.chunk_launches,
+                   warm.stats["chunks_scheduled"] - chunks0,
+                   _k2_step_launches(), _decode_steps(warm) - steps0))
+        warm_cost.append(t_import + res.ttft_s)
+        reused.append(res.prefix_tokens_reused)
+        agree.append(request_agreement(res.tokens, refs[i]))
+    k2_bad = [c for c in k2 if c[0] != STORM_LAYERS * c[1]
+              or c[2] != STORM_LAYERS * c[3] or not c[1] or not c[3]]
+    cold_med, warm_med = float(np.median(cold_ttft)), float(np.median(
+        warm_cost))
+    log(f"KV transfer [paged, bf16, width {STORM_WIDTH}, {STORM_LAYERS} "
+        f"layers, window {STORM_WINDOW}]: {KV_TRIALS} x {KV_PROMPT_LEN}-"
+        f"token prompts, payload {len(payloads[0])} bytes; recompute TTFT "
+        f"{cold_med * 1e3:.2f} ms ({[round(t * 1e3, 2) for t in cold_ttft]})"
+        f" against import + warm TTFT {warm_med * 1e3:.2f} ms "
+        f"({[round(t * 1e3, 2) for t in warm_cost]}): "
+        f"{cold_med / warm_med:.2f}x (a report; JAX gates > 1x); tokens "
+        f"spliced {reused}; warm ids against the donor's "
+        f"{[round(a, 3) for a in agree]}; unpack + pack gives the same "
+        f"bytes {repack}; K2 (chunk launches, warm chunks, t = 1 launches,"
+        f" decode steps) a warm admission {k2} [{card}]")
+    if (min(reused) < KV_PROMPT_LEN - 1 or k2_bad or not all(repack)):
+        raise SystemExit(
+            f"chip_smoke: KV transfer failed: spliced {reused}, K2 {k2_bad},"
+            f" repack {repack}")
+    kv_capture_watch(card, net, prompts, payloads)
+    del cold, warm, net
+    torch.cuda.empty_cache()
+    net32 = _storm_net("float32")
+    refs32, payloads32 = _donor_payloads(net32, prompts)
+    ids, errs = _warm_receiver_ids(net32, prompts, payloads32, payloads32)
+    caught = {}
+    for name in KV_FAULTS:
+        bad = [_kv_fault(payloads32[0], name)]
+        f_ids, f_errs = _warm_receiver_ids(net32, prompts[:1], bad,
+                                           payloads32[:1])
+        caught[name] = (f_ids[0] != refs32[0], f_errs[0] > 0)
+    log(f"KV transfer [paged, f32]: receiver ids identical to the donor's "
+        f"{ids == refs32}, imported K/V max error {max(errs)}; planted "
+        f"payload faults caught (ids differ, K/V differ): {caught} [{card}]")
+    if ids != refs32 or max(errs) != 0.0 or not all(any(c) for c in
+                                                  caught.values()):
+        raise SystemExit(
+            f"chip_smoke: KV transfer f32 failed: ids identical "
+            f"{ids == refs32}, K/V errors {errs}, faults caught {caught}")
+    del net32
+    torch.cuda.empty_cache()
+
+
+def tier_prompts() -> list:
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, VOCAB, KV_PROMPT_LEN).tolist()
+            for _ in range(TIER_PROMPTS)]
+
+
+def _tier_pass(eng, prompts) -> list:
+    return [_run_one(eng, p, TIER_GEN).tokens for p in prompts]
+
+
+class _SpillClock:
+    """Host time of an engine's spill path a round: the staging
+    (``_stage_spill``: the gather and the pinned copies enqueued), the
+    wait for the staged copies' events at the drain, and the rest of
+    the drain (``drain_spills``: packing and the tier's put), wrapped
+    on the instance; ``rounds`` holds (staged, stage s, wait s, drain
+    s less the wait) for each step() that staged a spill."""
+
+    def __init__(self, eng):
+        self.eng, self.rounds = eng, []
+        self._stage, self._drain = eng._stage_spill, eng.drain_spills
+        self._cur = [0, 0.0, 0.0, 0.0]
+        eng.prefix_cache.on_evict = self.stage
+        eng.drain_spills = self.drain
+        step = eng.step
+
+        def timed_step(results=None):
+            self._cur = [0, 0.0, 0.0, 0.0]
+            out = step(results)
+            if self._cur[0]:
+                self.rounds.append(tuple(self._cur))
+            return out
+
+        eng.step = timed_step
+
+    def stage(self, tokens, tab):
+        t0 = time.perf_counter()
+        self._stage(tokens, tab)
+        self._cur[0] += 1
+        self._cur[1] += time.perf_counter() - t0
+
+    def drain(self):
+        t0 = time.perf_counter()
+        for staged in self.eng._pending_spills:
+            if staged[-1] is not None:
+                staged[-1].synchronize()
+        t1 = time.perf_counter()
+        n = self._drain()
+        self._cur[2] += t1 - t0
+        self._cur[3] += time.perf_counter() - t1
+        return n
+
+
+def kv_tier_phase(card: str) -> None:
+    """17d. bf16: the untiered and the tiered engine, TIER_SETUP passes
+    over the prompts each (cold, then the revisit path's first run),
+    then TIER_TIMED timed passes each. Report: tokens/s of both and
+    their ratio (JAX gates 2x; here a report), the host time a round
+    with a staged spill spends staging and draining. Gates: every timed
+    tiered admission reloaded from the host tier, the tier's books
+    reconcile, no graph captured across the timed passes. f32: two
+    passes on each engine, ids identical and every revisit reloaded.
+    A disk-ring engine (host budget 0): one prompt, its entry spilled
+    to the ring and reloaded with the same ids."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    prompts = tier_prompts()
+    net = _storm_net("bfloat16", TIER_WINDOW)
+    walls, ids, out = {}, {}, {}
+    for tiered in (False, True):
+        eng = DecodeEngine(net, kv_host_tier_bytes=TIER_HOST_BYTES
+                           if tiered else 0, **TIER_ENGINE)
+        for _ in range(TIER_SETUP):
+            _tier_pass(eng, prompts)
+        counts0 = eng.compile_counts()
+        reloads0 = eng.stats["kv_tier_reloads"]
+        spill = _SpillClock(eng) if tiered else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids[tiered] = [t for _ in range(TIER_TIMED)
+                       for t in _tier_pass(eng, prompts)]
+        torch.cuda.synchronize()
+        walls[tiered] = time.perf_counter() - t0
+        out[tiered] = (eng.compile_counts() == counts0,
+                       eng.stats["kv_tier_reloads"] - reloads0)
+        if tiered:
+            tier, books = eng.kv_tier.stats, len(eng.kv_tier)
+            reconciled = tier["spills"] == (tier["reloads"] + tier["drops"]
+                                            + books)
+        del eng
+    toks = sum(len(t) for t in ids[True])
+    rate = {k: toks / w for k, w in walls.items()}
+    stage_ms = [r[1] * 1e3 for r in spill.rounds]
+    wait_ms = [r[2] * 1e3 for r in spill.rounds]
+    drain_ms = [r[3] * 1e3 for r in spill.rounds]
+    agree = float(np.mean([request_agreement(a, b)
+                           for a, b in zip(ids[True], ids[False])]))
+    want = TIER_TIMED * TIER_PROMPTS
+    log(f"KV tiers [paged, bf16, window {TIER_WINDOW}, {TIER_PROMPTS} x "
+        f"{KV_PROMPT_LEN}-token prompts over {TIER_BLOCKS} blocks]: tiered "
+        f"{rate[True]:.1f} tokens/s against untiered {rate[False]:.1f} "
+        f"over {TIER_TIMED} passes: {rate[True] / rate[False]:.2f}x (a "
+        f"report; JAX gates 2x); timed reloads {out[True][1]} (want "
+        f"{want}); tier books {tier}, {books} resident, reconciled "
+        f"{reconciled}; graphs unchanged {out[True][0]} / {out[False][0]}; "
+        f"host time a round with a staged spill ({len(spill.rounds)} "
+        f"rounds, {sum(r[0] for r in spill.rounds)} spills): staging p50 "
+        f"{np.median(stage_ms):.3f} ms, waiting for the staged host "
+        f"copies p50 {np.median(wait_ms):.3f} ms (max {max(wait_ms):.3f}),"
+        f" packing and putting p50 {np.median(drain_ms):.3f} ms (max "
+        f"{max(drain_ms):.3f}); ids "
+        f"tiered against untiered {agree:.3f} [{card}]")
+    if (out[True][1] != want or not reconciled or not out[True][0]
+            or not out[False][0]):
+        raise SystemExit(
+            f"chip_smoke: KV tiers failed: reloads {out[True][1]} (want "
+            f"{want}), reconciled {reconciled}, graphs unchanged "
+            f"{out[True][0]} / {out[False][0]}")
+    del net
+    torch.cuda.empty_cache()
+    net32 = _storm_net("float32", TIER_WINDOW)
+    off = DecodeEngine(net32, **TIER_ENGINE)
+    on = DecodeEngine(net32, kv_host_tier_bytes=TIER_HOST_BYTES,
+                      **TIER_ENGINE)
+    ids32 = {k: _tier_pass(e, prompts) + _tier_pass(e, prompts)
+             for k, e in (("off", off), ("on", on))}
+    reloads32 = on.stats["kv_tier_reloads"]
+    with tempfile.TemporaryDirectory() as ring:
+        disk = DecodeEngine(net32, kv_disk_tier_path=ring, **TIER_ENGINE)
+        first = _run_one(disk, prompts[0], TIER_GEN).tokens
+        while disk.prefix_cache.evict_one():
+            pass
+        disk.drain_spills()
+        files = len(os.listdir(ring))
+        again = _run_one(disk, prompts[0], TIER_GEN).tokens
+        disk_hits = disk.kv_tier.stats["hits_disk"]
+        disk_reloads = disk.kv_tier.stats["reloads"]
+    log(f"KV tiers [paged, f32]: two passes, ids tiered against untiered "
+        f"identical {ids32['on'] == ids32['off']}, reloads {reloads32} "
+        f"(want {TIER_PROMPTS}); disk ring: {files} file spilled, "
+        f"{disk_hits} disk hit, {disk_reloads} reload, ids identical "
+        f"{again == first} [{card}]")
+    if (ids32["on"] != ids32["off"] or reloads32 != TIER_PROMPTS
+            or files != 1 or disk_hits != 1 or disk_reloads != 1
+            or again != first):
+        raise SystemExit(
+            f"chip_smoke: KV tiers f32 failed: ids identical "
+            f"{ids32['on'] == ids32['off']}, reloads {reloads32}, disk "
+            f"files {files}, hits {disk_hits}, reloads {disk_reloads}, "
+            f"ids {again == first}")
+    del off, on, disk, net32
+    torch.cuda.empty_cache()
+
+
+def tenancy_kv_phase(card: str) -> None:
+    """Phase 17: (a) and (b) tenancy, (c) KV transfer and the gateway's
+    KV endpoints under a capture, (d) the KV tiers. K2's launches here
+    are gated in each part and not added to the kernels line."""
+    tenant_overhead_phase(card)
+    tenant_preemption_phase(card)
+    kv_transfer_phase(card)
+    kv_tier_phase(card)
+
+
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
 # bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
 # windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
@@ -4716,6 +5326,9 @@ def main() -> int:
     t16 = time.perf_counter()
     launches["paged_attention"] += gateway_phase(card)
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    tenancy_kv_phase(card)
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
     k3_ms = {k["name"]: k["ms"] for k in conv}
     launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],

@@ -5,11 +5,12 @@ LM-shaped model zip (either package's ``write_model``) onto the card
 (``--device``, default ``cuda``) and run the streaming HTTP gateway over
 it (serving/gateway.py): blocking and SSE generation, cancel, metrics,
 drain to a snapshot on shutdown, restore on boot when the snapshot
-exists. The parser is JAX's: the flags of knobs the port does not carry
-yet (``--tp``, ``--tenant``, ``--kv-host-tier-bytes``,
-``--kv-disk-tier-path``, ``--kv-disk-tier-bytes``) are parsed, and any
-value but the default exits with a message naming the ROADMAP item that
-brings them.
+exists. The parser is JAX's: ``--tenant`` (repeatable,
+``TenantSpec.parse``'s spelling) turns on the weighted-fair scheduler,
+``--kv-host-tier-bytes``, ``--kv-disk-tier-path`` and
+``--kv-disk-tier-bytes`` the KV spill tiers; ``--tp``, the flag of the
+one knob the port does not carry yet, is parsed, and any value but 1
+exits with a message naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -24,10 +25,6 @@ FLASH_PAGED_MODES = {"auto": None, "on": True, "off": False}
 #: flags of knobs the port refuses: (attribute, default, ROADMAP item)
 UNPORTED_FLAGS = (
     ("tp", 1, "8 (tensor parallelism)"),
-    ("tenant", None, "7b (tenancy)"),
-    ("kv_host_tier_bytes", 0, "8 (KV tiers)"),
-    ("kv_disk_tier_path", None, "8 (KV tiers)"),
-    ("kv_disk_tier_bytes", None, "8 (KV tiers)"),
 )
 
 
@@ -43,6 +40,18 @@ def refuse_unported(args) -> None:
                 f"(ROADMAP item {item})")
 
 
+def tenants_from_args(args):
+    """The :class:`TenantRegistry` of the repeated ``--tenant`` specs
+    (``name[:key=value]...``, see ``TenantSpec.parse``), or None when
+    none was given (tenancy off: the FIFO scheduler)."""
+    specs = getattr(args, "tenant", None) or []
+    if not specs:
+        return None
+    from deeplearning4j_tpu_torch.serving import TenantRegistry, TenantSpec
+
+    return TenantRegistry(tuple(TenantSpec.parse(s) for s in specs))
+
+
 def gateway_from_args(args):
     """Build (or restore) the serving gateway the ``serve`` subcommand
     runs (JAX's ``gateway_from_args``), factored out so tests can drive
@@ -53,6 +62,7 @@ def gateway_from_args(args):
     from deeplearning4j_tpu_torch.util.model_serializer import restore_model
 
     refuse_unported(args)
+    tenants = tenants_from_args(args)
     device = getattr(args, "device", "cuda")
     flash = FLASH_PAGED_MODES[getattr(args, "use_flash_paged", "auto")]
 
@@ -73,13 +83,18 @@ def gateway_from_args(args):
             block_tokens=args.block_tokens,
             kv_blocks=args.kv_blocks,
             use_flash_paged=flash,
+            tenants=tenants,
             async_rounds=getattr(args, "async_rounds", False),
-            fused_rounds=getattr(args, "fused_rounds", 0))
+            fused_rounds=getattr(args, "fused_rounds", 0),
+            kv_host_tier_bytes=getattr(args, "kv_host_tier_bytes", 0),
+            kv_disk_tier_path=getattr(args, "kv_disk_tier_path", None),
+            kv_disk_tier_bytes=getattr(args, "kv_disk_tier_bytes", None))
 
     return ServingGateway.boot(
         engine, snapshot_path=args.snapshot, net_factory=load,
-        # the host's kernel toggle wins over the snapshot's
-        restore_kwargs={"use_flash_paged": flash},
+        # the host's kernel toggle wins over the snapshot's, and so do
+        # its --tenant specs (None: keep the snapshot's registry)
+        restore_kwargs={"use_flash_paged": flash, "tenants": tenants},
         host=args.host, port=args.port,
         replica_id=getattr(args, "replica_id", None),
         role=getattr(args, "role", "any"))
@@ -174,11 +189,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "arrive in chunks of up to K * decode_chunk "
                         "tokens")
     s.add_argument("--kv-host-tier-bytes", type=int, default=0,
-                   help="host-DRAM spill tier (not ported: only 0)")
+                   help="host-DRAM spill-tier budget in bytes: trie "
+                        "victims evicted under pool pressure pack into "
+                        "a host LRU this large and reload through the "
+                        "KV import instead of recomputing (0 = off; "
+                        "needs --paged-kv and --prefix-cache-rows > 0)")
     s.add_argument("--kv-disk-tier-path", default=None,
-                   help="disk-ring spill tier (not ported)")
+                   help="disk-ring directory for spill-tier overflow: "
+                        "payloads past the host budget demote to files "
+                        "here instead of dropping (unset = host-only "
+                        "tier)")
     s.add_argument("--kv-disk-tier-bytes", type=int, default=None,
-                   help="disk-ring byte cap (not ported)")
+                   help="byte cap for the disk ring (oldest files "
+                        "dropped past it; unset = unbounded)")
     s.add_argument("--snapshot", default=None,
                    help="drain-snapshot path: written on shutdown, "
                         "restored on boot when present")
@@ -189,7 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(defaults to host:port)")
     s.add_argument("--tenant", action="append", default=None,
                    metavar="SPEC",
-                   help="tenant service class (not ported)")
+                   help="tenant service class, repeatable: "
+                        "name[:key=value]... with keys "
+                        "priority/weight/slots/queue/rps/burst, e.g. "
+                        "premium:priority=2:weight=4:slots=4; any "
+                        "--tenant enables the weighted-fair scheduler "
+                        "(none = the FIFO engine)")
     s.set_defaults(fn=_cmd_serve)
     return p
 

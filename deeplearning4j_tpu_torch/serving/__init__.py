@@ -1,9 +1,9 @@
 """Serving: the continuous-batching decode engine over a dense slot pool
 or the paged KV block pool, with the prefix caches, chunked admission,
-speculative decoding, fault handling, incremental delivery and
-request-scoped observability, and its streaming HTTP gateway with the
-stdlib client (port of ``deeplearning4j_tpu/serving``'s engine and
-front door)."""
+speculative decoding, fault handling, incremental delivery,
+request-scoped observability, tenancy, KV transfer (DKV1) and the KV
+spill tiers, and its streaming HTTP gateway with the stdlib client
+(port of ``deeplearning4j_tpu/serving``'s engine and front door)."""
 
 from deeplearning4j_tpu_torch.serving.client import (
     GatewayClient,
@@ -21,6 +21,13 @@ from deeplearning4j_tpu_torch.serving.gateway import (
     STATUS_OF_REASON,
     ServingGateway,
 )
+from deeplearning4j_tpu_torch.serving.kv_tier import KVTierStore
+from deeplearning4j_tpu_torch.serving.kv_transfer import (
+    KVTransferError,
+    KVTransferTooLarge,
+    pack_prefix,
+    unpack_prefix,
+)
 from deeplearning4j_tpu_torch.serving.prefix_cache import (
     PagedPrefixCache,
     RadixPrefixCache,
@@ -36,3 +43,11 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
     Scheduler,
 )
 from deeplearning4j_tpu_torch.serving.spec import NgramDraftTable
+from deeplearning4j_tpu_torch.serving.tenancy import (
+    DEFAULT_TENANT,
+    SYSTEM_TENANT,
+    TenantRegistry,
+    TenantSpec,
+    TokenBucket,
+    WeightedFairScheduler,
+)

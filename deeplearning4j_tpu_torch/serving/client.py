@@ -1,9 +1,8 @@
 """Stdlib client for the serving gateway (serving/gateway.py).
 
 A copy of ``deeplearning4j_tpu/serving/client.py`` with imports
-rewritten: it speaks to either package's gateway. Against the port's
-gateway ``kv_export`` and ``kv_import`` raise :class:`GatewayError`
-with status 501 (KV transfer is not ported yet).
+rewritten: it speaks to either package's gateway, the KV transfer
+endpoints included (both packages' DKV1 payloads are one format).
 
 ``GatewayClient`` speaks the gateway's endpoints over plain
 ``http.client`` — no dependencies, so the same class serves tests, the

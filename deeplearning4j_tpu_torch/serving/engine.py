@@ -176,9 +176,40 @@ requests' timelines (``request_trace``). A ``tracer``
 request ids), the per-round counters, the failure events as cumulative
 ``serving_<key>`` tracks and the histograms (``describe_metrics``).
 
-Knobs of the JAX engine that this port does not carry yet (tenancy, KV
-tiers, tensor parallelism) raise ``NotImplementedError`` when set to
-anything but their default.
+**Tenancy** (``tenants=TenantRegistry(...)``, serving/tenancy.py;
+JAX's): the weighted-fair scheduler replaces FIFO admission (priority,
+then the most underserved tenant with slot budget left; prompt tokens
+charged at admission, committed tokens each round through
+``note_usage``), each tenant's queue is bounded by its ``max_queued``
+(its own submits shed past it), and once a round, before admission,
+``_qos_round`` recompute-preempts the over-quota or lower-class slots
+a blocked waiter needs (``_preempt_slot``, on both layouts: a greedy
+victim regenerates its ids). Results, flight records and
+``serving.request_done`` instants carry the tenant; ``tenant_stats``
+and the ``{tenant="..."}`` tracks count per tenant and retire with
+the tenant. Without a registry the engine is the FIFO one, unchanged.
+
+**KV transfer** (``export_kv`` / ``import_kv``, paged with a prefix
+cache; serving/kv_transfer.py): a cached prefix's blocks leave as a
+DKV1 payload that the JAX package reads too, and a payload from either
+package is written into freshly allocated blocks (LRU trie entries
+evicted for room, never a live slot) and seeded into the trie, where
+the next admission splices it like a local entry.
+
+**KV tiers** (``kv_host_tier_bytes``, ``kv_disk_tier_path``,
+``kv_disk_tier_bytes``; paged with a prefix cache; serving/kv_tier.py):
+a trie entry evicted under pool pressure is gathered on the device at
+once (a copy, queued before any later in-place write to its blocks)
+and its host copy enqueued into pinned memory behind an event
+(``_stage_spill``, the trie's ``on_evict``); at the end of ``step()``
+(``drain_spills``) each staged spill waits for its own event only, is
+packed as DKV1 and put into the host LRU (then the disk ring, then
+dropped). An admission that misses the trie reloads the longest
+usable tier payload through ``import_prefix`` first (``_tier_reload``).
+Tier contents are cache: a snapshot records the knobs, not payloads.
+
+Tensor parallelism (``tp``) is the one knob of the JAX engine this
+port does not carry yet: any value but 1 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -205,11 +236,13 @@ from deeplearning4j_tpu_torch.nn.streaming import (
 )
 from deeplearning4j_tpu_torch.profiler.tracer import Histogram
 from deeplearning4j_tpu_torch.serving.block_pool import BlockPool, BlockTable
+from deeplearning4j_tpu_torch.serving import kv_transfer
 from deeplearning4j_tpu_torch.serving.faults import (
     FaultEvent,
     FaultPlan,
     poison_rows,
 )
+from deeplearning4j_tpu_torch.serving.kv_tier import KVTierStore
 from deeplearning4j_tpu_torch.serving.prefix_cache import (
     PagedPrefixCache,
     PrefixHit,
@@ -226,27 +259,30 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
     Scheduler,
 )
 from deeplearning4j_tpu_torch.serving.spec import NgramDraftTable
+from deeplearning4j_tpu_torch.serving.tenancy import (
+    TenantRegistry,
+    WeightedFairScheduler,
+)
 
 #: knobs of the JAX engine this port does not carry yet, with the only
 #: value it accepts for each (the JAX engine's default)
-_UNPORTED = {
-    "tp": 1, "tenants": None, "kv_host_tier_bytes": 0,
-    "kv_disk_tier_path": None, "kv_disk_tier_bytes": None,
-}
+_UNPORTED = {"tp": 1}
 
 #: restore() keyword sentinel: None is a meaningful ``use_flash_paged``
 _UNSET = object()
 
-#: the histograms a ``record_timing`` engine owns, JAX's names: the
-#: five of the phase clock, the admission split, and the fused and
-#: async paths' two. The JAX engine also owns those of tensor
-#: parallelism and KV transfer and tiers; they come with those knobs
-#: (ROADMAP item 8)
+#: the histograms a ``record_timing`` engine owns, JAX's names in
+#: JAX's order: the five of the phase clock, the KV import, the
+#: admission split, the fused and async paths' two and the KV tiers'
+#: spill and reload. The JAX engine also owns tensor parallelism's
+#: ``serving_tp_dispatch_s``, which comes with ``tp``
 ENGINE_HISTOGRAMS = ("serving_ttft_s", "serving_itl_s",
                      "serving_queue_wait_s", "serving_round_s",
-                     "serving_e2e_s", "serving_admission_warm_s",
+                     "serving_e2e_s", "serving_kv_import_s",
+                     "serving_admission_warm_s",
                      "serving_admission_cold_s", "serving_host_step_s",
-                     "serving_fused_rounds")
+                     "serving_fused_rounds", "serving_kv_spill_s",
+                     "serving_kv_reload_s")
 
 
 class _PhaseClock:
@@ -380,6 +416,14 @@ SERVING_TRACK_HELP = {
                            "under tp > 1, as serving_blocks_free)",
     "serving_frag_tokens": "allocated-but-masked pool tokens "
                            "(per-shard copies under tp > 1)",
+    "serving_qos_preempted": "slots recompute-preempted by the "
+                             "weighted-fair scheduler (over-quota "
+                             "tenant evicted for a waiting "
+                             "same-or-higher-priority arrival; "
+                             "tenancy-enabled engines only)",
+    "serving_kv_import_s": "cross-replica KV import wall time "
+                           "(device scatter + trie seed per shipped "
+                           "prefix)",
     "serving_admission_warm_s": "admission device-work wall for "
                                 "requests that reused a cached "
                                 "prefix (splice/fetch + suffix "
@@ -389,6 +433,10 @@ SERVING_TRACK_HELP = {
                                 "requests prefilled from scratch — "
                                 "the recompute half of the "
                                 "warm-vs-recompute comparison",
+    "serving_kv_exports": "warmed prefixes exported to peers (KV "
+                          "transfer plane)",
+    "serving_kv_imports": "warmed prefixes imported from peers (KV "
+                          "transfer plane)",
     "serving_host_step_s": "inter-dispatch host wall (previous "
                            "round's token sync to the next decode "
                            "dispatch) — the per-round host-loop cost "
@@ -396,6 +444,26 @@ SERVING_TRACK_HELP = {
     "serving_fused_rounds": "rounds fused per decode scan dispatch "
                             "(the pow2 K-bucket actually run; "
                             "fused_rounds > 0 engines only)",
+    "serving_kv_spill_s": "trie-victim spill wall (host copy + pack "
+                          "of the staged device gather, off the "
+                          "decode hot path; KV tier)",
+    "serving_kv_reload_s": "tier-reload wall (host/disk payload "
+                           "re-imported via the kv_import scatter + "
+                           "trie re-seed)",
+    "serving_kv_tier_hits": "prefix lookups answered per tier "
+                            "({tier=hbm|host|disk} labeled; hbm = "
+                            "trie hits, host/disk = tier reload "
+                            "matches)",
+    "serving_kv_tier_spills": "trie victims admitted to the spill "
+                              "tier",
+    "serving_kv_tier_reloads": "spilled prefixes reloaded into the "
+                               "trie",
+    "serving_kv_tier_drops": "spilled prefixes lost (budget "
+                             "overflow, reload fault, clear)",
+    "serving_kv_tier_host_bytes": "payload bytes resident in the "
+                                  "host-DRAM tier (gauge)",
+    "serving_kv_tier_disk_bytes": "payload bytes resident in the "
+                                  "disk ring (gauge)",
 }
 
 
@@ -577,7 +645,12 @@ class DecodeEngine:
     clocks are read on. ``on_delta`` (a callable ``(rid, tokens)``) or
     ``emit_deltas`` turn on incremental delivery; ``record_timing``,
     ``flight_recorder`` (terminal traces kept, 0: none) and ``tracer``
-    the request-scoped observability (module docstring)."""
+    the request-scoped observability (module docstring). ``tenants``
+    (a ``TenantRegistry``; None: FIFO admission) turns on tenancy;
+    ``kv_host_tier_bytes`` (0: off), ``kv_disk_tier_path`` (None: no
+    disk ring) and ``kv_disk_tier_bytes`` (None: unbounded) the KV
+    spill tiers of a paged engine with a prefix cache (module
+    docstring)."""
 
     #: valid shed policies for a full admission queue: reject the new
     #: arrival, or shed the oldest queued request in its favour
@@ -586,6 +659,18 @@ class DecodeEngine:
     #: where speculative drafts come from: prompt-lookup n-gram tables
     #: (serving/spec.py), the only source the JAX engine has
     DRAFT_SOURCES = ("ngram",)
+
+    #: idle rounds before a retired tenant's labelled histogram tracks
+    #: drop from the scrape: long enough that any real scrape cadence
+    #: sees the tenant's final distributions, short enough that a
+    #: churning population stays bounded
+    TENANT_HIST_RETIRE_ROUNDS = 4096
+
+    #: staged-spill cap: each staged spill holds one gathered block
+    #: stack on the device and its pinned host copy until the
+    #: end-of-round drain; past the cap a victim is dropped
+    #: (recomputed later), as without a tier
+    MAX_PENDING_SPILLS = 8
 
     #: stats keys that count failure events (all present from the start)
     FAILURE_KEYS = ("deadline_expired", "queue_timeouts", "cancelled",
@@ -612,6 +697,10 @@ class DecodeEngine:
                  stall_threshold_s: Optional[float] = None, clock=None,
                  tracer=None, on_delta=None, emit_deltas: bool = False,
                  record_timing: bool = True, flight_recorder: int = 256,
+                 tenants: Optional[TenantRegistry] = None,
+                 kv_host_tier_bytes: int = 0,
+                 kv_disk_tier_path: Optional[str] = None,
+                 kv_disk_tier_bytes: Optional[int] = None,
                  **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -695,12 +784,28 @@ class DecodeEngine:
                 "window")
         self.prefill_chunk = int(prefill_chunk)
         self.adaptive_prefill = bool(adaptive_prefill)
-        self.scheduler = Scheduler(
-            self.window, min_bucket=min_prompt_bucket,
-            prefill_chunk=self.prefill_chunk,
+        # tenancy off (the default) keeps the FIFO scheduler and does no
+        # per-tenant bookkeeping
+        self.tenants = tenants
+        sched_kwargs = dict(
+            min_bucket=min_prompt_bucket, prefill_chunk=self.prefill_chunk,
             prefill_budget=prefill_budget, policy=admission_policy,
             max_queue=max_queue, pressure_high=pressure_high,
             pressure_low=pressure_low, spec_draft_len=self.spec_draft_len)
+        if tenants is not None:
+            self.scheduler = WeightedFairScheduler(
+                self.window, tenants=tenants, **sched_kwargs)
+        else:
+            self.scheduler = Scheduler(self.window, **sched_kwargs)
+        #: per-tenant latency histograms (``family{tenant="..."}``
+        #: tracks, made on a tenant's first sample) and cumulative
+        #: per-tenant stats mirrored as labelled tracer samples
+        self._tenant_hists: Dict[str, Histogram] = {}
+        self.tenant_stats: Dict[str, Dict[str, int]] = {}
+        #: tenants open at the last gauge emission, and each retired
+        #: tenant's idle rounds (labelled histogram retirement)
+        self._tenant_open_last: set = set()
+        self._tenant_hist_idle: Dict[str, int] = {}
         self.paged_kv = bool(paged_kv)
         self.block_tokens = int(block_tokens)
         self.kv_blocks = None
@@ -717,6 +822,26 @@ class DecodeEngine:
                 release_block=self._release_block)
         elif prefix_cache_rows:
             self.prefix_cache = RadixPrefixCache(prefix_cache_rows)
+        # the KV spill tiers (off by default: evicted trie entries are
+        # dropped and recomputed)
+        self.kv_host_tier_bytes = int(kv_host_tier_bytes or 0)
+        self.kv_disk_tier_path = kv_disk_tier_path
+        self.kv_disk_tier_bytes = kv_disk_tier_bytes
+        self.kv_tier: Optional[KVTierStore] = None
+        #: spills staged this round (key, logical blocks, floor, host
+        #: layers, event), packed by drain_spills at the end of step()
+        self._pending_spills: List[Tuple] = []
+        if self.kv_host_tier_bytes or kv_disk_tier_path:
+            if not isinstance(self.prefix_cache, PagedPrefixCache):
+                raise ValueError(
+                    "the KV spill tier needs paged_kv=True and "
+                    "prefix_cache_rows > 0 (it spills paged trie "
+                    "victims)")
+            self.kv_tier = KVTierStore(
+                host_budget_bytes=self.kv_host_tier_bytes,
+                disk_path=kv_disk_tier_path,
+                disk_budget_bytes=kv_disk_tier_bytes)
+            self.prefix_cache.on_evict = self._stage_spill
         self._kv_tabs: List[Optional[BlockTable]] = [None] * self.n_slots
         #: per-slot n-gram draft tables (None: speculation off)
         self.spec: Optional[NgramDraftTable] = (
@@ -729,10 +854,6 @@ class DecodeEngine:
         self.retry_backoff_rounds = int(retry_backoff_rounds)
         self.stall_threshold_s = stall_threshold_s
         self._clock = clock if clock is not None else time.perf_counter
-        #: JAX's attributes of the refused tenancy and KV-tier knobs,
-        #: read by the gateway
-        self.tenants = None
-        self.kv_tier = None
         self.tracer = tracer
         #: incremental delivery: per-request high-water mark of the
         #: delivered tokens, and the deltas buffered for drain_deltas()
@@ -806,7 +927,19 @@ class DecodeEngine:
             "blocks_used": 0, "cow_copies": 0, "prefix_blocks_spliced": 0,
             "frag_tokens": 0, "preempted": 0, "paged_admit_deferred": 0,
             "spec_rounds": 0, "spec_fallback_rounds": 0,
-            "spec_drafted": 0, "spec_accepted": 0,
+            "spec_drafted": 0, "spec_accepted": 0, "qos_preempted": 0,
+            # the KV transfer plane's counters
+            "kv_exports": 0, "kv_exported_tokens": 0,
+            "kv_imports": 0, "kv_imported_tokens": 0,
+            "kv_imported_blocks": 0, "kv_import_declined": 0,
+            # the spill tiers', mirrored from the KVTierStore each
+            # refresh (nonzero only with a tier)
+            "kv_tier_spills": 0, "kv_tier_reloads": 0,
+            "kv_tier_drops": 0, "kv_tier_demotions": 0,
+            "kv_tier_hits_host": 0, "kv_tier_hits_disk": 0,
+            "kv_tier_host_bytes": 0, "kv_tier_disk_bytes": 0,
+            "kv_tier_spill_skipped": 0, "kv_tier_reload_declined": 0,
+            "kv_tier_reload_faults": 0, "kv_tier_exports": 0,
         }
         for key in self.FAILURE_KEYS:
             self.stats[key] = 0
@@ -868,12 +1001,21 @@ class DecodeEngine:
         ``shed_policy``: the result of the shed request (this one under
         "reject-new", the oldest queued one under "shed-oldest") is
         delivered with ``finish_reason="shed"`` at the next
-        ``run()``/``step()`` drain."""
+        ``run()``/``step()`` drain. With tenancy a tenant whose own queue
+        is at its ``max_queued`` sheds its new request, whatever the
+        global policy (shedding another tenant's oldest to admit a
+        flooder would invert the QoS contract)."""
         bad = [t for t in request.prompt if not 0 <= int(t) < self.vocab]
         if bad:
             raise ValueError(
                 f"prompt ids {bad[:4]} outside vocab [0, {self.vocab})")
         self.scheduler.validate(request)
+        if (self.tenants is not None
+                and self.scheduler.tenant_full(request.tenant)):
+            rid = self.scheduler.assign_id(request)
+            self._mint_clock(rid)
+            self._shed(request)
+            return rid
         if self.scheduler.full:
             if self.shed_policy == "reject-new":
                 rid = self.scheduler.assign_id(request)
@@ -968,6 +1110,8 @@ class DecodeEngine:
         if hasattr(self.tracer, "register_histogram"):
             for name, hist in self.histograms.items():
                 self.tracer.register_histogram(name, hist)
+            for name, hist in self._tenant_hists.items():
+                self.tracer.register_histogram(name, hist)
         if hasattr(self.tracer, "describe"):
             for name, help_text in SERVING_TRACK_HELP.items():
                 self.tracer.describe(name, help_text)
@@ -985,6 +1129,35 @@ class DecodeEngine:
         hist = self.histograms.get(name)
         if hist is not None and value is not None:
             hist.observe(value, n)
+
+    def _observe_tenant(self, family: str, tenant: str, value,
+                        n: int = 1) -> None:
+        """Per-tenant labelled twin of :meth:`_observe`: records into
+        the ``family{tenant="..."}`` histogram, made and registered with
+        the tracer on the tenant's first sample. Nothing without a
+        tenant registry."""
+        if (self.tenants is None or not self.record_timing
+                or value is None):
+            return
+        name = f'{family}{{tenant="{tenant}"}}'
+        hist = self._tenant_hists.get(name)
+        if hist is None:
+            hist = self._tenant_hists[name] = Histogram()
+            if (self.tracer is not None
+                    and hasattr(self.tracer, "register_histogram")):
+                self.tracer.register_histogram(name, hist)
+        hist.observe(value, n)
+
+    def _tenant_count(self, tenant: str, key: str, n: int = 1) -> None:
+        """Bump a per-tenant cumulative stat (mirrored as
+        ``serving_<key>{tenant=...}`` samples by
+        :meth:`_emit_tenant_gauges`). Nothing without tenancy."""
+        if self.tenants is None:
+            return
+        stats = self.tenant_stats.setdefault(
+            tenant, {"tokens_generated": 0, "admitted": 0, "shed": 0,
+                     "preempted": 0})
+        stats[key] = stats.get(key, 0) + n
 
     def request_trace(self, rid: int) -> Optional[Dict[str, Any]]:
         """The flight recorder's record of one TERMINAL request: its
@@ -1046,24 +1219,32 @@ class DecodeEngine:
             clock.event(now, "terminal", reason=reason)
             timing = clock.summary(now, len(tokens))
             self._observe("serving_e2e_s", timing["e2e_s"])
+            self._observe_tenant("serving_e2e_s", request.tenant,
+                                 timing["e2e_s"])
+            # a tenancy engine stamps the tenant onto the flight record
+            # and the request_done instant; a tenant-blind one does not
+            tenancy = ({"tenant": request.tenant}
+                       if self.tenants is not None else {})
             if self.flight_recorder:
                 self._flight[request.id] = {
                     "id": request.id, "finish_reason": reason,
                     "timing": timing, "attempts": clock.attempts,
-                    **_targs(request)}
+                    **tenancy, **_targs(request)}
                 while len(self._flight) > self.flight_recorder:
                     self._flight.popitem(last=False)
             if self.tracer is not None:
                 self.tracer.instant("serving.request_done",
                                     rid=request.id, reason=reason,
-                                    timing=timing, **_targs(request))
+                                    timing=timing, **tenancy,
+                                    **_targs(request))
         self._terminal[request.id] = GenerationResult(
             id=request.id, tokens=list(tokens), finish_reason=reason,
             prompt_len=len(request.prompt),
             prefix_tokens_reused=prefix_reused, ttft_s=ttft,
             retries=self._retries.pop(request.id, 0),
             spec_drafted=spec_drafted, spec_accepted=spec_accepted,
-            timing=timing, trace=request.trace)
+            timing=timing, trace=request.trace,
+            tenant=request.tenant if self.tenants is not None else None)
         self.stats["requests_finished"] += 1
         self._submit_t.pop(request.id, None)
         self._started.discard(request.id)
@@ -1077,16 +1258,21 @@ class DecodeEngine:
                               state.prefix_reused, state.ttft_s,
                               state.spec_drafted, state.spec_accepted)
 
-    def _failure_event(self, kind: str) -> None:
+    def _failure_event(self, kind: str,
+                       tenant: Optional[str] = None) -> None:
         """Count one failure event (a ``FAILURE_KEYS`` stat), mirrored
-        into the tracer's cumulative ``serving_<kind>`` track."""
+        into the tracer's cumulative ``serving_<kind>`` track and, with
+        tenancy and a ``tenant``, its ``{tenant="..."}`` twin."""
         self.stats[kind] += 1
         if self.tracer is not None:
             self.tracer.incr(f"serving_{kind}")
+            if tenant is not None and self.tenants is not None:
+                self.tracer.incr(f'serving_{kind}{{tenant="{tenant}"}}')
 
     def _shed(self, request: Request) -> None:
         self._record_terminal(request, [], "shed")
-        self._failure_event("shed")
+        self._failure_event("shed", tenant=request.tenant)
+        self._tenant_count(request.tenant, "shed")
 
     def _abort_pending(self, pending: _Pending) -> None:
         """Drop an admission in flight (cancel, deadline): release the
@@ -1170,20 +1356,29 @@ class DecodeEngine:
         return True
 
     def _preempt_slot(self, slot: int) -> None:
-        """Release a running slot's blocks under pool pressure and
-        requeue its request for the next round (it prefills again from
-        scratch, or from the trie; a greedy request regenerates
-        identical ids, and the delta high-water mark keeps them from
-        streaming twice). Blocks it shares with the trie stay. A SAMPLED
+        """Release a running slot under pool pressure (paged) or for a
+        waiting tenant (``_qos_round``, either layout) and requeue its
+        request for the next round (it prefills again from scratch, or
+        from the trie; a greedy request regenerates identical ids, and
+        the delta high-water mark keeps them from streaming twice).
+        Paged, its blocks are released (those it shares with the trie
+        stay); dense, its pool rows are zeroed in place. A SAMPLED
         request that already streamed ends ``"fault"`` instead (a
         redraw would splice two sequences), as in quarantine."""
         state = self._slots[slot]
         self.stats["preempted"] += 1
         if self.tracer is not None:
             self.tracer.incr("serving_preempted")
-        tab = self._kv_tabs[slot]
-        self._kv_tabs[slot] = None
-        self._free_table(tab)
+            if self.tenants is not None:
+                self.tracer.incr(
+                    f'serving_preempted{{tenant="{state.request.tenant}"}}')
+        self._tenant_count(state.request.tenant, "preempted")
+        if self.paged_kv:
+            tab = self._kv_tabs[slot]
+            self._kv_tabs[slot] = None
+            self._free_table(tab)
+        elif self._pool is not None:
+            clear_state_rows(self._pool, [slot])
         self._slots[slot] = None
         self._temps[slot] = 0.0
         self._top_ks[slot] = self.vocab
@@ -1400,16 +1595,30 @@ class DecodeEngine:
         copy of the matched state; paged: splice the entry's blocks
         below the matched length into a new table), then prefill the
         whole suffix now (blocking mode) or queue the admission for
-        chunks between decode rounds (``prefill_chunk > 0``)."""
+        chunks between decode rounds (``prefill_chunk > 0``). With a KV
+        tier, a trie miss (or a hit no deeper than the entry's floor)
+        first reloads the tier's longest usable payload into the trie
+        (:meth:`_tier_reload`) and looks up again."""
         self._started.add(request.id)
         clock = self._clock_of(request.id)
         if clock is not None:
             now = self._clock()
             self._observe("serving_queue_wait_s", now - clock.enqueue_t)
+            self._observe_tenant("serving_queue_wait_s", request.tenant,
+                                 now - clock.enqueue_t)
             clock.add(now, "queue_wait", now - clock.enqueue_t, slot=slot)
         rnn, matched, hit, tab = None, 0, None, None
         if self.prefix_cache is not None:
             hit = self.prefix_cache.lookup(request.prompt)
+            if (self.kv_tier is not None
+                    and (hit is None
+                         or hit.matched <= self.prefix_cache.payload(
+                             hit.row).floor)):
+                if hit is not None:
+                    self.prefix_cache.release(hit)
+                    hit = None
+                if self._tier_reload(request.prompt):
+                    hit = self.prefix_cache.lookup(request.prompt)
             if hit is not None and self.paged_kv:
                 payload = self.prefix_cache.payload(hit.row)
                 if hit.matched > payload.floor:
@@ -1586,6 +1795,7 @@ class DecodeEngine:
                         prefix_reused=pending.matched)
             clock.last_commit_t = now   # ITL starts after this token
             self._observe("serving_ttft_s", ttft)
+            self._observe_tenant("serving_ttft_s", request.tenant, ttft)
             # warm-against-cold admission: the attempt's admission work,
             # split by whether a cached prefix was reused
             phases = clock.attempts[-1]["phases"]
@@ -1604,6 +1814,8 @@ class DecodeEngine:
                            + state.tokens)
         self.stats["tokens_generated"] += 1
         self.stats["admitted"] += 1
+        self._tenant_count(request.tenant, "admitted")
+        self._tenant_count(request.tenant, "tokens_generated")
         if self._finished(state):
             # a request finishing at admission never reaches a round's
             # health check: probe its row before its terminal drains
@@ -2121,11 +2333,12 @@ class DecodeEngine:
                                 self.scheduler.draft_len)
         return acc + 1
 
-    def _decode_round(self, active: List[int]) -> None:
+    def _decode_round(self, active: List[int]) -> bool:
         """Plan the drafts (speculative), plan, reserve (paged) and
         dispatch one stepped round (behind a verify pass when a slot
         drafted) or fused window; land it now, or at the next
-        ``step()`` (async)."""
+        ``step()`` (async). False when the reservation preempted every
+        slot and nothing was dispatched."""
         drafts = (self._plan_drafts(active) if self.spec is not None
                   else None)
         spec_round = drafts is not None and any(drafts.values())
@@ -2155,7 +2368,7 @@ class DecodeEngine:
                 # (the extra reserved blocks serve the next rounds)
                 fuse_k, n_tok = 0, self.decode_chunk
             if not active:
-                return
+                return False
         t0 = time.perf_counter()
         timing = self.record_timing
         if timing:
@@ -2240,6 +2453,39 @@ class DecodeEngine:
             self._land_round(inf)
             if timing:
                 self._observe("serving_round_s", self._clock() - self._rt0)
+        return True
+
+    def _qos_round(self) -> None:
+        """Once per scheduling round, before admission (JAX's
+        ``_qos_round``): give the weighted-fair scheduler the per-tenant
+        slot occupancy (deficit refill and quota accounting), then
+        recompute-preempt the slots it names (:meth:`_preempt_slot`),
+        so a higher-priority arrival is admitted THIS round instead of
+        waiting out a flooder's decode rounds."""
+        running: Dict[str, int] = {}
+        view: List[Tuple[int, str, int]] = []
+        for slot, state in enumerate(self._slots):
+            if state is None:
+                continue
+            tenant = state.request.tenant
+            running[tenant] = running.get(tenant, 0) + 1
+            view.append((slot, tenant,
+                         self.tenants.effective_priority(state.request)))
+        for pending in self._pending:
+            tenant = pending.request.tenant
+            running[tenant] = running.get(tenant, 0) + 1
+        self.scheduler.begin_round(running)
+        if not self.scheduler.pending or not view:
+            return
+        free = sum(1 for slot in range(self.n_slots)
+                   if self._slots[slot] is None
+                   and slot not in self._reserved)
+        for slot in self.scheduler.plan_preemptions(view, free):
+            if self._slots[slot] is not None:
+                self.stats["qos_preempted"] += 1
+                if self.tracer is not None:
+                    self.tracer.incr("serving_qos_preempted")
+                self._preempt_slot(slot)
 
     def _land_round(self, inf: _InflightRound) -> None:
         """Commit a dispatched round (JAX's ``_land_round``): wait for
@@ -2290,6 +2536,7 @@ class DecodeEngine:
         if self.paranoid:
             active = self._quarantine(active)
         emitted = 0
+        round_usage: Dict[str, int] = {}
         for slot in active:
             state = self._slots[slot]
             if v_n is not None:
@@ -2306,6 +2553,12 @@ class DecodeEngine:
                 emitted += 1
                 if self._finished(state):
                     break
+            if self.tenants is not None and appended:
+                tenant = state.request.tenant
+                round_usage[tenant] = round_usage.get(tenant, 0) + len(
+                    appended)
+                self._tenant_count(tenant, "tokens_generated",
+                                   len(appended))
             # after the paranoid sweep: a quarantined slot's round never
             # streams; the admission's first token goes with this one
             self._note_progress(state)
@@ -2319,6 +2572,9 @@ class DecodeEngine:
                 if clock.last_commit_t is not None:
                     gap = (now_c - clock.last_commit_t) / len(appended)
                     self._observe("serving_itl_s", gap, n=len(appended))
+                    self._observe_tenant("serving_itl_s",
+                                         state.request.tenant, gap,
+                                         n=len(appended))
                 clock.last_commit_t = now_c
                 clock.rounds += inf.n_rounds
                 clock.event(now_c, "commit", n=len(appended))
@@ -2332,6 +2588,10 @@ class DecodeEngine:
         self.stats["decode_time_s"] += dt
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += inf.decode_tokens
+        if self.tenants is not None and round_usage:
+            # committed decode tokens charge each tenant's deficit: the
+            # fair share is tokens, not admissions
+            self.scheduler.note_usage(round_usage)
         occ = len(active) / self.n_slots
         self.stats["occupancy_sum"] += occ
         if self.tracer is not None:
@@ -2350,6 +2610,148 @@ class DecodeEngine:
         if self.prefix_cache is not None:
             tabs.extend(self.prefix_cache.tables())
         self.stats["frag_tokens"] = pool.fragmentation_tokens(tabs)
+        if self.kv_tier is not None:
+            t = self.kv_tier.stats
+            for key in ("spills", "reloads", "drops", "demotions",
+                        "hits_host", "hits_disk"):
+                self.stats[f"kv_tier_{key}"] = t[key]
+            self.stats["kv_tier_host_bytes"] = self.kv_tier.host_bytes
+            self.stats["kv_tier_disk_bytes"] = self.kv_tier.disk_bytes
+
+    # -- KV transfer -----------------------------------------------------
+    def export_kv(self, prompt,
+                  cap_bytes: Optional[int] = None) -> Optional[bytes]:
+        """The longest cached prefix of ``prompt`` as a DKV1 payload
+        any peer (of either package) can import
+        (``kv_transfer.export_prefix``). None when nothing reusable is
+        cached or the engine is not paged; ``cap_bytes`` raises
+        ``KVTransferTooLarge`` from size arithmetic BEFORE any device
+        gather. With a KV tier, a trie-cold prefix that the tier still
+        holds is served from the stored payload (no device work; the
+        payload stays resident, an export is read-only)."""
+        with torch.no_grad():
+            payload = kv_transfer.export_prefix(self, prompt,
+                                                cap_bytes=cap_bytes)
+        if payload is None and self.kv_tier is not None:
+            self.drain_spills()   # a just-evicted prefix may be staged
+            ent = self.kv_tier.match(prompt)
+            if ent is not None:
+                _key, payload, _tier = ent
+                if cap_bytes is not None and len(payload) > cap_bytes:
+                    raise kv_transfer.KVTransferTooLarge(
+                        f"tier export is {len(payload)} bytes, over "
+                        f"the {cap_bytes}-byte cap")
+                self.stats["kv_tier_exports"] += 1
+        return payload
+
+    def import_kv(self, payload: bytes) -> Dict[str, Any]:
+        """Splice a peer's exported prefix into this engine's pool and
+        trie (``kv_transfer.import_prefix``); the next admission of
+        that prompt splices it exactly like a locally computed entry.
+        Declines softly (``imported: False``) under pool or trie
+        pressure and never preempts a live slot; raises
+        ``KVTransferError`` on a malformed frame or a geometry
+        mismatch. Either way the caller's recompute path still covers
+        correctness."""
+        with torch.no_grad():
+            return kv_transfer.import_prefix(self, payload)
+
+    # -- the KV spill tiers ------------------------------------------------
+    def _stage_spill(self, tokens, tab) -> None:
+        """Pressure-eviction hook (the trie's ``on_evict``): stage the
+        victim's blocks for the tier. The blocks are gathered at once
+        into fresh device tensors (``kv_transfer.gather_blocks``, a
+        copy queued on the current stream ahead of any later in-place
+        write: the victim's blocks are recycled as soon as the hook
+        returns), and on the card their host copy is enqueued into
+        pinned memory behind an event. Packing waits for
+        :meth:`drain_spills` at the end of the round. Nothing is staged
+        for a window-broken entry, a poisoned block, or past
+        ``MAX_PENDING_SPILLS``."""
+        if self.kv_tier is None or self._pool is None:
+            return
+        matched, floor, bt = tab.length, tab.floor, self.block_tokens
+        if matched - floor <= 0:
+            return
+        want = list(range(floor // bt, (matched - 1) // bt + 1))
+        if any(g not in tab.blocks for g in want):
+            return  # window slide broke contiguity: nothing to spill
+        bids = [tab.blocks[g] for g in want]
+        if any(b in self.block_pool.poisoned for b in bids):
+            return  # quarantined state must never be spilled
+        key = tuple(int(t) for t in tokens)
+        if len(self._pending_spills) >= self.MAX_PENDING_SPILLS:
+            self.stats["kv_tier_spill_skipped"] += 1
+            return
+        gathered = kv_transfer.gather_blocks(self, bids)
+        layers = [(name,) + gathered[name] for name in sorted(gathered)]
+        event = None
+        if self.device.type == "cuda":
+            host = []
+            for name, pk, pv in layers:
+                hk, hv = _pinned_empty(pk), _pinned_empty(pv)
+                hk.copy_(pk, non_blocking=True)
+                hv.copy_(pv, non_blocking=True)
+                host.append((name, hk, hv))
+            layers = host
+            event = torch.cuda.Event()
+            event.record()
+        self._pending_spills.append((key, want, floor, layers, event))
+
+    def drain_spills(self) -> int:
+        """Pack every staged spill into the tier (DKV1 frame, then
+        ``KVTierStore.put``). Runs at the end of ``step()``, after the
+        round's decode dispatch, and before any tier read that must see
+        just-evicted entries (the export fallback, ``snapshot``). Each
+        spill waits on its own host copy's event only, which the stream
+        reached before this round's decode dispatch: a round in flight
+        is never waited on. Returns the number of payloads drained."""
+        if not self._pending_spills:
+            return 0
+        staged, self._pending_spills = self._pending_spills, []
+        for key, want, floor, layers, event in staged:
+            t0 = self._clock()
+            if event is not None:
+                event.synchronize()
+            payload = kv_transfer.pack_prefix(list(key), want, floor,
+                                              self.block_tokens, layers)
+            tier = self.kv_tier.put(key, payload)
+            self._observe("serving_kv_spill_s", self._clock() - t0)
+            with self._span("serving.kv_spill", tokens=len(key),
+                            blocks=len(want), tier=tier,
+                            bytes=len(payload)):
+                pass
+        return len(staged)
+
+    def _tier_reload(self, prompt) -> bool:
+        """Admission-side tier check: on a trie miss, the longest tier
+        payload sharing a usable prefix with ``prompt`` is imported
+        (``import_prefix``) and re-seeds the trie. True = the caller
+        should look the trie up again. Every fault falls through to
+        recompute: a malformed payload is dropped from the tier, a soft
+        decline (pool or trie pressure) leaves it resident for a later
+        retry."""
+        ent = self.kv_tier.match(prompt)
+        if ent is None:
+            return False
+        key, payload, tier_name = ent
+        t0 = self._clock()
+        try:
+            out = kv_transfer.import_prefix(self, payload)
+        except kv_transfer.KVTransferError:
+            self.kv_tier.drop(key)
+            self.stats["kv_tier_reload_faults"] += 1
+            return False
+        if not out.get("imported"):
+            self.stats["kv_tier_reload_declined"] += 1
+            return False
+        self.kv_tier.take(key)
+        self._observe("serving_kv_reload_s", self._clock() - t0)
+        with self._span("serving.kv_reload", tier=tier_name,
+                        tokens=out.get("tokens"), blocks=out.get("blocks"),
+                        bytes=len(payload)):
+            pass
+        return True
 
     def _emit_counters(self) -> None:
         """Mirror the engine's cumulative counters into the tracer, one
@@ -2371,8 +2773,80 @@ class DecodeEngine:
             for key in ("hits", "misses", "evictions"):
                 self.tracer.counter(f"serving_prefix_{key}",
                                     self.prefix_cache.stats[key])
+        if self.kv_tier is not None:
+            # the tier ladder per rung: hbm = trie hits (JAX's label for
+            # the device pool), host / disk = tier reload matches
+            t = self.kv_tier.stats
+            for tier, value in (("hbm", self.prefix_cache.stats["hits"]),
+                                ("host", t["hits_host"]),
+                                ("disk", t["hits_disk"])):
+                self.tracer.counter(
+                    f'serving_kv_tier_hits{{tier="{tier}"}}', value)
+            for key in ("spills", "reloads", "drops"):
+                self.tracer.counter(f"serving_kv_tier_{key}", t[key])
+            self.tracer.counter("serving_kv_tier_host_bytes",
+                                self.kv_tier.host_bytes)
+            self.tracer.counter("serving_kv_tier_disk_bytes",
+                                self.kv_tier.disk_bytes)
         # JAX's shard gauge: one shard (tensor parallelism is refused)
         self.tracer.gauge("serving_tp_shards", 1)
+        self._emit_tenant_gauges()
+
+    def _open_tenants(self) -> set:
+        """Tenants with at least one open request anywhere in the engine
+        (queued, requeued, admitting or in a slot): the liveness test
+        that retires per-tenant gauges."""
+        open_t = {s.request.tenant for s in self._slots if s is not None}
+        open_t.update(p.request.tenant for p in self._pending)
+        open_t.update(req.tenant for _, req in self._requeue)
+        open_t.update(req.tenant for req in self.scheduler.queued_requests())
+        return open_t
+
+    def _emit_tenant_gauges(self) -> None:
+        """Per-tenant labelled copies of the per-round counters
+        (``serving_tokens_generated{tenant=...}``,
+        ``serving_admitted{...}``) as gauges; shed and preempted are
+        counted by ``incr`` when they happen. A tenant with no open
+        request gets one more emission round (a scrape still sees its
+        closing totals) and is then retired: its ``tenant_stats`` entry
+        and gauges dropped. Its labelled histograms outlive it by
+        ``TENANT_HIST_RETIRE_ROUNDS`` idle rounds."""
+        if self.tenants is None or self.tracer is None:
+            return
+        gauge = getattr(self.tracer, "gauge", self.tracer.counter)
+        drop = getattr(self.tracer, "drop_gauge", None)
+        open_now = self._open_tenants()
+        was_open = self._tenant_open_last
+        for tenant in list(self.tenant_stats):
+            stats = self.tenant_stats[tenant]
+            if tenant not in open_now and tenant not in was_open:
+                del self.tenant_stats[tenant]
+                if drop is not None:
+                    for key in stats:
+                        if key not in ("shed", "preempted"):
+                            drop(f'serving_{key}{{tenant="{tenant}"}}')
+                continue
+            for key, value in stats.items():
+                if key not in ("shed", "preempted"):
+                    gauge(f'serving_{key}{{tenant="{tenant}"}}', value)
+        self._tenant_open_last = open_now
+        drop_hist = getattr(self.tracer, "drop_histogram", None)
+        idle = self._tenant_hist_idle
+        hist_tenants = {name.rsplit('{tenant="', 1)[-1][:-2]
+                        for name in self._tenant_hists}
+        for tenant in hist_tenants:
+            if tenant in open_now:
+                idle.pop(tenant, None)
+                continue
+            idle[tenant] = idle.get(tenant, 0) + 1
+            if idle[tenant] > self.TENANT_HIST_RETIRE_ROUNDS:
+                idle.pop(tenant)
+                suffix = f'{{tenant="{tenant}"}}'
+                for name in [n for n in self._tenant_hists
+                             if n.endswith(suffix)]:
+                    del self._tenant_hists[name]
+                    if drop_hist is not None:
+                        drop_hist(name)
 
     @property
     def mean_occupancy(self) -> float:
@@ -2485,6 +2959,8 @@ class DecodeEngine:
             self._drain_requeue()
             self._inject_faults()
             self._sweep_deadlines()
+            if self.tenants is not None:
+                self._qos_round()
             for slot in range(self.n_slots):
                 if (self._slots[slot] is None
                         and slot not in self._reserved
@@ -2499,6 +2975,9 @@ class DecodeEngine:
                         self._failure_event("faults_detected")
                         self._requeue_victim(victim)
                         continue
+                    # FIFO without tenancy, priority then deficit with
+                    # it; None: every queued tenant is over its slot
+                    # quota, and the round admits nobody
                     nxt = self.scheduler.pop_admissible()
                     if nxt is None:
                         break
@@ -2507,8 +2986,12 @@ class DecodeEngine:
                 self._advance_pending()
             active = [i for i, s in enumerate(self._slots)
                       if s is not None]
-            if active:
-                self._decode_round(active)
+            # the spills staged this round drain after its dispatch; a
+            # round whose reservation preempted every slot leaves them
+            # for the next round's drain, as JAX's early return does
+            if ((not active or self._decode_round(active))
+                    and self._pending_spills):
+                self.drain_spills()
         if self.block_pool is not None:
             self._paged_stats_refresh()
         self._round += 1
@@ -2616,11 +3099,13 @@ class DecodeEngine:
         re-prefilling recorded tokens. An async round in flight lands
         first.
 
-        ``config`` carries the knobs this port refuses at their only
-        accepted values, so the JAX package's ``restore`` accepts the
-        dict. A slot's ``delta_sent`` counts the tokens already streamed
-        to a consumer (buffered, undrained deltas count as not
-        streamed). ``paged`` lists the slots' block tables and the refcounts
+        ``config`` carries ``tp`` at the only value the port accepts
+        and the KV tier knobs (never the tier's payloads), and
+        ``tenants`` the registry, so the JAX package's ``restore``
+        accepts the dict. Spills still staged are drained first. A
+        slot's ``delta_sent`` counts the tokens already streamed to a
+        consumer (buffered, undrained deltas count as not streamed).
+        ``paged`` lists the slots' block tables and the refcounts
         of the first ``kv_blocks`` blocks (the pool's scratch block is
         never named). The RNG: ``rng_key`` holds what
         ``jax.random.PRNGKey(seed)`` holds for this engine's seed (a
@@ -2632,6 +3117,9 @@ class DecodeEngine:
             inf, self._inflight = self._inflight, None
             with torch.no_grad():
                 self._land_round(inf)
+        # staged spills land too: their host copies belong to this
+        # process
+        self.drain_spills()
         now = self._clock()
 
         def entry(req: Request) -> Dict[str, Any]:
@@ -2702,12 +3190,17 @@ class DecodeEngine:
                 "use_flash_paged": self.use_flash_paged,
                 "async_rounds": self.async_rounds,
                 "fused_rounds": self.fused_rounds,
-                "kv_host_tier_bytes": _UNPORTED["kv_host_tier_bytes"],
-                "kv_disk_tier_path": _UNPORTED["kv_disk_tier_path"],
-                "kv_disk_tier_bytes": _UNPORTED["kv_disk_tier_bytes"],
+                # tier contents are droppable cache: the knobs ride the
+                # snapshot, never the payloads
+                "kv_host_tier_bytes": self.kv_host_tier_bytes,
+                "kv_disk_tier_path": self.kv_disk_tier_path,
+                "kv_disk_tier_bytes": self.kv_disk_tier_bytes,
             },
             "paged": paged,
-            "tenants": None,
+            # the registry rides the snapshot, so a drained engine's
+            # quotas and priorities survive (restore(tenants=) wins)
+            "tenants": (self.tenants.to_dict()
+                        if self.tenants is not None else None),
             "spec": ({"draft_len": sched.draft_len,
                       "drafted": sched._spec_drafted,
                       "accepted": sched._spec_accepted,
@@ -2733,7 +3226,9 @@ class DecodeEngine:
     @classmethod
     def restore(cls, net, snapshot: Dict[str, Any], tracer=None,
                 fault_plan: Optional[FaultPlan] = None, clock=None,
-                seed: int = 0, use_flash_paged=_UNSET) -> "DecodeEngine":
+                seed: int = 0, use_flash_paged=_UNSET,
+                tenants: Optional[TenantRegistry] = None
+                ) -> "DecodeEngine":
         """Rebuild an engine from a ``snapshot()`` dict of either
         package (JAX's ``restore``): the same config, the prefix trie
         re-primed by re-prefill, every running slot's KV state
@@ -2758,13 +3253,17 @@ class DecodeEngine:
         attached to the new engine. ``use_flash_paged`` overrides the
         snapshot's toggle (a value the
         port does not know, such as JAX's ``"interpret"``, reads as
-        None). A snapshot with tenants, ``tp > 1`` or KV tiers is
-        refused as ``__init__`` refuses them."""
+        None). ``tenants`` overrides the snapshot's registry (None: the
+        snapshot's, rebuilt with ``TenantRegistry.from_dict``); its KV
+        tier knobs restore an empty tier. A snapshot with ``tp > 1`` is
+        refused as ``__init__`` refuses it."""
         cfg = snapshot["config"]
         if use_flash_paged is _UNSET:
             use_flash_paged = cfg.get("use_flash_paged")
             if use_flash_paged not in (None, True, False):
                 use_flash_paged = None
+        if tenants is None and snapshot.get("tenants"):
+            tenants = TenantRegistry.from_dict(snapshot["tenants"])
         eng = cls(
             net, n_slots=cfg["n_slots"], decode_chunk=cfg["decode_chunk"],
             min_prompt_bucket=cfg["min_prompt_bucket"], seed=seed,
@@ -2789,7 +3288,7 @@ class DecodeEngine:
             use_flash_paged=use_flash_paged,
             async_rounds=cfg.get("async_rounds", False),
             fused_rounds=cfg.get("fused_rounds", 0),
-            tp=int(cfg.get("tp", 1)), tenants=snapshot.get("tenants"),
+            tp=int(cfg.get("tp", 1)), tenants=tenants,
             kv_host_tier_bytes=cfg.get("kv_host_tier_bytes", 0),
             kv_disk_tier_path=cfg.get("kv_disk_tier_path"),
             kv_disk_tier_bytes=cfg.get("kv_disk_tier_bytes"))

@@ -7,8 +7,8 @@ status codes, SSE framing and event ids, JSON keys) is the JAX
 gateway's. What the port adds: the stepping thread, and every handler
 that touches the engine under the lock, runs on the CUDA stream the
 gateway was built on (the stream the engine's pools and graphs were
-made on; a thread's current stream is its own), and the KV transfer
-endpoints answer 501 until KV transfer is ported (ROADMAP item 8).
+made on; a thread's current stream is its own); the KV transfer
+handlers, which gather from and write into the pool, are among them.
 Handlers that answer without the lock (``/v1/healthz``,
 ``/v1/metrics``, ``/v1/trace``) read host values only: the stepping
 thread may be capturing a CUDA graph, and a capture fails when another
@@ -51,6 +51,13 @@ matching stdlib client):
 ``GET /v1/healthz``                         liveness + occupancy
 ``POST /v1/drain``                          stop admission, settle
                                             in-flight, snapshot
+``POST /v1/warmup``                         prime the prefix cache
+                                            (the ``system`` tenant)
+``GET|POST /v1/kv/export``                  a cached prefix as a DKV1
+                                            payload (serving/
+                                            kv_transfer.py)
+``POST /v1/kv/import``                      splice a DKV1 payload
+                                            into the pool and trie
 ==========================================  =========================
 
 Request lifecycle (the failure mappings are the engine's terminal
@@ -103,6 +110,11 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.serving.engine import DecodeEngine
+from deeplearning4j_tpu_torch.serving.kv_transfer import (
+    DEFAULT_CAP_BYTES,
+    KVTransferError,
+    KVTransferTooLarge,
+)
 from deeplearning4j_tpu_torch.serving.scheduler import (
     GenerationResult,
     Request,
@@ -112,17 +124,6 @@ from deeplearning4j_tpu_torch.util.httpjson import HttpService, JsonHandler
 #: disaggregation roles a replica can declare: advisory
 #: placement labels the router folds into its pick + transfer policy
 ROLES = ("any", "prefill", "decode")
-
-#: the byte cap on a KV import's body (the JAX package's
-#: ``kv_transfer.DEFAULT_CAP_BYTES``); the cap becomes a gateway knob
-#: with ``export_kv`` / ``import_kv`` (ROADMAP item 8)
-KV_TRANSFER_CAP_BYTES = 64 << 20
-
-#: the answer of the KV transfer endpoints until KV transfer (DKV1,
-#: ``export_kv`` / ``import_kv``) is ported
-KV_TRANSFER_UNPORTED = {
-    "error": "KV transfer (/v1/kv/import, /v1/kv/export) is not ported "
-             "to the torch package yet (ROADMAP item 8)"}
 
 #: engine terminal state → HTTP status for the one-shot JSON endpoint
 #: (streaming responses carry the status in the final SSE event)
@@ -278,7 +279,8 @@ class ServingGateway:
                  admission_grace_s: float = 0.0,
                  results_cap: int = 4096,
                  replica_id: Optional[str] = None,
-                 role: str = "any"):
+                 role: str = "any",
+                 kv_transfer_cap_bytes: Optional[int] = None):
         if engine.on_delta is not None:
             raise ValueError(
                 "engine already has an on_delta consumer; the gateway "
@@ -363,6 +365,12 @@ class ServingGateway:
             raise ValueError(
                 f"role {role!r}: expected one of {ROLES}")
         self.role = role
+        #: bounded-binary cap for the KV transfer endpoints: an
+        #: oversized import answers 413 before buffering, an export
+        #: larger than this answers 413 instead of shipping
+        if kv_transfer_cap_bytes is None:
+            kv_transfer_cap_bytes = DEFAULT_CAP_BYTES
+        self.kv_transfer_cap_bytes = int(kv_transfer_cap_bytes)
         #: the CUDA stream engine work runs on from every thread (None
         #: for a CPU engine): the building thread's current stream
         self._stream = (torch.cuda.current_stream(engine.device)
@@ -993,8 +1001,8 @@ class ServingGateway:
             # KV transfer plane (paged + trie — the router reads
             # this instead of paying a 404 round-trip per miss)
             "role": self.role,
-            # (False here: the port's KV transfer endpoints answer 501)
-            "kv_transfer": False,
+            "kv_transfer": bool(eng.paged_kv
+                                and eng.prefix_cache is not None),
             # spill-tier block: entry counts + budgets so
             # the router's donor pick can prefer a tier-warm replica
             # over a cold one. KVTierStore.health() is lock-free by
@@ -1028,29 +1036,101 @@ class ServingGateway:
         return tracer.prometheus_text()
 
     # -- KV transfer plane ----------------------------------------------
-    # The port answers both endpoints 501 (``KV_TRANSFER_UNPORTED``)
-    # until KV transfer is ported: ``export_kv`` / ``import_kv`` and the
-    # DKV1 wire format come with the fleet (ROADMAP item 8). A request
-    # body is read first (bounded by the transfer cap), so the client
-    # never meets a connection closed over unread bytes.
     def _handle_kv_export(self, handler, query: str) -> None:
-        """``GET /v1/kv/export?tokens=...``: 501."""
-        handler.send_json(KV_TRANSFER_UNPORTED, 501, close=True)
+        """``GET /v1/kv/export?tokens=1,2,3``: the longest cached
+        prefix of the given prompt as a framed binary payload
+        (serving/kv_transfer.py wire format). 404 when nothing
+        reusable is cached (or the engine is not paged — the caller
+        recomputes), 413 when the payload would exceed the transfer
+        cap, 400 on a malformed query."""
+        tokens: Optional[List[int]] = None
+        for part in query.split("&"):
+            if part.startswith("tokens="):
+                try:
+                    tokens = [int(t)
+                              for t in part[len("tokens="):].split(",")
+                              if t != ""]
+                except ValueError:
+                    tokens = None
+        if not tokens:
+            handler.send_json(
+                {"error": "tokens=<comma-separated ids> required"},
+                400, close=True)
+            return
+        self._kv_export_reply(handler, tokens)
 
     def _handle_kv_export_post(self, handler) -> None:
-        """``POST /v1/kv/export`` (JSON body): 501."""
+        """``POST /v1/kv/export`` with ``{"tokens": [...]}`` in the
+        JSON body: same export as the GET form, without the GET
+        query-string length ceiling (http.server caps the request
+        line at 64 KiB, which clamps GET to ~8000 token ids)."""
         try:
-            handler.read_json()
+            body = handler.read_json()
         except Exception:
-            pass
-        handler.send_json(KV_TRANSFER_UNPORTED, 501, close=True)
+            handler.send_json({"error": "malformed JSON body"}, 400,
+                              close=True)
+            return
+        tokens = body.get("tokens") if isinstance(body, dict) else None
+        if (not isinstance(tokens, list) or not tokens
+                or not all(isinstance(t, int) for t in tokens)):
+            handler.send_json(
+                {"error": 'body must be {"tokens": [<ids>]} with a '
+                          "non-empty integer list"}, 400, close=True)
+            return
+        self._kv_export_reply(handler, tokens)
+
+    def _kv_export_reply(self, handler, tokens: List[int]) -> None:
+        """Shared export body for the GET and POST forms: engine
+        export under the transfer cap (under the lock, on the
+        gateway's stream: the gather reads the pool), mapped to 200
+        binary / 404 cold / 413 over-cap / 503 stopped."""
+        with self._engine_access():
+            # a DRAINING replica still exports: the drain-handback
+            # receiver pulling the victim's warm prefix is exactly
+            # the scale-down case the transfer plane exists for —
+            # export is read-only, so it cannot delay the drain
+            if self._stopped:
+                handler.send_json({"error": "stopped"}, 503,
+                                  close=True)
+                return
+            try:
+                # the cap is enforced from block arithmetic BEFORE
+                # any device gather
+                payload = self.engine.export_kv(
+                    tokens, cap_bytes=self.kv_transfer_cap_bytes)
+            except KVTransferTooLarge as e:
+                handler.send_json({"error": str(e)}, 413, close=True)
+                return
+        if payload is None:
+            handler.send_json(
+                {"error": "no cached prefix to export (cold, or "
+                          "not a paged engine)"}, 404, close=True)
+            return
+        handler.send_binary(payload)
 
     def _handle_kv_import(self, handler) -> None:
-        """``POST /v1/kv/import`` (binary body): 501 (an oversized or
-        malformed body keeps ``read_binary``'s 411 / 413 / 400)."""
-        if handler.read_binary(KV_TRANSFER_CAP_BYTES) is None:
-            return
-        handler.send_json(KV_TRANSFER_UNPORTED, 501, close=True)
+        """``POST /v1/kv/import`` (binary body, content-length capped
+        — util/httpjson ``read_binary``): splice a peer's exported
+        prefix into this engine's pool + trie, under the lock and on
+        the gateway's stream (the scatter writes the pool in place).
+        200 with the import summary (``imported`` False = soft
+        decline, stay cold), 400 on a malformed frame or geometry
+        mismatch, 411 / 413 from ``read_binary``, 503 draining."""
+        payload = handler.read_binary(self.kv_transfer_cap_bytes)
+        if payload is None:
+            return  # read_binary already answered 411/413/400
+        with self._engine_access():
+            if self._draining or self._stopped:
+                handler.send_json({"error": "draining"}, 503,
+                                  close=True)
+                return
+            try:
+                out = self.engine.import_kv(payload)
+            except KVTransferError as e:
+                handler.send_json({"error": str(e)}, 400, close=True)
+                return
+            self._wake.notify_all()
+        handler.send_json(out, 200, close=True)
 
     # -- boot-with-warmup handshake --------------------------
     #: warmup request cap per call: the handshake primes a cache, it

@@ -113,8 +113,8 @@ class RadixPrefixCache:
         #: pressure-eviction hook: called as
         #: ``on_evict(prefix_tokens, payload)`` just before an LRU
         #: victim's payload is dropped, so the engine can spill it to
-        #: a host/disk KV tier (none is ported yet, so nothing sets
-        #: it). Fires ONLY for ``_evict_lru``
+        #: a host/disk KV tier (a paged engine with a tier sets it to
+        #: ``DecodeEngine._stage_spill``). Fires ONLY for ``_evict_lru``
         #: pressure evictions — quarantine invalidations bypass it by
         #: design (poisoned state must never be spilled and reloaded).
         self.on_evict = None

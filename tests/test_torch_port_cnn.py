@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.nn.layers import dense as tdense
 from deeplearning4j_tpu_torch.nn.layers.base import apply_dropconnect
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TNet
 from deeplearning4j_tpu_torch.util import model_serializer as tser
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 LOSS_RTOL = 5e-3

@@ -27,6 +27,7 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TNet
 from deeplearning4j_tpu_torch.util import model_serializer as tser
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(flagship=dict(vocab=16, width=32, n_layers=2, n_heads=4),
              transformer_lm=dict(n_in=16, width=32, n_layers=2, n_heads=4,

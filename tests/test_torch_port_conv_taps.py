@@ -45,6 +45,7 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
     conv_taps,
     conv_taps_reference,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "lenet_breakdown.py")

@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.serving import DecodeEngine as TEngine
 from deeplearning4j_tpu_torch.serving import Request as TRequest
 from deeplearning4j_tpu_torch.serving import sampler as tsampler
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 16, 64
 GEOMETRY = dict(n_slots=2, decode_chunk=4)

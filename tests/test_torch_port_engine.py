@@ -24,7 +24,9 @@ from deeplearning4j_tpu_torch.serving.block_pool import BlockPool
 from deeplearning4j_tpu_torch.serving import DecodeEngine as TEngine
 from deeplearning4j_tpu_torch.serving import engine as engine_module
 from deeplearning4j_tpu_torch.serving import Request as TRequest
+from deeplearning4j_tpu_torch.serving import TenantRegistry as TRegistry
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 16, 64
 GEOMETRY = dict(paged_kv=True, block_tokens=8, n_slots=2, decode_chunk=4)
@@ -130,25 +132,39 @@ def test_eos_and_sampling(tmp_path):
 
 #: knobs this test once listed as unported that the port now carries
 #: (chunked prefill and the prefix caches, speculative decoding, fault
-#: handling, incremental delivery): they must be accepted
+#: handling, incremental delivery, tenancy, the KV tiers): they must be
+#: accepted
 PORTED_KNOBS = ("prefix_cache_rows", "prefill_chunk", "adaptive_prefill",
                 "spec_draft_len", "paranoid", "max_queue", "fault_plan",
-                "emit_deltas")
+                "emit_deltas", "tenants", "kv_host_tier_bytes",
+                "kv_disk_tier_path")
+#: what a ported knob needs beside it: the KV tiers spill a paged
+#: engine's trie entries
+NEEDS = {"kv_host_tier_bytes": dict(prefix_cache_rows=4),
+         "kv_disk_tier_path": dict(prefix_cache_rows=4)}
 
 
 @pytest.mark.parametrize("knob,value", [
     ("prefix_cache_rows", 4), ("prefill_chunk", 8),
     ("spec_draft_len", 2), ("paranoid", True), ("tp", 2),
-    ("adaptive_prefill", True), ("max_queue", 4), ("tenants", object()),
+    ("adaptive_prefill", True), ("max_queue", 4),
+    ("tenants", TRegistry()),
     ("kv_host_tier_bytes", 1 << 20), ("fault_plan", object()),
     ("emit_deltas", True), ("kv_disk_tier_path", "tier"),
 ])
 def test_unported_knobs_raise(tmp_path, knob, value):
     net = restore_model(_zip(tmp_path, "flagship"), device="cpu")
-    kw = dict(GEOMETRY, **{knob: value})
+    if knob == "kv_disk_tier_path":
+        value = str(tmp_path / value)
+    kw = dict(GEOMETRY, **NEEDS.get(knob, {}), **{knob: value})
     if knob in PORTED_KNOBS:
         assert knob not in engine_module._UNPORTED
-        TEngine(net, **kw)
+        eng = TEngine(net, **kw)
+        if knob == "tenants":
+            assert eng.tenants is value
+        elif knob.startswith("kv_"):
+            assert eng.kv_tier is not None
+            assert eng.prefix_cache.on_evict == eng._stage_spill
         return
     with pytest.raises(NotImplementedError, match=knob):
         TEngine(net, **kw)

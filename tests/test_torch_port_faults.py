@@ -58,6 +58,7 @@ from deeplearning4j_tpu.util.model_serializer import write_model
 from deeplearning4j_tpu_torch.nn import cuda_graphs
 from deeplearning4j_tpu_torch.nn.streaming import tree_map
 from deeplearning4j_tpu_torch.serving import DecodeEngine as TEngine
+from deeplearning4j_tpu_torch.serving import TenantRegistry as TRegistry
 from deeplearning4j_tpu_torch.serving import FaultEvent, FaultPlan
 from deeplearning4j_tpu_torch.serving import ManualClock
 from deeplearning4j_tpu_torch.serving import Request as TRequest
@@ -65,6 +66,7 @@ from deeplearning4j_tpu_torch.serving import Scheduler as TScheduler
 from deeplearning4j_tpu_torch.serving import engine as engine_module
 from deeplearning4j_tpu_torch.serving.faults import poison_rows
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 12, 64
 FAILURE_KEYS = TEngine.FAILURE_KEYS
@@ -1062,24 +1064,34 @@ def test_scheduler_steps_budget_down_and_recovers():
 
 
 def test_unported_knobs_stay_refused(zip_path):
+    """``tp`` is the one knob the port refuses, at construction and in a
+    restored snapshot; tenancy and the KV tiers, refused here until they
+    were ported, are accepted both ways (a restored registry is rebuilt
+    from the snapshot's dict, the tier knobs give an empty tier)."""
     net = _net(PORT, zip_path)
-    for name, value in (("tenants", object()), ("tp", 2),
-                        ("kv_host_tier_bytes", 1 << 20)):
-        with pytest.raises(NotImplementedError, match=name):
-            TEngine(net, n_slots=1, **{name: value})
-    snap = TEngine(net, n_slots=1).snapshot()
-    for key, value in (("tp", 2), ("kv_host_tier_bytes", 1 << 20)):
-        bad = json.loads(json.dumps(snap))
-        bad["config"][key] = value
-        with pytest.raises(NotImplementedError, match=key):
-            TEngine.restore(net, bad)
+    with pytest.raises(NotImplementedError, match="tp"):
+        TEngine(net, n_slots=1, tp=2)
+    paged = dict(n_slots=1, paged_kv=True, block_tokens=8,
+                 prefix_cache_rows=2)
+    assert TEngine(net, n_slots=1, tenants=TRegistry()).tenants is not None
+    assert TEngine(net, kv_host_tier_bytes=1 << 20,
+                   **paged).kv_tier is not None
+    snap = TEngine(net, **paged).snapshot()
     bad = json.loads(json.dumps(snap))
-    bad["tenants"] = {"default": {}}
-    with pytest.raises(NotImplementedError, match="tenants"):
+    bad["config"]["tp"] = 2
+    with pytest.raises(NotImplementedError, match="tp"):
         TEngine.restore(net, bad)
-    assert set(engine_module._UNPORTED) == {
-        "tp", "tenants", "kv_host_tier_bytes", "kv_disk_tier_path",
-        "kv_disk_tier_bytes"}
+    tiered = json.loads(json.dumps(snap))
+    tiered["config"]["kv_host_tier_bytes"] = 1 << 20
+    eng = TEngine.restore(net, tiered)
+    assert eng.kv_tier is not None and len(eng.kv_tier) == 0
+    assert eng.snapshot()["config"]["kv_host_tier_bytes"] == 1 << 20
+    tenanted = json.loads(json.dumps(snap))
+    tenanted["tenants"] = {"default": {}}
+    eng = TEngine.restore(net, tenanted)
+    assert eng.tenants is not None
+    assert eng.tenants.tenants() == ["default", "system"]
+    assert set(engine_module._UNPORTED) == {"tp"}
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])

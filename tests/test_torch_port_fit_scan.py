@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.optimize.telemetry import HEALTH_KEYS
 from deeplearning4j_tpu_torch.nn.streaming import tree_map
 from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(vocab=16, width=32, n_layers=2, n_heads=4, lr=1e-2,
              warmup_steps=2, total_steps=100, seed=3)

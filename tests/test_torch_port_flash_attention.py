@@ -37,6 +37,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     flash_attention,
     flash_attention_reference,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(t, dh, seed=0, b=1, h=2):

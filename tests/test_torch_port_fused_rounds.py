@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.profiler.tracer import Histogram
 from deeplearning4j_tpu_torch.serving import DecodeEngine as TEngine
 from deeplearning4j_tpu_torch.serving import Request as TRequest
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 12, 64
 SHARED = [1, 4, 7, 2, 5, 9, 3, 3]

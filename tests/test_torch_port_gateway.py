@@ -16,14 +16,16 @@ connection at a time where the bytes are compared:
   (a deadline on a ``ManualClock``), 503 (draining) and 404, with the
   same payload keys;
 - the metric families and histogram names of both ``/v1/metrics``
-  scrapes (``parse_exposition``), less the JAX engine's histograms of
-  the features the port refuses, and ``scripts/latency_report.py``
+  scrapes (``parse_exposition``), less the JAX engine's histogram of
+  the feature the port refuses, and ``scripts/latency_report.py``
   reading the port's live gateway.
 
 Port-only: concurrent streams against the in-process engine, the KV
-transfer endpoints answering 501 (through ``GatewayClient`` too),
-drain -> snapshot -> boot through ``gateway_from_args`` with the port's
-parser, and the CLI's refusal of unported flags. Waits poll a condition
+transfer endpoints (through ``GatewayClient``: an export, its POST
+twin, a declined and a malformed import), drain -> snapshot -> boot
+through ``gateway_from_args`` with the port's parser, the CLI's
+refusal of ``--tp`` and its tenancy and KV-tier flags reaching the
+engine. Waits poll a condition
 (``_wait_for``); no case asserts a time."""
 
 import os
@@ -61,6 +63,8 @@ from deeplearning4j_tpu_torch.serving import (
     ManualClock,
     Request,
     ServingGateway,
+    WeightedFairScheduler,
+    unpack_prefix,
 )
 from deeplearning4j_tpu_torch.util.model_serializer import (
     restore_model,
@@ -69,6 +73,7 @@ from deeplearning4j_tpu_torch.util.model_serializer import (
     write_model as t_write_model,
 )
 from scripts.latency_report import run_report
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 12, 64
 PROMPTS = [[1, 4, 7, 2], [9, 3, 3], [5, 2, 8, 1, 6, 0, 4], [2, 2],
@@ -139,11 +144,10 @@ def _served(request, pkg, zip_path, **kw):
     return s
 
 
-#: the JAX engine's histograms of the features the port refuses (tensor
-#: parallelism, KV transfer and tiers: ROADMAP item 8), empty in a JAX
-#: scrape and absent from the port's
-JAX_ONLY = {"serving_tp_dispatch_s", "serving_kv_import_s",
-            "serving_kv_spill_s", "serving_kv_reload_s"}
+#: the JAX engine's histogram of the feature the port refuses (tensor
+#: parallelism: ROADMAP item 8), empty in a JAX scrape and absent from
+#: the port's
+JAX_ONLY = {"serving_tp_dispatch_s"}
 
 
 def _strip(d):
@@ -341,8 +345,11 @@ def _cli_args(model, snap, *extra):
 def test_cli_serves_a_port_zip_drains_and_boots(tmp_path, zip_path):
     """``gateway_from_args`` over the port's parser serves a zip the
     port wrote: generate over HTTP equals the in-process engine, the KV
-    transfer endpoints answer 501 (raw and through ``GatewayClient``),
-    a drain with requests in flight writes the snapshot, and a second
+    transfer endpoints answer through ``GatewayClient`` (the GET and
+    POST exports of the generated prompt's cached prefix are one
+    payload, which the same engine imports as an entry of its own and
+    then declines as already warm; a malformed frame is a 400), a drain
+    with requests in flight writes the snapshot, and a second
     ``gateway_from_args`` boots from it and finishes the same ids."""
     model = str(tmp_path / "port.zip")
     t_write_model(_tnet(zip_path), model)
@@ -358,14 +365,18 @@ def test_cli_serves_a_port_zip_drains_and_boots(tmp_path, zip_path):
         client = GatewayClient(gw.address)
         out = client.generate(PROMPTS[0], 5)
         assert out["tokens"] == want[rids[0]].tokens
-        assert client.healthz()["kv_transfer"] is False
-        for call in (lambda: client.kv_export([1, 4, 7]),
-                     lambda: client.kv_import(b"DKV1" + bytes(12)),
-                     lambda: client._kv_export_post([1, 4, 7])):
-            with pytest.raises(GatewayError) as err:
-                call()
-            assert err.value.status == 501
-            assert "ROADMAP item 8" in err.value.payload["error"]
+        assert client.healthz()["kv_transfer"] is True
+        payload = client.kv_export([1, 4, 7])
+        assert payload == client._kv_export_post([1, 4, 7])
+        assert unpack_prefix(payload)["header"]["tokens"] == [1, 4]
+        summary = {"prefix_len": 2, "tokens": 2, "blocks": 1}
+        assert client.kv_import(payload) == dict(
+            summary, imported=True, reason="imported")
+        assert client.kv_import(payload) == dict(
+            summary, imported=False, reason="already_warm")
+        with pytest.raises(GatewayError) as err:
+            client.kv_import(b"DKV1" + bytes(12))
+        assert err.value.status == 400
         streams, started = {}, []
 
         def one(i):
@@ -417,11 +428,33 @@ def test_cli_serves_a_port_zip_drains_and_boots(tmp_path, zip_path):
     ("--kv-host-tier-bytes", "1024", "item 8"),
     ("--kv-disk-tier-path", "tier", "item 8"),
 ])
-def test_cli_refuses_unported_flags(tmp_path, flag, value, item):
-    """The flags of knobs the port refuses parse as in JAX's CLI and
-    exit with a message naming the ROADMAP item at a non-default
-    value."""
-    args = _cli_args(str(tmp_path / "absent.zip"),
-                     str(tmp_path / "s.json"), flag, value)
-    with pytest.raises(SystemExit, match=item):
-        gateway_from_args(args)
+def test_cli_refuses_unported_flags(tmp_path, zip_path, flag, value, item):
+    """``--tp``, the flag of the one knob the port refuses, parses as in
+    JAX's CLI and exits with a message naming its ROADMAP item at a
+    non-default value; ``--tenant`` and the KV-tier flags, refused the
+    same way until they were ported, are accepted and reach the
+    engine (``item`` names where they were filed)."""
+    if flag == "--tp":
+        args = _cli_args(str(tmp_path / "absent.zip"),
+                         str(tmp_path / "s.json"), flag, value)
+        with pytest.raises(SystemExit, match=item):
+            gateway_from_args(args)
+        return
+    if flag == "--kv-disk-tier-path":
+        value = str(tmp_path / value)
+    model = str(tmp_path / "port.zip")
+    t_write_model(_tnet(zip_path), model)
+    gw = gateway_from_args(_cli_args(model, str(tmp_path / "s.json"),
+                                     flag, value)).start()
+    try:
+        eng = gw.engine
+        if flag == "--tenant":
+            assert isinstance(eng.scheduler, WeightedFairScheduler)
+            assert "premium" in eng.tenants.tenants()
+        else:
+            assert eng.kv_tier is not None
+            assert (eng.kv_host_tier_bytes, eng.kv_disk_tier_path) == (
+                (1024, None) if flag == "--kv-host-tier-bytes"
+                else (0, value))
+    finally:
+        gw.close()

@@ -21,9 +21,10 @@ from deeplearning4j_tpu_torch.util.model_serializer import (
     restore_model,
     write_model,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu", "ml_dtypes")
 
 
 def _forbidden(name: str) -> bool:
@@ -43,7 +44,9 @@ def test_port_modules_import_without_jax():
     assert "deeplearning4j_tpu_torch.serving.engine" in mods
     assert "deeplearning4j_tpu_torch.nn.layers.attention" in mods
     for mod in ("serving.gateway", "serving.client", "util.httpjson",
-                "profiler.tracer", "cli.driver", "cli.__main__"):
+                "profiler.tracer", "cli.driver", "cli.__main__",
+                "serving.tenancy", "serving.kv_transfer",
+                "serving.kv_tier"):
         assert f"deeplearning4j_tpu_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"

@@ -32,6 +32,7 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 )
 from deeplearning4j_tpu_torch.ops.activations import activation as t_act
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 V = 16

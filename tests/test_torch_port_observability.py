@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.serving import ManualClock, NgramDraftTable
 from deeplearning4j_tpu_torch.serving import Request as TRequest
 from deeplearning4j_tpu_torch.serving import engine as engine_module
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 12, 64
 PROMPTS = [[1, 4, 7, 2], [9, 3, 3], [5, 2, 8, 1, 6, 0, 4], [2, 2],
@@ -299,10 +300,9 @@ def test_sampled_preemption_victim_faults(zip_path):
 
 
 # -- phase clock and flight recorder ----------------------------------------
-#: the JAX engine's histograms of the features the port refuses (tensor
-#: parallelism, KV transfer and tiers: ROADMAP item 8)
-JAX_ONLY = {"serving_tp_dispatch_s", "serving_kv_import_s",
-            "serving_kv_spill_s", "serving_kv_reload_s"}
+#: the JAX engine's histogram of the feature the port refuses (tensor
+#: parallelism: ROADMAP item 8)
+JAX_ONLY = {"serving_tp_dispatch_s"}
 
 
 def _hist_counts(eng):
@@ -506,12 +506,10 @@ def test_snapshot_round_trips_observability_knobs(zip_path, source):
 
 
 def test_observability_refusals_and_validation(zip_path):
-    """The refused knobs are tenancy, tensor parallelism and the KV
-    tiers only; a negative ring is refused as in JAX; the engine owns
-    JAX's histograms less those of the refused features."""
-    assert set(engine_module._UNPORTED) == {
-        "tp", "tenants", "kv_host_tier_bytes", "kv_disk_tier_path",
-        "kv_disk_tier_bytes"}
+    """The refused knob is tensor parallelism only; a negative ring is
+    refused as in JAX; the engine owns JAX's histograms less that of
+    the refused feature."""
+    assert set(engine_module._UNPORTED) == {"tp"}
     with pytest.raises(ValueError, match="flight_recorder"):
         TEngine(_net(PORT, zip_path), flight_recorder=-1)
     assert set(engine_module.ENGINE_HISTOGRAMS) == set(

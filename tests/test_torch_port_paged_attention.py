@@ -41,6 +41,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     paged_attention,
     paged_attention_reference,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 #: the H100's SMs, on which K2's split plan was timed

@@ -36,6 +36,7 @@ from deeplearning4j_tpu_torch.serving.prefix_cache import (
     RadixPrefixCache,
 )
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 12, 64
 SHARED = [1, 4, 7, 2, 9, 3, 5, 2]

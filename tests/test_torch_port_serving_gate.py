@@ -25,6 +25,7 @@ from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
 from deeplearning4j_tpu_torch.nn.layers import attention
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving import DecodeEngine
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 agreement = chip_smoke.agreement
 first_divergence = chip_smoke.first_divergence

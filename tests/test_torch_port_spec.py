@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.serving import (
 )
 from deeplearning4j_tpu_torch.serving.sampler import draft_probabilities
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW, K = 12, 64, 4
 REPEATS = [([1, 2, 3, 1, 2, 3, 1], 10), ([5, 2, 5, 2, 5], 8),

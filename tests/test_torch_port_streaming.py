@@ -33,6 +33,7 @@ import deeplearning4j_tpu_torch.nn.layers.attention as tattn_mod
 from deeplearning4j_tpu_torch.nn import cuda_graphs
 from deeplearning4j_tpu_torch.nn import streaming as tstream
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V, WINDOW = 16, 64
 TOL = dict(atol=1e-4, rtol=1e-4)

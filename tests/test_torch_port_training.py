@@ -50,6 +50,7 @@ from deeplearning4j_tpu_torch.ops import losses as tlosses
 from deeplearning4j_tpu_torch.optimize import listeners as tlisteners
 from deeplearning4j_tpu_torch.optimize import telemetry as ttelemetry
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 EXACT = dict(atol=1e-6, rtol=1e-6)
 LOSS_RTOL = 5e-3
