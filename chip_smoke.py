@@ -250,6 +250,41 @@ JAX or of the JAX package. Phases, each fatal on failure:
    untiered with every revisit reloaded, and one prompt spilled to a
    disk ring and reloaded from it. Phase 17's K2 launches are gated in
    each part and not added to the kernels line, as phase 15's.
+18. the serving fleet — 8 replica processes on the card, each the
+   port's ``serve`` subcommand (``--device cuda --paged-kv
+   --use-flash-paged on``, 8 slots, chunk 4, bt 16,
+   ``--prefix-cache-rows 4 --prefill-chunk 64``) over a zip the port's
+   ``write_model`` wrote from the serving net (f32, bf16, and f32 with
+   two output classes swapped), started together after the build and
+   each reporting its K2 build (0.0 s expected) before its ready line;
+   the router and the fleet controller in this process, the clients in
+   a child process. (a) 8 greedy f32 SSE streams of 96 tokens (prompts
+   of 40-200 tokens) over 2 replicas; once every stream has 16 tokens
+   the replica owning the most is SIGKILLed: every stream ends
+   ``length`` with the in-process kernel engine's ids, its SSE event
+   ids are its delivered-token counts (none repeated or missing), the
+   router's replays >= the victim's open streams, none diverged. (b)
+   A 512-token prompt on its affinity owner, then the router's
+   warm-import hook forced against the other replica: one transfer,
+   the receiver's ids identical with >= 511 tokens reused, a second
+   call transfers nothing; its TTFT beside a cold 512-token recompute
+   on the same replica. (c) ``FleetController.rolling_upgrade()`` over
+   those 2 replicas (each newcomer warmed with 2 live prompts' KV; a
+   first request, KV export and KV import on all 4 children before it)
+   while 8 greedy f32 streams of 1024 tokens run: every
+   stream ends ``length`` with identical ids and exact event ids, >= 1
+   handed off by a drain, 2 ``fleet.scale`` spans in ``/v1/trace``, the
+   old replicas reaped. The planted fault: (a)'s streams whose first 16
+   reference tokens hold a swapped class, on one true replica; the
+   swapped replica joins and the true one is SIGKILLed: every stream
+   open at the kill ends ``fault`` through the replay's divergence
+   check and no token the true model would not make is delivered. (d)
+   (a) at bf16 as a report: replays that diverged, each divergence's
+   f32 log-prob gap. Printed: each child's boot seconds, its decode
+   rounds from ``/v1/metrics`` and the derived K2 t = 1 launches
+   (N_LAYERS x decode steps; they are the children's, not in the
+   kernels line), the phase's wall; every child is reaped on every way
+   out.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -262,8 +297,8 @@ prefill launches in phase 8 at its dtype; K2's from phase 6's stepped
 and fused runs and phase 16's bf16 paged gateway's HTTP rounds,
 ``paged_attention_chunk`` (K2 at t=256) from phase 13a's paged warm
 chunks, ``paged_attention_verify`` (K2 at t=33) from phase
-14's paged timed rounds (phases 15 and 17 add none: their K2 launches
-are gated in the phase); K3's ``conv_taps`` and ``conv_taps_f32`` with
+14's paged timed rounds (phases 15, 17 and 18 add none: 15's and
+17's K2 launches are gated in the phase, 18's are its children's); K3's ``conv_taps`` and ``conv_taps_f32`` with
 their launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -3981,15 +4016,20 @@ def _inproc_round(eng, prompts, n_gen) -> tuple:
 def _client_round(job) -> dict:
     """One round of gateway clients, one thread per prompt, all started
     together: ``job`` is {"address", "prompts", "n_gen", "mode": "sse"
-    (streams) or "blocking" (``/v1/generate``)}. Returns each client's
-    concatenated ids, its terminal and (SSE) its time to the first
-    delta, the clients' errors by index, and the round's wall."""
+    (streams) or "blocking" (``/v1/generate``), and optionally "router":
+    true for a ``RouterClient``}. Returns each client's concatenated
+    ids, its terminal and (SSE) its time to the first delta and its
+    events as (SSE id, tokens delivered through the event), the
+    clients' errors by index, and the round's wall."""
     from deeplearning4j_tpu_torch.serving.client import GatewayClient
+    from deeplearning4j_tpu_torch.serving.router import RouterClient
 
-    client = GatewayClient(job["address"], timeout_s=600.0)
+    cls = RouterClient if job.get("router") else GatewayClient
+    client = cls(job["address"], timeout_s=600.0)
     prompts, n_gen = job["prompts"], job["n_gen"]
     n = len(prompts)
     outs, results, ttfts, errors = [None] * n, [None] * n, [None] * n, {}
+    events = [None] * n
 
     def one(i):
         try:
@@ -3999,12 +4039,14 @@ def _client_round(job) -> dict:
                 outs[i] = results[i]["tokens"]
                 return
             st = client.stream(prompts[i], n_gen)
-            toks, first = [], None
+            toks, first, evs = [], None, []
             for delta in st:
                 if first is None:
                     first = time.perf_counter() - t_sub
                 toks.extend(delta)
+                evs.append((st.last_event_id, len(toks)))
             outs[i], results[i], ttfts[i] = toks, st.result, first
+            events[i] = evs
         except Exception as e:      # the phase names the failed client
             errors[i] = repr(e)
 
@@ -4018,7 +4060,7 @@ def _client_round(job) -> dict:
     errors.update({i: "still running" for i, t in enumerate(threads)
                    if t.is_alive()})
     return {"outs": outs, "results": results, "ttfts": ttfts,
-            "errors": errors, "wall": wall}
+            "events": events, "errors": errors, "wall": wall}
 
 
 def _client_loop() -> None:
@@ -4049,10 +4091,11 @@ class _Clients:
             self.close()
             raise SystemExit("chip_smoke: the client process did not start")
 
-    def round(self, address, prompts, n_gen, mode="sse") -> dict:
+    def round(self, address, prompts, n_gen, mode="sse",
+              router=False) -> dict:
         self.proc.stdin.write(json.dumps(
             {"address": address, "prompts": prompts, "n_gen": n_gen,
-             "mode": mode}) + "\n")
+             "mode": mode, "router": router}) + "\n")
         self.proc.stdin.flush()
         line = self.proc.stdout.readline()
         if not line:
@@ -5075,6 +5118,641 @@ def tenancy_kv_phase(card: str) -> None:
     kv_tier_phase(card)
 
 
+# Phase 18: the serving fleet. Every replica is its own process on the
+# card: the port's ``serve`` subcommand over a zip the port's
+# write_model wrote from the serving net (f32, bf16, and f32 with two
+# output classes swapped), paged (bt 16), 8 slots, chunk FLEET_CHUNK,
+# prefix_cache_rows 4, prefill_chunk 64, K2 forced on. The router and
+# the fleet controller run in this process, the clients in a child
+# process of their own (phase 16's). (a) 8 greedy f32 SSE streams of
+# 96 tokens (prompts of 40-200 tokens) over 2 replicas; once every
+# stream has 16 tokens the replica owning the most is SIGKILLed: every
+# stream ends ``length`` with the in-process kernel engine's ids and
+# exact SSE event ids, replays >= the victim's open streams, none
+# diverged. (b) a 512-token prompt generated on its affinity owner,
+# the router's warm-import hook forced against the other replica: one
+# transfer, the receiver's ids identical with >= 511 prompt tokens
+# reused, a second forced call transfers nothing; warm against cold
+# TTFT on the receiver as a report. (c) FleetController.rolling_upgrade
+# under 8 greedy f32 streams of FLEET_UPGRADE_GEN tokens: nothing
+# dropped or delivered twice, ids identical, fleet.scale spans in
+# /v1/trace, the old replicas reaped. The planted fault: the streams
+# whose first 16 reference tokens hold one of the two swapped classes,
+# on one true replica; the swapped replica joins and the true one is
+# SIGKILLed: every replayed stream ends ``fault`` through the replay's
+# divergence check with only reference tokens delivered. bf16: (a)'s
+# flow over 2 bf16 replicas as a report (replays that diverged, the f32
+# log-prob gap at each first divergence).
+FLEET_PROMPTS, FLEET_GEN, FLEET_KILL_AT = 8, 96, 16
+FLEET_PROMPT_LENS = (40, 200)
+FLEET_CHUNK, FLEET_PREFILL, FLEET_PREFIX_ROWS = 4, 64, 4
+FLEET_KV_LEN, FLEET_KV_GEN = 512, 16
+FLEET_UPGRADE_GEN, FLEET_UPGRADE_AT = 1024, 8
+#: live affinity prompts the upgrade ships to each newcomer: its warm
+#: step (export + import of each prompt's f32 KV) took 3.1-4.6 s at the
+#: default 8, longer than some streams it should find in flight
+FLEET_WARM_PROMPTS = 2
+FLEET_BOOT_S, FLEET_DRAIN_S = 300.0, 0.1
+#: the fleet's children: (replica id, zip); the upgrade's new
+#: generation is booted with the rest, under the ids the controller
+#: mints (``id_prefix`` "gen2")
+FLEET_CHILDREN = (("a32", "f32"), ("b32", "f32"), ("f32", "f32"),
+                  ("gen2-0", "f32"), ("gen2-1", "f32"),
+                  ("swapped", "swapped"), ("a16", "bf16"),
+                  ("b16", "bf16"))
+
+
+def fleet_prompts(seed: int, n=None, lens=None) -> list:
+    rng = np.random.default_rng(1800 + seed)
+    lo, hi = lens or FLEET_PROMPT_LENS
+    return [rng.integers(0, VOCAB, int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n or FLEET_PROMPTS)]
+
+
+def _fleet_flash() -> str:
+    """The children's ``--use-flash-paged``: the kernel forced on the
+    card; "auto" (the plain version) on a CPU rehearsal."""
+    return "on" if DEVICE == "cuda" else "auto"
+
+
+def _fleet_engine(net):
+    """An in-process engine with a fleet child's ``serve`` flags."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    return DecodeEngine(net, n_slots=N_SLOTS, decode_chunk=FLEET_CHUNK,
+                        paged_kv=True, block_tokens=BLOCK_TOKENS,
+                        prefix_cache_rows=FLEET_PREFIX_ROWS,
+                        prefill_chunk=FLEET_PREFILL,
+                        use_flash_paged=True if DEVICE == "cuda" else None)
+
+
+def _fleet_ref(net, prompts, n_gen) -> list:
+    res, _ = serve_ids(_fleet_engine(net), prompts, n_gen)
+    return [list(r.tokens) for r in res]
+
+
+def swap_head_classes(net, a: int, b: int) -> None:
+    """Exchange two classes of the net's output layer in place: the
+    columns of its ``W`` ([n_in, n_out]) and the entries of its ``b``.
+    Greedy ids are unchanged until the first position whose argmax is
+    one of the two, and differ there."""
+    head = net.params[str(len(net.params) - 1)]
+    with torch.no_grad():
+        for name in ("W", "b"):
+            p = head[name]
+            idx = torch.arange(p.shape[-1], device=p.device)
+            idx[a], idx[b] = b, a
+            p.copy_(p.index_select(p.dim() - 1, idx))
+    net.params_version += 1
+
+
+def swap_pair(ref_ids, at: int) -> tuple:
+    """The two classes whose swap changes the most reference streams
+    within their first ``at`` tokens, and the indices of those
+    streams."""
+    heads = [set(r[:at]) for r in ref_ids]
+    classes = sorted(set().union(*heads))
+    best = max(((a, b) for i, a in enumerate(classes)
+                for b in classes[i + 1:]) if len(classes) > 1
+               else [(classes[0], (classes[0] + 1) % VOCAB)],
+               key=lambda ab: sum(bool(h & set(ab)) for h in heads))
+    return best, [i for i, h in enumerate(heads) if h & set(best)]
+
+
+class _FleetChild:
+    """One ``serve`` child: its ``ReplicaProcess`` (stderr to a log
+    file), its boot seconds and the build seconds it reported."""
+
+    def __init__(self, replica_id: str, zip_path: str, logdir: str):
+        from deeplearning4j_tpu_torch.serving.replica_proc import (
+            ReplicaProcess,
+            free_port,
+        )
+
+        port = free_port()
+        self.log = os.path.join(logdir, f"{replica_id}.log")
+        serve = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli",
+                 "serve", "--model", zip_path, "--device", DEVICE,
+                 "--host", "127.0.0.1", "--port", str(port),
+                 "--replica-id", replica_id, "--slots", str(N_SLOTS),
+                 "--decode-chunk", str(FLEET_CHUNK), "--paged-kv",
+                 "--block-tokens", str(BLOCK_TOKENS),
+                 "--prefix-cache-rows", str(FLEET_PREFIX_ROWS),
+                 "--prefill-chunk", str(FLEET_PREFILL),
+                 "--use-flash-paged", _fleet_flash()]
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [HERE] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        # exec: the process the handle signals is the interpreter
+        self.t0 = time.perf_counter()
+        self.proc = ReplicaProcess(
+            ["bash", "-c", 'exec "$@" 2>>"$0"', self.log] + serve,
+            replica_id=replica_id, port=port, ready_pattern="serving on",
+            env=env, cwd=HERE)
+        self.replica_id, self.address = replica_id, self.proc.address
+        self.boot_s = self.build_s = self.rounds = None
+
+    def wait_ready(self) -> None:
+        try:
+            self.proc.wait_ready(timeout_s=FLEET_BOOT_S)
+        except RuntimeError as e:
+            raise SystemExit(f"chip_smoke: fleet child {self.replica_id} "
+                             f"did not boot ({e}); stderr:\n"
+                             f"{self.stderr_tail()}")
+        self.boot_s = time.perf_counter() - self.t0
+        built = [ln for ln in self.proc.boot_lines
+                 if ln.startswith("built paged_attention in ")]
+        if not built and DEVICE == "cuda":
+            raise SystemExit(f"chip_smoke: fleet child {self.replica_id} "
+                             f"reported no K2 build: "
+                             f"{self.proc.boot_lines}")
+        self.build_s = (float(built[0].split()[-2]) if built else None)
+
+    def stderr_tail(self, n: int = 4000) -> str:
+        try:
+            with open(self.log) as f:
+                return f.read()[-n:]
+        except OSError:
+            return ""
+
+    def scrape_rounds(self):
+        """Decode rounds the child's engine dispatched, from its
+        ``/v1/metrics`` (the ``serving_round_s`` count); kept as the
+        last reading, None once it cannot answer."""
+        from deeplearning4j_tpu_torch.profiler.tracer import (
+            parse_exposition,
+        )
+        from deeplearning4j_tpu_torch.serving import GatewayClient
+
+        with contextlib.suppress(Exception):
+            text = GatewayClient(self.address, timeout_s=10.0).metrics()
+            h = parse_exposition(text)["histograms"].get("serving_round_s")
+            self.rounds = int(h["count"]) if h else 0
+        return self.rounds
+
+    @property
+    def alive(self) -> bool:
+        return self.proc.alive
+
+    def sigkill(self) -> None:
+        self.scrape_rounds()
+        self.proc.sigkill()
+
+    def shutdown(self) -> None:
+        if self.alive:
+            self.scrape_rounds()
+        self.proc.shutdown()
+
+
+def _fleet_router(children, **kw):
+    """A started router over ``children``, once every one is live under
+    its own id and speaks the KV transfer plane."""
+    from deeplearning4j_tpu_torch.serving import ServingRouter
+
+    router = ServingRouter([c.address for c in children],
+                           affinity_block_tokens=BLOCK_TOKENS,
+                           health_interval_s=0.05, failure_threshold=2,
+                           replica_timeout_s=600.0, **kw).start()
+    want = {c.replica_id for c in children}
+    _fleet_wait(lambda: {r["replica_id"] for r in router.replica_status()
+                         if r["state"] == "live" and r["kv_capable"]}
+                >= want, "the router to see every replica live")
+    return router
+
+
+def _fleet_wait(cond, what: str, timeout: float = 120.0) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"chip_smoke: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _open_rids(router, n_gen) -> dict:
+    """Router request id -> replica address of every stream still short
+    of its ``n_gen`` tokens (one whose last tokens are already on their
+    way cannot be caught by a kill)."""
+    with router._lock:
+        return {e.rid: e.replica_address for e in router._journal.values()
+                if not e.done.is_set() and e.replica_address
+                and len(e.tokens) < n_gen}
+
+
+def _fleet_streams(clients, router, prompts, n_gen, at, action) -> dict:
+    """Run the clients' SSE round through the router in a thread; once
+    every stream is journaled with ``at`` tokens (or done), call
+    ``action()`` and let the round finish. Returns the round's output
+    with ``acted`` (what ``action`` returned)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = clients.round(router.address, prompts, n_gen,
+                                       router=True)
+        except BaseException as e:     # named below, in this thread
+            box["error"] = e
+
+    t = threading.Thread(target=run, name="chip_smoke fleet clients")
+    t.start()
+
+    def ready():
+        if not t.is_alive():
+            return True
+        with router._lock:
+            entries = list(router._journal.values())
+        return len(entries) >= len(prompts) and all(
+            len(e.tokens) >= at or e.done.is_set() for e in entries)
+
+    _fleet_wait(ready, f"every stream to pass {at} tokens", 600.0)
+    acted = action() if t.is_alive() else None
+    t.join(timeout=900)
+    if "error" in box or t.is_alive():
+        raise SystemExit(f"chip_smoke: fleet clients failed: "
+                         f"{box.get('error', 'still running')}")
+    out = box["out"]
+    out["acted"] = acted
+    return out
+
+
+def _events_exact(toks, events) -> bool:
+    ids = [eid for eid, _ in events or []]
+    return (bool(ids) and all(eid == n for eid, n in events)
+            and ids == sorted(set(ids)) and ids[-1] == len(toks))
+
+
+def _diverged_rids(router) -> list:
+    with router._lock:
+        return sorted(e.rid for e in router._journal.values()
+                      if any(h[1] == "replay_diverged" for h in e.history))
+
+
+def _replay_gaps_ms(router) -> list:
+    """Each replay's gap (the stream's break to its first fresh token
+    after the replay), in ms, from the router's ``router.replay``
+    spans (its histogram holds them only at bucket resolution)."""
+    return sorted(e["dur"] / 1e3 for e in router.tracer.events()
+                  if e.get("name") == "router.replay")
+
+
+def _gaps_text(router) -> str:
+    gaps = _replay_gaps_ms(router)
+    if not gaps:
+        return "none"
+    return (f"p50 {gaps[len(gaps) // 2]:.3f} ms, max {gaps[-1]:.3f} ms "
+            f"over {len(gaps)}")
+
+
+def _kill_top_owner(router, children, n_gen) -> tuple:
+    """SIGKILL the child owning the most open streams: (child, its open
+    streams then)."""
+    addr, n_open = collections.Counter(
+        _open_rids(router, n_gen).values()).most_common(1)[0]
+    victim = next(c for c in children if c.address == addr)
+    victim.sigkill()
+    return victim, n_open
+
+
+def fleet_replay_check(card: str, clients, children, prompts, ref,
+                       label: str, gate: bool, net32=None) -> object:
+    """(a) at one dtype: stream, kill the top owner, check (``gate``) or
+    report. Returns the survivor."""
+    router = _fleet_router(children)
+    try:
+        out = _fleet_streams(
+            clients, router, prompts, FLEET_GEN, FLEET_KILL_AT,
+            lambda: _kill_top_owner(router, children, FLEET_GEN))
+        victim, n_open = out["acted"] or (None, 0)
+        audit = router.journal_audit()
+        diverged = _diverged_rids(router)
+        reasons = collections.Counter(r["finish_reason"]
+                                      for r in out["results"])
+        same = sum(o == w for o, w in zip(out["outs"], ref))
+        exact = sum(_events_exact(o, e)
+                    for o, e in zip(out["outs"], out["events"]))
+        log(f"fleet {label}: killed {getattr(victim, 'replica_id', None)}"
+            f" with {n_open} open streams; replays "
+            f"{router.stats['replays']}, diverged {len(diverged)}, "
+            f"finish {dict(reasons)}, ids identical {same}/"
+            f"{len(prompts)}, exact event ids {exact}/{len(prompts)}, "
+            f"lost {audit['lost']}, open {audit['open']}; replay gap "
+            f"{_gaps_text(router)} ({card})")
+        if gate:
+            if (victim is None or n_open < 1
+                    or reasons != {"length": len(prompts)}
+                    or same != len(prompts) or exact != len(prompts)
+                    or router.stats["replays"] < n_open or diverged
+                    or audit["lost"] or audit["open"]):
+                raise SystemExit(f"chip_smoke: fleet replay {label} "
+                                 "failed (see the line above)")
+        else:
+            streamed = [r["tokens"] for r in out["results"]]
+            near_tie_report(net32, prompts, streamed, ref,
+                            f"fleet {label}")
+        return next(c for c in children if c is not victim)
+    finally:
+        router.close()
+
+
+def fleet_planted_check(card: str, clients, owner, swapped, prompts,
+                        ref) -> None:
+    """The planted fault: streams on one true replica, the swapped
+    replica joins, the true one dies; every stream open at the kill
+    must end ``fault`` through the divergence check with only
+    reference tokens delivered (and any that finished first must have
+    the reference ids)."""
+    router = _fleet_router([owner])
+
+    def join_and_kill():
+        router.add_replica(swapped.address, replica_id=swapped.replica_id)
+        _fleet_wait(lambda: any(
+            r["replica_id"] == swapped.replica_id and r["state"] == "live"
+            for r in router.replica_status()), "the swapped replica")
+        open_rids = set(_open_rids(router, FLEET_UPGRADE_GEN))
+        owner.sigkill()
+        return open_rids
+
+    try:
+        out = _fleet_streams(clients, router, prompts, FLEET_UPGRADE_GEN,
+                             FLEET_KILL_AT, join_and_kill)
+        open_rids = out["acted"] or set()
+        diverged = set(_diverged_rids(router))
+        caught, wrong = [], []
+        for i, (o, r) in enumerate(zip(out["outs"], out["results"])):
+            if o != ref[i][:len(o)]:
+                wrong.append(i)       # a token the true model never made
+            if r["id"] in open_rids:
+                caught.append(r["finish_reason"] == "fault"
+                              and r["id"] in diverged)
+            elif r["finish_reason"] != "length" or o != ref[i]:
+                wrong.append(i)
+        log(f"fleet planted (two output classes swapped on the "
+            f"survivor): {len(open_rids)} of {len(prompts)} streams open "
+            f"at the kill, {sum(caught)} ended fault through the "
+            f"divergence check, wrong tokens delivered on {wrong} "
+            f"({card})")
+        if not caught or not all(caught) or wrong:
+            raise SystemExit("chip_smoke: fleet planted fault was not "
+                             "caught (see the line above)")
+    finally:
+        router.close()
+
+
+def fleet_kv_check(card: str, pair, prompt, cold_prompt, ref) -> None:
+    """(b): the router's warm-import hook forced against the cold
+    replica after the prompt ran on its affinity owner."""
+    from deeplearning4j_tpu_torch.serving import GatewayClient, RouterClient
+
+    router = _fleet_router(pair)
+    try:
+        # a first request on each replica, so neither TTFT below pays
+        # a first round's capture
+        for c in pair:
+            GatewayClient(c.address, timeout_s=600.0).generate(
+                cold_prompt[:FLEET_PREFILL // 2], 2)
+        out = RouterClient(router.address, timeout_s=600.0).generate(
+            prompt, FLEET_KV_GEN)
+        owner = router._journal[out["id"]].replica_address
+        other = next(r for r in router._replicas if r.address != owner)
+        before = router.stats["kv_transfers"]
+        entry = router._journal_entry(list(prompt),
+                                      {"max_new_tokens": FLEET_KV_GEN})
+        router._maybe_kv_transfer(entry, other)
+        moved = router.stats["kv_transfers"] - before
+        receiver = GatewayClient(other.address, timeout_s=600.0)
+        warm = receiver.generate(prompt, FLEET_KV_GEN)
+        entry2 = router._journal_entry(list(prompt),
+                                       {"max_new_tokens": FLEET_KV_GEN})
+        router._maybe_kv_transfer(entry2, other)
+        again = router.stats["kv_transfers"] - before - moved
+        cold = receiver.generate(cold_prompt, FLEET_KV_GEN)
+        log(f"fleet KV: owner ids identical {out['tokens'] == ref}, "
+            f"transfers {moved} then {again}, "
+            f"{router.stats['kv_transferred_tokens']} tokens shipped; "
+            f"receiver ids identical {warm['tokens'] == ref}, reused "
+            f"{warm['prefix_tokens_reused']}/{len(prompt)}; receiver "
+            f"TTFT warm {warm['ttft_s'] * 1e3:.2f} ms, cold recompute "
+            f"{cold['ttft_s'] * 1e3:.2f} ms ({card})")
+        if (out["tokens"] != ref or moved != 1 or again != 0
+                or warm["tokens"] != ref
+                or warm["prefix_tokens_reused"] < len(prompt) - 1):
+            raise SystemExit("chip_smoke: fleet warm import failed "
+                             "(see the line above)")
+    finally:
+        router.close()
+
+
+def fleet_warm_kv_paths(children) -> None:
+    """A first request, a KV export and a KV import on each child (the
+    export of each child's prompt goes into the next child), so that
+    the upgrade's warm step pays no first use: on the card a child's
+    first export took 0.4-1.4 s and its first import 1.7 s, against
+    streams that last about 4 s."""
+    from deeplearning4j_tpu_torch.serving import GatewayClient
+
+    t0 = time.perf_counter()
+    prompts = fleet_prompts(2, n=len(children), lens=(128, 160))
+    gws = [GatewayClient(c.address, timeout_s=600.0) for c in children]
+    errors = []
+
+    def first(gw, p):
+        try:
+            gw.generate(p, 2)
+        except Exception as e:          # named below, in this thread
+            errors.append(e)
+
+    firsts = [threading.Thread(target=first, args=(gw, p))
+              for gw, p in zip(gws, prompts)]
+    for w in firsts:
+        w.start()
+    for w in firsts:
+        w.join()
+    imported = []
+    for i, (gw, p) in enumerate(zip(gws, prompts)):
+        payload = gw.kv_export(p)
+        out = (gws[(i + 1) % len(gws)].kv_import(payload)
+               if payload is not None else {})
+        imported.append(bool(out.get("imported")))
+    log(f"fleet upgrade warm-up: a first request, a KV export and a KV "
+        f"import on each of {len(children)} children in "
+        f"{time.perf_counter() - t0:.2f} s; imported {imported}")
+    if errors or not all(imported):
+        raise SystemExit(f"chip_smoke: fleet warm-up failed: {errors}")
+
+
+def fleet_upgrade_check(card: str, clients, seeds, new_gen, prompts,
+                        ref) -> None:
+    """(c): a rolling upgrade of ``seeds`` to ``new_gen`` (the factory
+    hands out the children booted under the controller's ids) while
+    greedy streams run. Every child's KV paths are warmed first
+    (``fleet_warm_kv_paths``): the drains must find streams in flight,
+    and a cold newcomer's warm step took 2.7-4.6 s of the streams'
+    4 s."""
+    from deeplearning4j_tpu_torch.serving import (
+        FleetController,
+        RouterClient,
+    )
+
+    fleet_warm_kv_paths(list(seeds) + list(new_gen))
+    pool = {c.replica_id: c for c in new_gen}
+    router = _fleet_router(seeds)
+    ctl = FleetController(router, replica_factory=pool.pop,
+                          min_replicas=1, max_replicas=4, cooldown_s=0.0,
+                          drain_timeout_s=FLEET_DRAIN_S, id_prefix="gen2",
+                          warm_prompts_cap=FLEET_WARM_PROMPTS)
+    for c in seeds:
+        ctl.adopt(c)
+    try:
+        t0 = time.perf_counter()
+        out = _fleet_streams(clients, router, prompts, FLEET_UPGRADE_GEN,
+                             FLEET_UPGRADE_AT, ctl.rolling_upgrade)
+        summary = out["acted"] or {"upgraded": 0, "steps": []}
+        audit = router.journal_audit()
+        handed = sum(s.get("handed_off") or 0 for s in summary["steps"])
+        same = sum(o == w for o, w in zip(out["outs"], ref))
+        exact = sum(_events_exact(o, e)
+                    for o, e in zip(out["outs"], out["events"]))
+        reasons = collections.Counter(r["finish_reason"]
+                                      for r in out["results"])
+        spans = [e["args"].get("action") for e in RouterClient(
+            router.address).trace_events()["traceEvents"]
+            if e.get("name") == "fleet.scale"]
+        reaped = [c.replica_id for c in seeds if not c.alive]
+        log(f"fleet upgrade: {summary['upgraded']} replaced in "
+            f"{time.perf_counter() - t0:.2f} s of streaming (steps "
+            f"{[s.get('dur_s') for s in summary['steps']]} s, warmed "
+            f"{[s.get('warmed') for s in summary['steps']]}), "
+            f"{handed} streams handed off, finish {dict(reasons)}, ids "
+            f"identical {same}/{len(prompts)}, exact event ids "
+            f"{exact}/{len(prompts)}, lost {audit['lost']}, open "
+            f"{audit['open']}, fleet.scale spans {spans}, reaped "
+            f"{reaped} ({card})")
+        if (summary["upgraded"] != len(seeds) or handed < 1
+                or reasons != {"length": len(prompts)}
+                or same != len(prompts) or exact != len(prompts)
+                or audit["lost"] or audit["open"]
+                or spans.count("upgrade") != len(seeds)
+                or len(reaped) != len(seeds)):
+            raise SystemExit("chip_smoke: fleet rolling upgrade failed "
+                             "(see the line above)")
+    finally:
+        ctl.close()
+        router.close()
+
+
+def fleet_phase(card: str) -> None:
+    """Phase 18: the fleet of ``serve`` children on the card. Every
+    child is reaped on every way out. K2's launches there are the
+    children's, printed as derived counts; the kernels line keeps this
+    process's own."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving.replica_proc import shutdown_all
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    children = []
+    try:
+        nets = {"f32": _serving_net("float32"),
+                "bf16": _serving_net("bfloat16")}
+        zips = {k: os.path.join(tmp, f"{k}.zip")
+                for k in ("f32", "bf16", "swapped")}
+        prompts = fleet_prompts(0)
+        up_prompts = fleet_prompts(1)
+        kv_prompt, kv_cold = serving_prompts(18, 2, FLEET_KV_LEN)
+        t0 = time.perf_counter()
+        # the planted run streams the long continuation of (a)'s
+        # prompts; its first FLEET_GEN ids are (a)'s reference
+        ref_long = _fleet_ref(nets["f32"], prompts, FLEET_UPGRADE_GEN)
+        ref32 = [r[:FLEET_GEN] for r in ref_long]
+        (sa, sb), covered = swap_pair(ref32, FLEET_KILL_AT)
+        net_w = _serving_net("float32")
+        swap_head_classes(net_w, sa, sb)
+        writers = [threading.Thread(target=write_model, args=(net, zips[k]))
+                   for k, net in (("f32", nets["f32"]),
+                                  ("bf16", nets["bf16"]),
+                                  ("swapped", net_w))]
+        for w in writers:
+            w.start()
+        ref_up = _fleet_ref(nets["f32"], up_prompts, FLEET_UPGRADE_GEN)
+        ref_kv = _fleet_ref(nets["f32"], [kv_prompt], FLEET_KV_GEN)[0]
+        ref16 = _fleet_ref(nets["bf16"], prompts, FLEET_GEN)
+        log(f"fleet references: {time.perf_counter() - t0:.1f} s; planted "
+            f"swap of classes {sa} and {sb} covers streams {covered}")
+        for w in writers:
+            w.join()
+        del net_w, nets["bf16"]
+        torch.cuda.empty_cache()
+        log(f"fleet zips written: {time.perf_counter() - t_phase:.1f} s")
+        t0 = time.perf_counter()
+        children = [_FleetChild(rid, zips[z], tmp)
+                    for rid, z in FLEET_CHILDREN]
+        errors = []
+
+        def boot(c):
+            try:
+                c.wait_ready()
+            except SystemExit as e:
+                log(str(e))
+                errors.append(c.replica_id)
+
+        waits = [threading.Thread(target=boot, args=(c,))
+                 for c in children]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        if errors:
+            raise SystemExit(f"chip_smoke: fleet children failed to boot: "
+                             f"{errors}")
+        log(f"fleet boot: {len(children)} children in "
+            f"{time.perf_counter() - t0:.1f} s; boot s "
+            + ", ".join(f"{c.replica_id} {c.boot_s:.1f}" for c in children)
+            + "; K2 build s "
+            + ", ".join(f"{c.replica_id} {c.build_s}" for c in children))
+        by = {c.replica_id: c for c in children}
+        with _Clients() as clients:
+            survivor = fleet_replay_check(
+                card, clients, [by["a32"], by["b32"]], prompts, ref32,
+                "f32", gate=True)
+            fleet_kv_check(card, [survivor, by["f32"]], kv_prompt,
+                           kv_cold, ref_kv)
+            fleet_upgrade_check(card, clients, [survivor, by["f32"]],
+                                [by["gen2-0"], by["gen2-1"]], up_prompts,
+                                ref_up)
+            fleet_planted_check(card, clients, by["gen2-0"],
+                                by["swapped"],
+                                [prompts[i] for i in covered],
+                                [ref_long[i] for i in covered])
+            fleet_replay_check(card, clients, [by["a16"], by["b16"]],
+                               prompts, ref16, "bf16", gate=False,
+                               net32=nets["f32"])
+        for c in children:
+            if c.alive:
+                c.scrape_rounds()
+        total = 0
+        for c in children:
+            steps = None if c.rounds is None else c.rounds * FLEET_CHUNK
+            total += N_LAYERS * (steps or 0)
+            log(f"fleet child {c.replica_id}: decode rounds {c.rounds}, "
+                f"steps {steps}, derived K2 t=1 launches "
+                f"{None if steps is None else N_LAYERS * steps}")
+        log(f"fleet: derived K2 t=1 launches in the children {total} "
+            f"(N_LAYERS x decode steps; graph captures not counted)")
+    finally:
+        shutdown_all(children)
+        leaked = [c.replica_id for c in children if c.alive]
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+        log(f"phase 18 wall: {time.perf_counter() - t_phase:.1f} s; "
+            f"children left running {leaked}")
+    if leaked:
+        raise SystemExit(f"chip_smoke: fleet children not reaped: {leaked}")
+
+
+
 # LeNet: bench.py's mnist_lenet5_train_throughput row (lenet5(lr=0.002),
 # bf16 compute, B=2048, 8 synthetic batches stacked into fit_scan
 # windows of 64 steps, 1 + 6 set-up windows, the 0.97 gate on 4096
@@ -5329,6 +6007,7 @@ def main() -> int:
     t17 = time.perf_counter()
     tenancy_kv_phase(card)
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    fleet_phase(card)
     k3_ms = {k["name"]: k["ms"] for k in conv}
     launches["conv_taps"] = lenet_phase(card, k3_ms["conv_taps"])
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],

@@ -1,12 +1,18 @@
-"""The command line: ``python -m deeplearning4j_tpu_torch.cli serve``.
+"""The command line: ``python -m deeplearning4j_tpu_torch.cli
+serve|route|fleet``.
 
-The ``serve`` subcommand of ``deeplearning4j_tpu/cli/driver.py``: load an
-LM-shaped model zip (either package's ``write_model``) onto the card
-(``--device``, default ``cuda``) and run the streaming HTTP gateway over
-it (serving/gateway.py): blocking and SSE generation, cancel, metrics,
+The ``serve``, ``route`` and ``fleet`` subcommands of
+``deeplearning4j_tpu/cli/driver.py``. ``serve`` loads an LM-shaped model
+zip (either package's ``write_model``) onto the card (``--device``,
+default ``cuda``) and runs the streaming HTTP gateway over it
+(serving/gateway.py): blocking and SSE generation, cancel, metrics,
 drain to a snapshot on shutdown, restore on boot when the snapshot
-exists. The parser is JAX's: ``--tenant`` (repeatable,
-``TenantSpec.parse``'s spelling) turns on the weighted-fair scheduler,
+exists. ``route`` fronts running gateways (either package's) with the
+failure-tolerant prefix-affinity router (serving/router.py); ``fleet``
+spawns N ``serve`` children on the same ``--device``, the router over
+them and the SLO-driven fleet controller (serving/controller.py). The
+parsers are JAX's: ``--tenant`` (repeatable, ``TenantSpec.parse``'s
+spelling) turns on the weighted-fair scheduler,
 ``--kv-host-tier-bytes``, ``--kv-disk-tier-path`` and
 ``--kv-disk-tier-bytes`` the KV spill tiers; ``--tp``, the flag of the
 one knob the port does not carry yet, is parsed, and any value but 1
@@ -16,6 +22,7 @@ exits with a message naming the ROADMAP item that brings it.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 #: --use-flash-paged CLI spelling -> DecodeEngine toggle value (JAX's
@@ -24,7 +31,7 @@ FLASH_PAGED_MODES = {"auto": None, "on": True, "off": False}
 
 #: flags of knobs the port refuses: (attribute, default, ROADMAP item)
 UNPORTED_FLAGS = (
-    ("tp", 1, "8 (tensor parallelism)"),
+    ("tp", 1, "11 (tensor parallelism)"),
 )
 
 
@@ -100,34 +107,251 @@ def gateway_from_args(args):
         role=getattr(args, "role", "any"))
 
 
+def build_kernels_for(gw):
+    """Build, before a replica reports ready, the kernel its engine
+    runs on the card: K2 (``csrc/paged_attention.cu``) for a paged
+    engine on a CUDA device whose kernel toggle is not off. A build
+    that fails raises, so a ``serve`` child that cannot build K2 exits
+    non-zero before its ``serving on`` line and a router sees a dead
+    replica. Returns ``{source: seconds}`` (0.0 for a library built
+    already), empty when the engine runs no kernel."""
+    eng = gw.engine
+    if (eng.device.type != "cuda" or not eng.paged_kv
+            or eng.use_flash_paged is False):
+        return {}
+    from deeplearning4j_tpu_torch import cuda_build
+
+    return cuda_build.build_all(["paged_attention"])
+
+
 def _cmd_serve(args) -> int:
     import time as _time
 
-    gw = gateway_from_args(args).start()
+    gw = gateway_from_args(args)
+    for name, secs in build_kernels_for(gw).items():
+        print(f"built {name} in {secs:.1f} s", flush=True)
+    gw.start()
     # flush: a parent process reads this line through a pipe as the
     # boot handshake
     print(f"serving on {gw.address} "
           f"(POST /v1/generate, GET /v1/healthz, GET /v1/metrics)",
           flush=True)
+    failed = False
+    try:
+        while gw._stepper.is_alive():
+            _time.sleep(0.5)
+        # the stepping thread died (a kernel that failed to launch, a
+        # device fault): exit non-zero instead of serving a replica
+        # whose requests never finish
+        failed = True
+        print("stepping thread ended: exiting", file=sys.stderr,
+              flush=True)
+    except KeyboardInterrupt:
+        print("draining...")
+    finally:
+        if failed:
+            gw.close()
+        else:
+            summary = gw.drain(timeout_s=args.drain_timeout)
+            gw.close()
+            if summary["snapshot"]:
+                print(f"snapshot ({summary['carried']} in-flight "
+                      f"requests) -> {summary['snapshot']}")
+    return 1 if failed else 0
+
+def router_from_args(args):
+    """Build the multi-replica serving router the ``route``
+    subcommand runs (JAX's ``router_from_args``), factored out so tests
+    can drive the exact CLI path without the serve-forever loop."""
+    from deeplearning4j_tpu_torch.serving import ServingRouter
+
+    replicas = [a.strip() for a in args.replicas.split(",")
+                if a.strip()]
+    return ServingRouter(
+        replicas, host=args.host, port=args.port,
+        affinity_block_tokens=args.affinity_block_tokens,
+        health_interval_s=args.health_interval,
+        failure_threshold=args.failure_threshold,
+        probe_interval_s=args.probe_interval,
+        max_replays=args.max_replays,
+        tenants=tenants_from_args(args),
+        journal_path=getattr(args, "journal_path", None),
+        fsync=getattr(args, "fsync", "batched"))
+
+
+def _cmd_route(args) -> int:
+    import time as _time
+
+    router = router_from_args(args).start()
+    wal = ""
+    if getattr(args, "journal_path", None):
+        wal = (f", WAL {args.journal_path} "
+               f"(fsync={args.fsync}, recovered "
+               f"{router.stats['recovered_entries']} entries, "
+               f"{router.stats['recovered_open']} open)")
+    print(f"routing on {router.address} over "
+          f"{len(router._replicas)} replicas "
+          f"(POST /v1/generate, GET /v1/healthz, GET /v1/metrics, "
+          f"POST /v1/replicas/drain){wal}", flush=True)
     try:
         while True:
             _time.sleep(0.5)
     except KeyboardInterrupt:
-        print("draining...")
+        print("stopping router (replicas keep serving)...")
     finally:
-        summary = gw.drain(timeout_s=args.drain_timeout)
-        gw.close()
-        if summary["snapshot"]:
-            print(f"snapshot ({summary['carried']} in-flight "
-                  f"requests) -> {summary['snapshot']}")
+        router.close()
+    return 0
+
+
+def _serve_child_argv(args, port: int, replica_id: str):
+    """Child argv for one fleet replica: this package's ``serve``
+    subcommand on an ephemeral port with a stable replica id, on the
+    fleet's ``--device``."""
+    argv = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli",
+            "serve", "--model", args.model,
+            "--device", getattr(args, "device", "cuda"),
+            "--host", "127.0.0.1", "--port", str(port),
+            "--replica-id", replica_id,
+            "--slots", str(args.slots),
+            "--decode-chunk", str(args.decode_chunk),
+            "--prefix-cache-rows", str(args.prefix_cache_rows),
+            "--prefill-chunk", str(args.prefill_chunk),
+            "--admission-policy", args.admission_policy]
+    if args.paged_kv:
+        argv += ["--paged-kv", "--block-tokens",
+                 str(args.block_tokens)]
+        if args.kv_blocks is not None:
+            argv += ["--kv-blocks", str(args.kv_blocks)]
+        if getattr(args, "kv_host_tier_bytes", 0):
+            argv += ["--kv-host-tier-bytes",
+                     str(args.kv_host_tier_bytes)]
+        if getattr(args, "kv_disk_tier_path", None):
+            # per-replica subdirectory: ring files are engine-local
+            argv += ["--kv-disk-tier-path",
+                     os.path.join(args.kv_disk_tier_path,
+                                  replica_id)]
+            if getattr(args, "kv_disk_tier_bytes", None) is not None:
+                argv += ["--kv-disk-tier-bytes",
+                         str(args.kv_disk_tier_bytes)]
+    if getattr(args, "tp", 1) != 1:
+        argv += ["--tp", str(args.tp)]
+    if getattr(args, "use_flash_paged", "auto") != "auto":
+        argv += ["--use-flash-paged", args.use_flash_paged]
+    if getattr(args, "async_rounds", False):
+        argv += ["--async-rounds"]
+    if getattr(args, "fused_rounds", 0):
+        argv += ["--fused-rounds", str(args.fused_rounds)]
+    for spec in getattr(args, "tenant", None) or []:
+        # every replica enforces the same tenant table the router
+        # rate-limits by — quotas and priorities are fleet-wide
+        argv += ["--tenant", spec]
+    return argv
+
+
+def fleet_from_args(args):
+    """Build the elastic fleet the ``fleet`` subcommand runs (JAX's
+    ``fleet_from_args``) — N subprocess ``serve`` replicas, the
+    failure-tolerant router over them, and the SLO-driven
+    :class:`FleetController` that breathes the fleet (spawns replicas
+    on pressure/TTFT-SLO violations, drains idle ones,
+    `controller.rolling_upgrade()` for zero-downtime model upgrades).
+    Factored out so tests can drive the exact CLI wiring without the
+    serve-forever loop. Returns ``(replicas, router, controller)`` —
+    none of them started. A flag the port does not carry exits
+    before any child is spawned."""
+    from deeplearning4j_tpu_torch.serving import (
+        FleetController,
+        ServingRouter,
+    )
+    from deeplearning4j_tpu_torch.serving.replica_proc import (
+        ReplicaProcess,
+        free_port,
+        shutdown_all,
+    )
+
+    refuse_unported(args)
+
+    def spawn(replica_id: str):
+        port = free_port()
+        return ReplicaProcess(
+            _serve_child_argv(args, port, replica_id),
+            replica_id=replica_id, port=port,
+            ready_pattern="serving on")
+
+    def factory(replica_id: str):
+        proc = spawn(replica_id)
+        try:
+            proc.wait_ready(timeout_s=300.0)
+        except BaseException:
+            proc.shutdown()  # a wedged boot must not leak the child
+            raise
+        return proc
+
+    # spawn all seeds first so their device inits overlap, then wait;
+    # ANY failure before the caller owns the fleet (a wedged boot, a
+    # bad router port, rejected controller bounds) must reap every
+    # child already spawned — orphaned serve subprocesses outlive
+    # the CLI (and hold the card)
+    seeds = [spawn(f"fleet-{i}") for i in range(args.replicas)]
+    try:
+        for r in seeds:
+            r.wait_ready(timeout_s=300.0)
+        router = ServingRouter(
+            [r.address for r in seeds], host=args.host,
+            port=args.port,
+            affinity_block_tokens=args.affinity_block_tokens,
+            tenants=tenants_from_args(args))
+        controller = FleetController(
+            router, replica_factory=factory,
+            min_replicas=args.min_replicas,
+            max_replicas=args.max_replicas,
+            eval_interval_s=args.eval_interval,
+            ttft_p99_slo_s=args.ttft_slo,
+            pressure_high=args.pressure_high,
+            pressure_low=args.pressure_low,
+            cooldown_s=args.cooldown, id_prefix="fleet-auto")
+    except BaseException:
+        shutdown_all(seeds)
+        raise
+    for r in seeds:
+        controller.adopt(r)
+    return seeds, router, controller
+
+
+def _cmd_fleet(args) -> int:
+    import time as _time
+
+    print(f"booting {args.replicas} replica(s)...", flush=True)
+    seeds, router, controller = fleet_from_args(args)
+    try:
+        router.start()
+        controller.start()
+        print(f"fleet routing on {router.address} over "
+              f"{len(seeds)} replicas, controller live "
+              f"(min {controller.min_replicas} / max "
+              f"{controller.max_replicas}, TTFT-p99 SLO "
+              f"{controller.ttft_p99_slo_s}); scale timeline at "
+              f"GET /v1/trace as fleet.scale spans", flush=True)
+        try:
+            while True:
+                _time.sleep(0.5)
+        except KeyboardInterrupt:
+            print("stopping fleet (drain + reap)...")
+    finally:
+        controller.close()
+        router.close()
+        # the seeds were adopted, so shutdown_fleet reaps everything
+        controller.shutdown_fleet()
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m deeplearning4j_tpu_torch.cli",
-        description="Serve deeplearning4j_tpu_torch models "
-                    "(the serve subcommand of the JAX package's CLI).")
+        description="Serve deeplearning4j_tpu_torch models: one "
+                    "gateway, a router over gateways, or an elastic "
+                    "fleet (the serve, route and fleet subcommands "
+                    "of the JAX package's CLI).")
     sub = p.add_subparsers(dest="command", required=True)
 
     s = sub.add_parser(
@@ -219,6 +443,124 @@ def build_parser() -> argparse.ArgumentParser:
                         "--tenant enables the weighted-fair scheduler "
                         "(none = the FIFO engine)")
     s.set_defaults(fn=_cmd_serve)
+
+    fl = sub.add_parser(
+        "fleet",
+        help="run an ELASTIC fleet: N serve replicas + router + "
+             "SLO-driven autoscaling controller")
+    fl.add_argument("--model", required=True,
+                    help="LM-shaped model zip every replica serves")
+    fl.add_argument("--device", default="cuda",
+                    help="torch device every replica runs on "
+                         "(default cuda; cpu for a card-less host)")
+    fl.add_argument("--host", default="127.0.0.1")
+    fl.add_argument("--port", type=int, default=8420,
+                    help="the router's port (replicas take "
+                         "ephemeral ports)")
+    fl.add_argument("--replicas", type=int, default=2,
+                    help="initial fleet size")
+    fl.add_argument("--min-replicas", type=int, default=1)
+    fl.add_argument("--max-replicas", type=int, default=4)
+    fl.add_argument("--ttft-slo", type=float, default=None,
+                    help="TTFT p99 SLO in seconds (windowed over "
+                         "the federated scrape); unset = "
+                         "pressure-only control")
+    fl.add_argument("--pressure-high", type=float, default=2.0,
+                    help="in-flight-per-slot above this = breach")
+    fl.add_argument("--pressure-low", type=float, default=0.25,
+                    help="in-flight-per-slot below this = idle "
+                         "(the hysteresis band between the two "
+                         "holds)")
+    fl.add_argument("--eval-interval", type=float, default=0.5,
+                    help="control-loop period in seconds")
+    fl.add_argument("--cooldown", type=float, default=5.0,
+                    help="seconds after any scale event before the "
+                         "next may fire")
+    fl.add_argument("--affinity-block-tokens", type=int, default=16)
+    fl.add_argument("--slots", type=int, default=8)
+    fl.add_argument("--decode-chunk", type=int, default=8)
+    fl.add_argument("--prefix-cache-rows", type=int, default=8)
+    fl.add_argument("--prefill-chunk", type=int, default=0)
+    fl.add_argument("--admission-policy", default="ttft",
+                    choices=("ttft", "decode"))
+    fl.add_argument("--paged-kv", action="store_true")
+    fl.add_argument("--block-tokens", type=int, default=16)
+    fl.add_argument("--kv-blocks", type=int, default=None)
+    fl.add_argument("--kv-host-tier-bytes", type=int, default=0,
+                    help="host-DRAM spill-tier budget per replica "
+                         "(0 = off)")
+    fl.add_argument("--kv-disk-tier-path", default=None,
+                    help="disk-ring base directory for spill-tier "
+                         "overflow (each replica rings a "
+                         "subdirectory)")
+    fl.add_argument("--kv-disk-tier-bytes", type=int, default=None,
+                    help="per-replica disk-ring byte cap")
+    fl.add_argument("--async-rounds", action="store_true",
+                    help="double-buffered decode rounds on every "
+                         "replica")
+    fl.add_argument("--fused-rounds", type=int, default=0,
+                    metavar="K",
+                    help="fused multi-round decode graphs on every "
+                         "replica (0 = off)")
+    fl.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards per replica (not "
+                         "ported: only 1)")
+    fl.add_argument("--use-flash-paged", default="auto",
+                    choices=tuple(FLASH_PAGED_MODES),
+                    help="every replica's paged-attention kernel "
+                         "toggle (serve's --use-flash-paged)")
+    fl.add_argument("--tenant", action="append", default=None,
+                    metavar="SPEC",
+                    help="tenant service class, repeatable: "
+                         "name[:key=value]... — armed on EVERY "
+                         "replica's scheduler AND the router's rate "
+                         "limiter (rps/burst keys)")
+    fl.set_defaults(fn=_cmd_fleet)
+
+    rt = sub.add_parser(
+        "route",
+        help="front N serve replicas with the failure-tolerant "
+             "prefix-aware router")
+    rt.add_argument("--replicas", required=True,
+                    help="comma-separated replica addresses "
+                         "(host:port of running `serve` gateways of "
+                         "either package — all must serve the SAME "
+                         "model/seed)")
+    rt.add_argument("--host", default="127.0.0.1")
+    rt.add_argument("--port", type=int, default=8420)
+    rt.add_argument("--affinity-block-tokens", type=int, default=16,
+                    help="prefix-affinity hash granularity (match "
+                         "the replicas' --block-tokens under paged "
+                         "KV)")
+    rt.add_argument("--health-interval", type=float, default=0.25,
+                    help="seconds between /v1/healthz scrapes")
+    rt.add_argument("--failure-threshold", type=int, default=3,
+                    help="consecutive failures before a replica's "
+                         "circuit breaker opens")
+    rt.add_argument("--probe-interval", type=float, default=1.0,
+                    help="half-open probe period for dead replicas")
+    rt.add_argument("--max-replays", type=int, default=3,
+                    help="replay budget per request across replica "
+                         "deaths")
+    rt.add_argument("--tenant", action="append", default=None,
+                    metavar="SPEC",
+                    help="tenant service class, repeatable: arms the "
+                         "router's per-tenant token-bucket rate "
+                         "limits (rps/burst keys)")
+    rt.add_argument("--journal-path", default=None,
+                    help="crash-safe write-ahead journal: a router "
+                         "restarted against the same file replays "
+                         "open streams on live replicas, restores "
+                         "tenant buckets + warm-KV beliefs, and "
+                         "serves client resumes (Last-Event-ID) from "
+                         "the recovered breadcrumbs")
+    rt.add_argument("--fsync", default="batched",
+                    choices=("per_record", "batched", "off"),
+                    help="WAL durability policy: per_record "
+                         "(power-loss safe, per-record latency), "
+                         "batched (default: SIGKILL-safe, fsync "
+                         "coalesced), off (flush-only)")
+    rt.set_defaults(fn=_cmd_route)
     return p
 
 

@@ -145,7 +145,7 @@ def _served(request, pkg, zip_path, **kw):
 
 
 #: the JAX engine's histogram of the feature the port refuses (tensor
-#: parallelism: ROADMAP item 8), empty in a JAX scrape and absent from
+#: parallelism: ROADMAP item 11), empty in a JAX scrape and absent from
 #: the port's
 JAX_ONLY = {"serving_tp_dispatch_s"}
 
@@ -424,7 +424,7 @@ def test_cli_serves_a_port_zip_drains_and_boots(tmp_path, zip_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--tp", "2", "ROADMAP item 8"), ("--tenant", "premium", "item 7b"),
+    ("--tp", "2", "ROADMAP item 11"), ("--tenant", "premium", "item 7b"),
     ("--kv-host-tier-bytes", "1024", "item 8"),
     ("--kv-disk-tier-path", "tier", "item 8"),
 ])

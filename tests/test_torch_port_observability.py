@@ -301,7 +301,7 @@ def test_sampled_preemption_victim_faults(zip_path):
 
 # -- phase clock and flight recorder ----------------------------------------
 #: the JAX engine's histogram of the feature the port refuses (tensor
-#: parallelism: ROADMAP item 8)
+#: parallelism: ROADMAP item 11)
 JAX_ONLY = {"serving_tp_dispatch_s"}
 
 
