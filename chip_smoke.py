@@ -285,6 +285,42 @@ JAX or of the JAX package. Phases, each fatal on failure:
    (N_LAYERS x decode steps; they are the children's, not in the
    kernels line), the phase's wall; every child is reaped on every way
    out.
+19. the rest of the layers — (a) the zoo's ``moe_transformer_lm`` at
+   the flagship's width (4 blocks of causal attention, 8 heads, each
+   followed by a residual ``MoeDense`` of 8 experts x 4096 hidden,
+   capacity factor 1.25, top-1; random weights from a seed), 4 ``fit``
+   steps on K1 and on dense attention from the same params at B=2,
+   T=2048 on the Markov task, f32 and bf16: losses agree (5e-3 / 2e-2
+   relative), K1 launched 4 times a step forward and backward, the aux
+   losses finite; tokens/s, s/step, peak memory, and a step's parts
+   (routing, the dispatch and combine einsums, the expert FFN, one
+   whole ``MoeDense``, K1) timed alone between CUDA events with their
+   share of the step; then 4-step ``fit_scan`` windows from the
+   captured step against the eager loop, params, updater state and
+   aux state bit-identical. (b) The same net served at bf16 by the
+   paged engine at phase 6's knobs (8 slots, chunk 32, window 2048,
+   12 x 128-token prompts x 128 new tokens), its rounds one captured
+   graph: every request finishes, K2 launched 4 times per decode step;
+   tokens/s against eager rounds. The f32 gate runs eager rounds traced
+   forward by forward (each ``MoeDense`` call's expert choices, gaps
+   and seats, each forward's output probabilities): the kernel engine
+   and the plain engine with reordered sums against the plain-gather
+   engine, ids identical or diverging at a near tie only
+   (``trace_divergence``; limits ``MOE_GAP_LIMIT``, ``MOE_OUT_TOL``);
+   the graph kernel engine's ids equal its eager run's; two planted
+   attention faults must each be rejected, and "scale squared" is run
+   as a report. (c) DL4J's GravesLSTMCharModellingExample shape (2 x
+   GravesLSTM(200), tanh, softmax/MCXENT, RMSProp, l2, TBPTT 50,
+   minibatch 32) on Markov sequences of 1000: every window on the card
+   and, from a zip the card net wrote, on the CPU, losses within 5e-3
+   relative and falling, s a window; ``rnn_time_step`` over 64 tokens
+   against the full forward within 1e-4; the full-BPTT net's
+   ``fit_scan`` (T=50) from its captured step bit-identical to the
+   eager loop. (d) bench.py's DBN row (``dbn(lr=0.05,
+   updater=NESTEROVS)``, 784-500-250-10, CD-1, 8192 synthetic MNIST in
+   batches of 1024): pretrain epochs/s over 3-epoch windows, 40
+   finetune epochs, accuracy on 2048 test images against 0.97. The
+   phase prints its seconds.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -298,7 +334,10 @@ and fused runs and phase 16's bf16 paged gateway's HTTP rounds,
 ``paged_attention_chunk`` (K2 at t=256) from phase 13a's paged warm
 chunks, ``paged_attention_verify`` (K2 at t=33) from phase
 14's paged timed rounds (phases 15, 17 and 18 add none: 15's and
-17's K2 launches are gated in the phase, 18's are its children's); K3's ``conv_taps`` and ``conv_taps_f32`` with
+17's K2 launches are gated in the phase, 18's are its children's;
+phase 19 adds 19a's K1 launches, fit and the counted ``fit_scan``
+window, at f32 and bf16, and 19b's K2 launches on its bf16 graph run);
+K3's ``conv_taps`` and ``conv_taps_f32`` with
 their launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -1864,7 +1903,11 @@ def training_parity_phase(card: str) -> dict:
                 f"{paged_attention.launches}")
         del k1, dense
         torch.cuda.empty_cache()
-        s_fwd, s_bwd = training_scan_check(card, cd, kw, batches)
+        s_fwd, s_bwd = training_scan_check(
+            card, f"training A [{cd}]",
+            lambda: MultiLayerNetwork(_flagship(cd, True, **kw),
+                                      device=DEVICE).init(),
+            batches, N_LAYERS)
         if cd == "float32":
             launches = {"flash_attention_f32": fwd + s_fwd,
                         "flash_attention_f32_bwd": bwd + s_bwd}
@@ -1872,12 +1915,14 @@ def training_parity_phase(card: str) -> dict:
 
 
 def _nets_equal(a, b) -> bool:
-    """Whether two nets hold the same params and updater state, bit for
-    bit."""
+    """Whether two nets hold the same params, updater state and layer
+    state (BatchNorm statistics, MoE aux losses), bit for bit."""
     from deeplearning4j_tpu_torch.nn.streaming import tree_leaves
 
-    la = tree_leaves(a.params) + tree_leaves(a.updater_state)
-    lb = tree_leaves(b.params) + tree_leaves(b.updater_state)
+    la = (tree_leaves(a.params) + tree_leaves(a.updater_state)
+          + tree_leaves(a.state))
+    lb = (tree_leaves(b.params) + tree_leaves(b.updater_state)
+          + tree_leaves(b.state))
     return (len(la) == len(lb) and a.iteration == b.iteration
             and all(torch.equal(x, y) for x, y in zip(la, lb)))
 
@@ -1891,26 +1936,24 @@ def _timed_scan(net, feats, labels) -> float:
     return (time.perf_counter() - t0) / feats.shape[0]
 
 
-def training_scan_check(card: str, cd: str, kw: dict, batches) -> tuple:
-    """Phase A's ``fit_scan``: the 4 batches as one window, on a net
-    that replays its captured train step and on a net from the same
-    params that runs the step eagerly (``train_graphs = None``, the
-    private switch); after each of 2 windows their params and updater
-    state are bit-identical. The first window captures the graph (its
-    warm-up runs the step once more on copies); over the second K1
-    launches 8 times forward and backward per step, all through the
+def training_scan_check(card: str, label: str, make, batches,
+                        n_attn: int) -> tuple:
+    """A ``fit_scan`` check: the batches as one window, on a net from
+    ``make()`` that replays its captured train step and on another from
+    ``make()`` (the same params) that runs the step eagerly
+    (``train_graphs = None``, the private switch); after each of 2
+    windows their params, updater state and layer state are
+    bit-identical. The first window captures the graph (its warm-up
+    runs the step once more on copies); over the second K1 launches
+    ``n_attn`` times forward and backward per step, all through the
     replays. Returns those launches (forward, backward)."""
     from deeplearning4j_tpu_torch.nn.layers.attention import flash_attention
-    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     feats = torch.as_tensor(np.stack([f for f, _ in batches]),
                             device=DEVICE)
     labels = torch.as_tensor(np.stack([y for _, y in batches]),
                              device=DEVICE)
-    graph = MultiLayerNetwork(_flagship(cd, True, **kw),
-                              device=DEVICE).init()
-    eager = MultiLayerNetwork(_flagship(cd, True, **kw),
-                              device=DEVICE).init()
+    graph, eager = make(), make()
     eager.train_graphs = None
     same = [_nets_equal(graph, eager)]
     t0 = time.perf_counter()
@@ -1925,19 +1968,19 @@ def training_scan_check(card: str, cd: str, kw: dict, batches) -> tuple:
     e_s = _timed_scan(eager, feats, labels)
     same.append(_nets_equal(graph, eager))
     runner = graph.train_graphs
-    log(f"training A [{cd}]: fit_scan, {PARITY_STEPS} steps a window, from "
-        f"its captured graph against the eager loop from the same params: "
-        f"params and updater state bit-identical {same} (start, after "
-        f"each window); graph {g_s:.4f} s/step, eager {e_s:.4f} s/step "
-        f"({e_s / g_s:.3f}x); first window with the capture "
+    log(f"{label}: fit_scan, {len(batches)} steps a window, from its "
+        f"captured graph against the eager loop from the same params: "
+        f"params, updater and layer state bit-identical {same} (start, "
+        f"after each window); graph {g_s:.4f} s/step, eager {e_s:.4f} "
+        f"s/step ({e_s / g_s:.3f}x); first window with the capture "
         f"{capture_s:.3f} s; {len(runner)} graph ({runner.captures} "
         f"capture; {_graph_memory(runner)}); K1 launches over "
         f"the second graph window fwd {fwd}, bwd {bwd} [{card}]")
-    want = N_LAYERS * PARITY_STEPS
+    want = n_attn * len(batches)
     if (not all(same) or fwd != want or bwd != want or len(runner) != 1
             or runner.captures != 1):
         raise SystemExit(
-            f"chip_smoke: training phase A [{cd}] fit_scan failed: "
+            f"chip_smoke: {label} fit_scan failed: "
             f"bit-identical {same}, K1 launches {fwd}/{bwd} (want {want}),"
             f" graphs {len(runner)} ({runner.captures} captures)")
     del graph, eager
@@ -2034,10 +2077,25 @@ def reordered_sums(ref):
     return fn
 
 
+def _paged_fault_old_keys_dropped(ref):
+    """Keys more than 16 positions behind each row's first query are
+    ignored (its ``floor`` raised)."""
+    def fn(q, pk, pv, bid, bval, lo_blk, floor, filled, lengths, *, tm):
+        return ref(q, pk, pv, bid, bval, lo_blk,
+                   torch.maximum(floor, filled - 16), filled, lengths,
+                   tm=tm)
+    return fn
+
+
 #: planted faults of the plain engine's attention the f32 gate must
 #: reject (each wraps ``paged_attention_reference``)
 PLANTED_FAULTS = {"newest key dropped": _paged_fault_newest_key_dropped,
                   "scale squared": _paged_fault_scale_squared}
+#: the MoE LM's (phase 19b): its attention scores are ~1e-2 on random
+#: weights, so "scale squared" moves its probabilities by ~1e-7, inside
+#: f32 summation noise; that one is run and reported, not gated
+MOE_PLANTED_FAULTS = {"newest key dropped": _paged_fault_newest_key_dropped,
+                      "old keys dropped": _paged_fault_old_keys_dropped}
 
 
 @contextlib.contextmanager
@@ -5976,6 +6034,625 @@ def lenet_parity_phase(card: str) -> None:
                          f"({mma_launches} on the tensor cores)")
 
 
+# phase 19: the rest of the layers. (a, b) The zoo's moe_transformer_lm
+# at the flagship's width (4 blocks of causal attention, 8 heads, each
+# followed by a residual MoeDense of 8 experts x 4096 hidden, capacity
+# factor 1.25, top-1; ~285 M params): 4 fit steps on K1 and on dense
+# attention at B=2, T=2048 (f32 and bf16), fit_scan graph against eager,
+# then served at phase 6's knobs. (c) DL4J's
+# GravesLSTMCharModellingExample shape under truncated BPTT. (d)
+# bench.py's DBN row.
+MOE_WIDTH, MOE_BLOCKS, MOE_HEADS, MOE_EXPERTS = 1024, 4, 8, 8
+MOE_HIDDEN, MOE_CF, MOE_TOP_K = 0, 1.25, 1
+MOE_T, MOE_STEPS = 2048, 4
+# the f32 serving gate of the MoE LM compares two runs forward by
+# forward (``trace_divergence``). At the first forward where they differ,
+# the divergence is a near tie when (1) every expert flipped in the
+# first MoE layer that flips any has a router top-1/top-2 probability
+# gap below MOE_GAP_LIMIT, and (2) in the sequences no flip touched, the
+# output probabilities agree within MOE_OUT_TOL and every argmax that
+# differs has an output top-1/top-2 gap below MOE_GAP_LIMIT. Runs that
+# differ only in summation order move these probabilities by ~1e-8.
+MOE_GAP_LIMIT, MOE_OUT_TOL = 1e-5, 1e-6
+LSTM_HIDDEN, LSTM_BATCH, LSTM_T, LSTM_TBPTT = 200, 32, 1000, 50
+LSTM_RTOL, LSTM_STREAM, LSTM_STREAM_ATOL = 5e-3, 64, 1e-4
+DBN_N, DBN_BATCH, DBN_WARM, DBN_WINDOWS, DBN_EPOCHS = 8192, 1024, 2, 9, 3
+DBN_FINETUNE, DBN_TEST_N = 40, 2048
+
+
+def _moe_conf(compute_dtype, use_flash, window=None):
+    from deeplearning4j_tpu_torch.models.zoo import moe_transformer_lm
+
+    conf = moe_transformer_lm(
+        n_in=TRAIN_VOCAB, width=MOE_WIDTH, n_blocks=MOE_BLOCKS,
+        n_heads=MOE_HEADS, n_classes=TRAIN_VOCAB, n_experts=MOE_EXPERTS,
+        n_hidden=MOE_HIDDEN, capacity_factor=MOE_CF, top_k=MOE_TOP_K,
+        seed=11)
+    for c in conf.confs:
+        if compute_dtype != "float32":
+            c.compute_dtype = compute_dtype
+        if hasattr(c.layer, "use_flash"):
+            c.layer.use_flash = use_flash
+        if window is not None and hasattr(c.layer, "stream_max_t"):
+            c.layer.stream_max_t = window
+    return conf
+
+
+def _moe_net(compute_dtype, use_flash, window=None, like=None):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    net = MultiLayerNetwork(_moe_conf(compute_dtype, use_flash, window),
+                            device=DEVICE).init()
+    if like is not None:
+        for key, p in like.param_table().items():
+            net.set_param(key, p)
+    return net
+
+
+def _moe_layers(net) -> list:
+    from deeplearning4j_tpu_torch.nn.layers.moe import MoeDense
+
+    return [str(i) for i, c in enumerate(net.conf.confs)
+            if isinstance(c.layer, MoeDense)]
+
+
+def moe_step_breakdown(card: str, cd: str, net, step_s: float) -> None:
+    """Where a MoE train step's time goes: the parts of one MoeDense
+    layer timed alone at the step's shapes (tokens [B*T, width], the
+    layer's own params at the compute dtype) between CUDA events, each
+    forward + backward, and K1 forward + backward at the attention's
+    shape; each times the number of blocks over the step's seconds."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import flash_attention
+    from deeplearning4j_tpu_torch.parallel import expert_parallel as ep
+
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cd]
+    si = _moe_layers(net)[0]
+    p = {k: v.detach().to(dt).requires_grad_(True)
+         for k, v in net.params[si].items()}
+    n_tok = TRAIN_B * MOE_T
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn(n_tok, MOE_WIDTH, generator=gen, device=DEVICE,
+                    dtype=dt).requires_grad_(True)
+    cap = ep.expert_capacity(n_tok, MOE_EXPERTS, MOE_CF, MOE_TOP_K)
+    with torch.no_grad():
+        logits = x.float() @ p["router"].float()
+        dispatch, combine, _ = ep.route_top_k(logits, cap, MOE_TOP_K)
+        xe0 = torch.einsum("bec,bd->ecd", dispatch.to(dt), x)
+        ye0 = ep._expert_ffn(xe0, p["W_up"], p["W_down"])
+
+    def backward(out):
+        out.backward(torch.ones_like(out))
+
+    def routing():
+        lg = x.float() @ p["router"].float()
+        ep.route_top_k(lg, cap, MOE_TOP_K)
+
+    def dispatch_fb():
+        backward(torch.einsum("bec,bd->ecd", dispatch.to(dt), x))
+
+    xe = xe0.detach().requires_grad_(True)
+
+    def ffn_fb():
+        backward(ep._expert_ffn(xe, p["W_up"], p["W_down"]))
+
+    ye = ye0.detach().requires_grad_(True)
+
+    def combine_fb():
+        backward(torch.einsum("bec,ecd->bd", combine.to(dt), ye))
+
+    def layer_fb():
+        y, aux = ep.moe_apply(p, x, MOE_CF, MOE_TOP_K)
+        backward(y + aux)
+
+    dh = MOE_WIDTH // MOE_HEADS
+    q, k, v = (torch.randn(TRAIN_B, MOE_HEADS, MOE_T, dh, generator=gen,
+                           device=DEVICE, dtype=dt).requires_grad_(True)
+               for _ in range(3))
+    launches = (flash_attention.launches, flash_attention.bwd_launches)
+
+    def k1_fb():
+        backward(flash_attention(q, k, v, True))
+
+    parts = {"routing (fwd)": routing, "dispatch einsum": dispatch_fb,
+             "expert FFN": ffn_fb, "combine einsum": combine_fb,
+             "whole MoeDense": layer_fb, "K1": k1_fb}
+    ms = {name: cuda_time_ms(fn, iters=5, warmup=1)
+          for name, fn in parts.items()}
+    flash_attention.launches, flash_attention.bwd_launches = launches
+    shares = ", ".join(
+        f"{name} {t:.3f} ms ({MOE_BLOCKS * t / 1e3 / step_s:.1%})"
+        for name, t in ms.items())
+    log(f"19a [{cd}]: a step's parts timed alone (fwd + bwd, x "
+        f"{MOE_BLOCKS} blocks over the {step_s:.4f} s step): {shares}; "
+        f"capacity {cap} per expert, dispatch/combine [{n_tok}, "
+        f"{MOE_EXPERTS}, {cap}] [{card}]")
+
+
+def moe_training_phase(card: str) -> dict:
+    """19a: the MoE LM from one set of params on K1 and on dense
+    attention, 4 fit steps each at B=2, T=2048 on the Markov task, f32
+    and bf16: losses agree (5e-3 relative at f32, 2e-2 at bf16), K1
+    launched once per block per step forward and backward, every MoE
+    layer's aux loss finite; tokens/s, s/step, peak memory and the MoE
+    parts' share of the step; then ``training_scan_check``. Returns K1's
+    launches by kernel-line name."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+
+    batches, floor = _markov_batches(MOE_STEPS, MOE_T, sample_seed=19)
+    launches = {}
+    for cd in ("float32", "bfloat16"):
+        k1 = _moe_net(cd, True)
+        dense = _moe_net(cd, False, like=k1)
+        n_params = sum(p.numel() for p in k1.param_table().values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        paged_attention.launches = 0
+        k_loss, k_wall = _train(k1, batches)
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        peak = torch.cuda.max_memory_allocated()
+        aux = [float(k1.state[si]["aux_loss"]) for si in _moe_layers(k1)]
+        d_loss, d_wall = _train(dense, batches)
+        dense_launches = flash_attention.launches - fwd
+        rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, d_loss))
+        step_s = float(np.mean(k_wall[1:]))
+        log(f"19a [{cd}]: MoE LM {n_params / 1e6:.1f} M params, B="
+            f"{TRAIN_B}, T={MOE_T}; K1 losses "
+            f"{[f'{x:.6f}' for x in k_loss]}, dense "
+            f"{[f'{x:.6f}' for x in d_loss]} (entropy floor {floor:.4f}); "
+            f"max rel diff {rel:.3e} (tol {PARITY_RTOL[cd]}); aux losses "
+            f"{[round(a, 5) for a in aux]}; K1 launches fwd {fwd}, bwd "
+            f"{bwd} over {MOE_STEPS} steps; s/step K1 "
+            f"{[round(w, 4) for w in k_wall]} (first warms up), dense "
+            f"{[round(w, 4) for w in d_wall]}; "
+            f"{TRAIN_B * MOE_T / step_s:.1f} tokens/s over steps 2-"
+            f"{MOE_STEPS}; peak memory {peak / 2**30:.3f} GiB [{card}]")
+        want = MOE_BLOCKS * MOE_STEPS
+        if (not rel <= PARITY_RTOL[cd] or fwd != want or bwd != want
+                or dense_launches != 0 or paged_attention.launches != 0
+                or not all(np.isfinite(k_loss + d_loss + aux))):
+            raise SystemExit(
+                f"chip_smoke: phase 19a [{cd}] failed: rel {rel}, K1 "
+                f"launches {fwd}/{bwd} (want {want}), dense net's "
+                f"{dense_launches}, paged {paged_attention.launches}, aux "
+                f"{aux}")
+        del dense
+        torch.cuda.empty_cache()
+        moe_step_breakdown(card, cd, k1, step_s)
+        s_fwd, s_bwd = training_scan_check(
+            card, f"19a [{cd}]", lambda: _moe_net(cd, True, like=k1),
+            batches, MOE_BLOCKS)
+        del k1
+        torch.cuda.empty_cache()
+        name = "flash_attention_f32" if cd == "float32" else (
+            "flash_attention")
+        launches[name] = fwd + s_fwd
+        launches[name + "_bwd"] = bwd + s_bwd
+    return launches
+
+
+class _MoeTrace:
+    """What each forward of an eager engine computed: per MoeDense call
+    (in layer order) the top-1 expert of every token row, its
+    top-1/top-2 router probability gap and whether it kept a seat, and
+    per network forward its output probabilities [B, V, T]. Host copies,
+    one sync per call: for the f32 gate only."""
+
+    def __init__(self):
+        self.calls = []      # one per network forward
+        self._route = []
+
+    def route(self, probs, kept):
+        top = probs.topk(2, dim=-1)
+        self._route.append((top.indices[:, 0].cpu(),
+                            (top.values[:, 0] - top.values[:, 1]).cpu(),
+                            kept.cpu()))
+
+    def forward(self, out):
+        self.calls.append({"route": self._route, "out": out.float().cpu()})
+        self._route = []
+
+
+@contextlib.contextmanager
+def moe_traced(eng, trace):
+    """Within the block, every ``route_top_k`` call and every forward of
+    ``eng`` records into ``trace``."""
+    from deeplearning4j_tpu_torch.parallel import expert_parallel as ep
+
+    route = ep.route_top_k
+
+    def traced_route(logits, capacity, top_k=1, normalize_gates=True):
+        f32 = torch.promote_types(logits.dtype, torch.float32)
+        res = route(logits, capacity, top_k, normalize_gates)
+        trace.route(torch.softmax(logits.to(f32), dim=-1),
+                    res[0].sum(dim=(1, 2)) > 0)
+        return res
+
+    forward = eng._forward
+
+    def traced_forward(x, mask, rnn):
+        out, new_rnn = forward(x, mask, rnn)
+        trace.forward(out)
+        return out, new_rnn
+
+    ep.route_top_k = traced_route
+    eng._forward = traced_forward
+    try:
+        yield
+    finally:
+        ep.route_top_k = route
+        del eng._forward
+
+
+def _top2_gap(probs, dim):
+    top = probs.topk(2, dim=dim)
+    return (top.indices.select(dim, 0),
+            top.values.select(dim, 0) - top.values.select(dim, 1))
+
+
+def trace_divergence(a, b) -> tuple:
+    """Walk two traces forward by forward (see MOE_GAP_LIMIT): returns
+    (the first differing forward as {call, its root flips and the
+    largest root gap, the sequences touched, the largest output
+    difference and argmax gap over the untouched ones, near_tie}, or
+    None; the largest output difference before it). A token row of a
+    MoE call is sequence ``row // T`` of the forward's [B, V, T]
+    output."""
+    worst = 0.0
+    for i, (ca, cb) in enumerate(zip(a.calls, b.calls)):
+        if len(ca["route"]) != len(cb["route"]) or (
+                ca["out"].shape != cb["out"].shape):
+            return {"call": i, "shapes differ": True,
+                    "near_tie": False}, worst
+        n_b, _, n_t = cb["out"].shape
+        touched = torch.zeros(n_b, dtype=torch.bool)
+        root = None
+        for (ea, _, ka), (eb, gb, kb) in zip(ca["route"], cb["route"]):
+            moved = ea != eb
+            if root is None and bool(moved.any()):
+                root = gb[moved]
+            touched |= (moved | (ka != kb)).reshape(n_b, n_t).any(dim=1)
+        keep = ~touched
+        diff = (ca["out"] - cb["out"]).abs().amax(dim=1)[keep]   # [b', T]
+        am_a, _ = _top2_gap(ca["out"][keep], 1)
+        am_b, gap_b = _top2_gap(cb["out"][keep], 1)
+        argmax_gaps = gap_b[am_a != am_b]
+        out_diff = float(diff.max()) if diff.numel() else 0.0
+        if root is None and not argmax_gaps.numel() and (
+                out_diff <= MOE_OUT_TOL):
+            worst = max(worst, out_diff)
+            continue
+        root_gap = float(root.max()) if root is not None else 0.0
+        argmax_gap = (float(argmax_gaps.max()) if argmax_gaps.numel()
+                      else 0.0)
+        tie = (root_gap < MOE_GAP_LIMIT and out_diff <= MOE_OUT_TOL
+               and argmax_gap < MOE_GAP_LIMIT)
+        return {"call": i,
+                "root flips": 0 if root is None else int(root.numel()),
+                "root gap": root_gap,
+                "sequences touched": int(touched.sum()),
+                "out diff untouched": out_diff,
+                "argmax flips untouched": int(argmax_gaps.numel()),
+                "argmax gap": argmax_gap, "near_tie": tie}, worst
+    if len(a.calls) != len(b.calls):
+        return {"call": min(len(a.calls), len(b.calls)),
+                "forwards differ": True, "near_tie": False}, worst
+    return None, worst
+
+
+def _trace_min_gaps(trace) -> tuple:
+    """The smallest nonzero router and output top-1/top-2 gaps over a
+    run (exact ties, as an idle row of zeros gives, resolve the same way
+    in both runs)."""
+    def smallest(gaps):
+        pos = [float(g[g > 0].min()) for g in gaps if bool((g > 0).any())]
+        return min(pos, default=float("inf"))
+
+    router = smallest([g for c in trace.calls for _, g, _ in c["route"]])
+    out = smallest([_top2_gap(c["out"], 1)[1] for c in trace.calls])
+    return router, out
+
+
+def moe_serving_phase(card: str) -> int:
+    """19b: the MoE LM served at bf16 by the paged engine at phase 6's
+    knobs (8 slots, chunk 32, window 2048, 12 x 128-token prompts x 128
+    new tokens), its rounds replayed from one captured graph: every
+    request finishes, K2 launched once per block per decode step;
+    tokens/s against eager rounds. Then the f32 gate on eager rounds
+    (traced): the kernel engine and a right program (the plain one with
+    reordered sums) against the plain-gather engine, ids identical or
+    diverging only at a near tie (``trace_divergence``); each planted
+    fault must diverge at no near tie; the graph kernel engine's f32 ids
+    equal its eager run's. Returns K2's launches on the bf16 graph
+    run."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
+
+    net = _moe_net("bfloat16", None, window=WINDOW)
+    geometry = dict(paged_kv=True, block_tokens=BLOCK_TOKENS,
+                    n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK)
+    prompts = serving_prompts(0)
+    eng = DecodeEngine(net, use_flash_paged=True, **geometry)
+    eng.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))   # warm-up
+    eng.run()                    # captures the decode round's graph
+    steps0 = eng.stats["decode_steps"]
+    paged_attention.launches = 0
+    results, wall = serve_ids(eng, prompts)
+    launches = paged_attention.launches
+    steps = eng.stats["decode_steps"] - steps0
+    bad = [(r.id, r.finish_reason, len(r.tokens)) for r in results
+           if r.finish_reason != "length" or len(r.tokens) != N_GEN]
+    counts = eng.compile_counts()
+    rate = N_REQUESTS * N_GEN / wall
+    eager = DecodeEngine(net, **geometry)
+    eager._graphs = None
+    eager.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))
+    eager.run()
+    eager_res, eager_wall = serve_ids(eager, prompts)
+    eager_rate = N_REQUESTS * N_GEN / eager_wall
+    agree = float(np.mean(agreement([r.tokens for r in results],
+                                    [r.tokens for r in eager_res])))
+    log(f"19b: MoE LM served (bf16, paged, {N_SLOTS} slots, chunk "
+        f"{DECODE_CHUNK}): {N_REQUESTS} x {N_GEN} tokens, graph rounds "
+        f"{rate:.1f} tokens/s against eager rounds {eager_rate:.1f} "
+        f"({rate / eager_rate:.2f}x); {steps} decode steps, {launches} K2 "
+        f"launches; {counts}; graph / eager id agreement {agree:.4f} "
+        f"[{card}]")
+    if (bad or launches != MOE_BLOCKS * steps or launches == 0
+            or counts["decode"] != 1):
+        raise SystemExit(
+            f"chip_smoke: phase 19b failed: unfinished {bad}, K2 "
+            f"launches {launches} for {steps} steps x {MOE_BLOCKS} blocks, "
+            f"{counts}")
+    del eng, eager
+    torch.cuda.empty_cache()
+
+    net32 = _moe_net("float32", None, window=WINDOW, like=net)
+    del net
+
+    def traced_run(use_flash_paged, wrap=None):
+        trace = _MoeTrace()
+        e = DecodeEngine(net32, use_flash_paged=use_flash_paged,
+                         **geometry)
+        e._graphs = None
+        with paged_reference_wrapped(wrap), moe_traced(e, trace):
+            res, _ = serve_ids(e, prompts)
+        return [r.tokens for r in res], trace
+
+    kernel_ids, kernel_tr = traced_run(True)
+    plain_ids, plain_tr = traced_run(False)
+    reord_ids, reord_tr = traced_run(False, reordered_sums)
+    graph_ids = [r.tokens for r in serve_ids(DecodeEngine(
+        net32, use_flash_paged=True, **geometry), prompts)[0]]
+
+    def verdict(ids, tr):
+        div, worst = trace_divergence(tr, plain_tr)
+        same = ids == plain_ids
+        ok = (same and div is None) or (div is not None
+                                        and div["near_tie"])
+        return same, div, worst, ok
+
+    k_same, k_div, k_worst, k_ok = verdict(kernel_ids, kernel_tr)
+    r_same, r_div, r_worst, r_ok = verdict(reord_ids, reord_tr)
+    router_gap, out_gap = _trace_min_gaps(kernel_tr)
+    log(f"19b gate f32: kernel ids identical to plain {k_same}, first "
+        f"difference {k_div}, max |output diff| before it {k_worst:.3e};"
+        f" right program (reordered sums) identical {r_same}, {r_div}, "
+        f"{r_worst:.3e}; limits: gap {MOE_GAP_LIMIT}, output "
+        f"{MOE_OUT_TOL}; smallest gaps over the kernel run: router "
+        f"top-1/top-2 {router_gap:.3e}, output {out_gap:.3e} over "
+        f"{len(kernel_tr.calls)} forwards; graph rounds' ids equal the "
+        f"eager kernel run's {graph_ids == kernel_ids} [{card}]")
+    caught = {}
+    for name, wrap in dict(MOE_PLANTED_FAULTS,
+                           **PLANTED_FAULTS).items():
+        f_ids, f_tr = traced_run(False, wrap)
+        _, f_div, f_worst, f_ok = verdict(f_ids, f_tr)
+        gated = name in MOE_PLANTED_FAULTS
+        if gated:
+            caught[name] = not f_ok
+        log(f"19b gate, planted fault ({name}{'' if gated else ', report'}"
+            f"): first difference {f_div} (max |output diff| before it "
+            f"{f_worst:.3e}); rejected {not f_ok}")
+    if not (k_ok and r_ok and all(caught.values())
+            and graph_ids == kernel_ids):
+        raise SystemExit(
+            f"chip_smoke: phase 19b gate failed: kernel {k_div} (ids "
+            f"identical {k_same}), right program {r_div}, planted faults "
+            f"rejected {caught}, graph ids equal eager "
+            f"{graph_ids == kernel_ids}")
+    del net32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _char_lstm_conf(tbptt: bool):
+    """DL4J's GravesLSTMCharModellingExample (2 x GravesLSTM(200), tanh,
+    softmax/MCXENT, RMSProp decay 0.95, l2 1e-3, Xavier, TBPTT 50) over
+    the Markov vocab, at lr 0.002: the example's 0.1 moves every weight
+    by ~0.45 on RMSProp's first step (lr / sqrt(1 - decay)) and the
+    Markov losses climb past 20 within 3 windows."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        NeuralNetConfiguration,
+        Updater,
+    )
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.enums import (
+        BackpropType,
+        WeightInit,
+    )
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+
+    b = (NeuralNetConfiguration.Builder().seed(12345).learning_rate(0.002)
+         .rms_decay(0.95).regularization(True).l2(0.001)
+         .weight_init(WeightInit.XAVIER).updater(Updater.RMSPROP).list()
+         .layer(0, L.GravesLSTM(n_in=TRAIN_VOCAB, n_out=LSTM_HIDDEN,
+                                activation="tanh"))
+         .layer(1, L.GravesLSTM(n_in=LSTM_HIDDEN, n_out=LSTM_HIDDEN,
+                                activation="tanh"))
+         .layer(2, L.RnnOutputLayer(n_in=LSTM_HIDDEN, n_out=TRAIN_VOCAB,
+                                    activation="softmax",
+                                    loss_function=LossFunction.MCXENT)))
+    if tbptt:
+        b = (b.backprop_type(BackpropType.TRUNCATED_BPTT)
+             .t_bptt_forward_length(LSTM_TBPTT)
+             .t_bptt_backward_length(LSTM_TBPTT))
+    return b.build()
+
+
+class _WindowClock:
+    """Per truncated-BPTT window: the score (a host read, so a sync)
+    and the seconds since the last window."""
+
+    invoked_every = 1
+
+    def __init__(self):
+        self.scores, self.secs = [], []
+        self._t = time.perf_counter()
+
+    def iteration_done(self, model, iteration):
+        self.scores.append(float(model.score_value))
+        now = time.perf_counter()
+        self.secs.append(now - self._t)
+        self._t = now
+
+
+def lstm_phase(card: str) -> None:
+    """19c: the char-modelling LSTM at its published widths on Markov
+    sequences of 1000 (64 tokens, minibatch 32): one batch of
+    truncated-BPTT windows of 50 on the card and, from a zip the card
+    net wrote, on the CPU: per-window losses within 5e-3 relative and
+    falling; ``rnn_time_step`` over 64 tokens equals the full forward
+    within 1e-4; the full-BPTT net's ``fit_scan`` (T=50, 2 steps a
+    window) through ``training_scan_check``."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.markov import markov_lm_batches
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model,
+        write_model,
+    )
+
+    feats, labels, floor = markov_lm_batches(TRAIN_VOCAB, LSTM_BATCH,
+                                             LSTM_T, seed=0, sample_seed=3)
+    net = MultiLayerNetwork(_char_lstm_conf(True), device=DEVICE).init()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "lstm.zip")
+        write_model(net, path)
+        cpu = restore_model(path, device="cpu")
+    card_clock, cpu_clock = _WindowClock(), _WindowClock()
+    net.set_listeners(card_clock)
+    cpu.set_listeners(cpu_clock)
+    net.fit(DataSet(feats, labels))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # many tiny ops: threads only contend
+    try:
+        cpu.fit(DataSet(feats, labels))
+    finally:
+        torch.set_num_threads(threads)
+    a, b = card_clock.scores, cpu_clock.scores
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    falls = float(np.mean(a[-4:])) < float(np.mean(a[:4]))
+    secs = card_clock.secs[1:]
+    log(f"19c: GravesLSTM x 2 ({LSTM_HIDDEN}), TBPTT {LSTM_TBPTT} over T="
+        f"{LSTM_T}, batch {LSTM_BATCH}: {len(a)} windows; card losses "
+        f"{[round(x, 4) for x in a]} (entropy floor {floor:.4f}); max rel "
+        f"diff to the CPU {rel:.3e} (tol {LSTM_RTOL}); falling {falls}; "
+        f"{float(np.median(secs)):.4f} s a window on the card (median, "
+        f"eager; first {card_clock.secs[0]:.3f} s), CPU "
+        f"{float(np.median(cpu_clock.secs)):.4f} s [{card}]")
+    if (len(a) != len(b) or len(a) < 8 or not rel <= LSTM_RTOL
+            or not falls):
+        raise SystemExit(f"chip_smoke: phase 19c TBPTT failed: {len(a)} / "
+                         f"{len(b)} windows, rel {rel}, falling {falls}")
+    x = torch.as_tensor(feats[:4, :, :LSTM_STREAM], device=DEVICE)
+    full = net.output(x)
+    net.rnn_clear_previous_state()
+    steps = [net.rnn_time_step(x[:, :, t]) for t in range(LSTM_STREAM)]
+    err = float((torch.cat(steps, dim=2) - full).abs().max())
+    log(f"19c: rnn_time_step over {LSTM_STREAM} tokens against the full "
+        f"forward: max |diff| {err:.3e} (tol {LSTM_STREAM_ATOL}) [{card}]")
+    if not err <= LSTM_STREAM_ATOL:
+        raise SystemExit(f"chip_smoke: phase 19c rnn_time_step off by "
+                         f"{err}")
+    def full_bptt_twin():
+        twin = MultiLayerNetwork(_char_lstm_conf(False),
+                                 device=DEVICE).init()
+        for key, p in net.param_table().items():
+            twin.set_param(key, p)
+        return twin
+
+    windows = [(feats[:, :, i:i + LSTM_TBPTT], labels[:, :, i:i + LSTM_TBPTT])
+               for i in (0, LSTM_TBPTT)]
+    training_scan_check(card, f"19c (full BPTT, T={LSTM_TBPTT})",
+                        full_bptt_twin, windows, 0)
+
+
+def dbn_phase(card: str) -> None:
+    """19d: bench.py's DBN row: ``dbn(lr=0.05, updater=NESTEROVS)``,
+    784-500-250-10, CD-1, 8192 synthetic MNIST in batches of 1024; 2
+    warm-up pretrain passes, then 9 windows of 3 pretrain epochs
+    (epochs/s, the median of the 5 middle windows, as bench.py), 40
+    finetune epochs, and the accuracy on 2048 test images against
+    bench.py's 0.97 gate."""
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
+    from deeplearning4j_tpu_torch.models.zoo import dbn
+    from deeplearning4j_tpu_torch.nn.conf import Updater
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    batches = mnist_dataset(train=True, num_examples=DBN_N).batch_by(
+        DBN_BATCH)
+    net = MultiLayerNetwork(dbn(lr=0.05, updater=Updater.NESTEROVS),
+                            device=DEVICE).init()
+    for _ in range(DBN_WARM):
+        net.pretrain(ListDataSetIterator(batches))
+    rates = []
+    for _ in range(DBN_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DBN_EPOCHS):
+            net.pretrain(ListDataSetIterator(batches))
+        torch.cuda.synchronize()
+        rates.append(DBN_EPOCHS / (time.perf_counter() - t0))
+    trimmed = sorted(rates)[2:-2] or rates
+    t0 = time.perf_counter()
+    for _ in range(DBN_FINETUNE):
+        for b in batches:
+            net.fit(b)
+    torch.cuda.synchronize()
+    fine_s = time.perf_counter() - t0
+    test = mnist_dataset(train=False, num_examples=DBN_TEST_N)
+    acc = float(net.evaluate(test.batch_by(1024)).accuracy())
+    log(f"19d: DBN 784-500-250-10, CD-1, {DBN_N} examples in batches of "
+        f"{DBN_BATCH}: {float(np.median(trimmed)):.3f} pretrain epochs/s "
+        f"(median of {len(trimmed)} middle {DBN_EPOCHS}-epoch windows; all "
+        f"{[round(r, 3) for r in rates]}); {DBN_FINETUNE} finetune epochs "
+        f"in {fine_s:.2f} s; accuracy {acc:.4f} on {DBN_TEST_N} test "
+        f"images (gate {ACCURACY_GATE}) [{card}]")
+    if not acc >= ACCURACY_GATE:
+        raise SystemExit(f"chip_smoke: phase 19d DBN accuracy {acc}")
+
+
+def rest_of_layers_phase(card: str) -> dict:
+    """Phase 19: 19a-19d; returns K1's and K2's launches on its main
+    paths by kernel-line name."""
+    t0 = time.perf_counter()
+    launches = moe_training_phase(card)
+    launches["paged_attention"] = moe_serving_phase(card)
+    lstm_phase(card)
+    dbn_phase(card)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -6013,6 +6690,8 @@ def main() -> int:
     launches["conv_taps_f32"] = lenet_phase(card, k3_ms["conv_taps_f32"],
                                             "float32")
     lenet_parity_phase(card)
+    for name, n in rest_of_layers_phase(card).items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(card)

@@ -19,7 +19,8 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration,
 )
-# importing the layer registry registers the attention beans with serde
+# importing the layer registry registers the attention and MoE beans
+# with serde
 from deeplearning4j_tpu_torch.nn.layers import get_impl  # noqa: F401
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.util.model_serializer import (

@@ -1,8 +1,10 @@
-"""Model zoo: the MLP, LeNet-5 and transformer LM builders.
+"""Model zoo: the MLP, LeNet-5, recurrent, transformer, mixture-of-
+experts and DBN builders.
 
-Port of ``mlp``, ``lenet5``, ``transformer_lm`` and
-``transformer_lm_flagship`` from ``deeplearning4j_tpu/models/zoo.py``:
-the same builders, producing the same conf JSON.
+Port of ``mlp``, ``lenet5``, ``image_captioner``, ``lstm_classifier``,
+``transformer_lm``, ``transformer_lm_flagship``, ``moe_transformer_lm``
+and ``dbn`` from ``deeplearning4j_tpu/models/zoo.py``: the same
+builders, producing the same conf JSON.
 """
 
 from __future__ import annotations
@@ -111,6 +113,65 @@ def lenet5(
     )
 
 
+def image_captioner(
+    embed_dim: int = 32,
+    n_hidden: int = 32,
+    vocab: int = 64,
+    lr: float = 1e-2,
+    seed: int = 12345,
+):
+    """Karpathy-style captioning stack on ImageLSTM: input [N, embed_dim,
+    1+T] whose step 0 is the image embedding and steps 1.. are word
+    embeddings; the ImageLSTM decodes the word steps to vocab logits
+    [N, vocab, T], which the RnnOutputLayer turns into per-step softmax
+    + MCXENT against next-word labels [N, vocab, T]."""
+    return (
+        NeuralNetConfiguration.Builder()
+        .seed(seed)
+        .learning_rate(lr)
+        .updater(Updater.ADAM)
+        .weight_init(WeightInit.XAVIER)
+        .list()
+        .layer(0, L.ImageLSTM(n_in=embed_dim, n_out=vocab,
+                              n_hidden=n_hidden, activation="tanh"))
+        .layer(
+            1,
+            L.RnnOutputLayer(
+                n_in=vocab, n_out=vocab, activation="softmax",
+                loss_function=LossFunction.MCXENT,
+            ),
+        )
+        .build()
+    )
+
+
+def lstm_classifier(
+    n_in: int,
+    n_hidden: int,
+    n_classes: int,
+    lr: float = 0.05,
+    seed: int = 12345,
+):
+    """Sequence classifier: GravesLSTM -> RnnOutputLayer."""
+    return (
+        NeuralNetConfiguration.Builder()
+        .seed(seed)
+        .learning_rate(lr)
+        .updater(Updater.ADAM)
+        .activation("tanh")
+        .list()
+        .layer(0, L.GravesLSTM(n_in=n_in, n_out=n_hidden))
+        .layer(
+            1,
+            L.RnnOutputLayer(
+                n_in=n_hidden, n_out=n_classes, activation="softmax",
+                loss_function=LossFunction.MCXENT,
+            ),
+        )
+        .build()
+    )
+
+
 def transformer_lm(
     n_in: int = 64,
     width: int = 128,
@@ -211,3 +272,110 @@ def transformer_lm_flagship(
         ),
     )
     return b.remat(remat).build()
+
+
+def moe_transformer_lm(
+    n_in: int = 64,
+    width: int = 128,
+    n_blocks: int = 2,
+    n_heads: int = 4,
+    n_classes: int = 64,
+    n_experts: int = 8,
+    n_hidden: int = 0,
+    capacity_factor: float = 1.25,
+    top_k: int = 1,
+    lr: float = 1e-3,
+    seed: int = 12345,
+    ring_axis=None,
+    ep_axis=None,
+    remat: bool = False,
+):
+    """Mixture-of-experts transformer: each block is causal multi-head
+    self-attention followed by a residual capacity-routed MoE FFN
+    (``nn/layers/moe.py``). ``ep_axis`` and ``ring_axis`` are carried in
+    the conf (expert and sequence parallelism over a mesh are not ported
+    yet)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        MultiHeadSelfAttention,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.moe import MoeDense
+
+    b = (
+        NeuralNetConfiguration.Builder()
+        .seed(seed)
+        .learning_rate(lr)
+        .updater(Updater.ADAM)
+        .activation("identity")
+        .weight_init(WeightInit.XAVIER)
+        .list()
+    )
+    li = 0
+    for blk in range(n_blocks):
+        b.layer(
+            li,
+            MultiHeadSelfAttention(
+                n_in=n_in if blk == 0 else width,
+                n_out=width,
+                n_heads=n_heads,
+                causal=True,
+                ring_axis=ring_axis,
+            ),
+        )
+        li += 1
+        b.layer(
+            li,
+            MoeDense(
+                n_in=width, n_out=width,
+                n_experts=n_experts, n_hidden=n_hidden,
+                capacity_factor=capacity_factor, top_k=top_k,
+                ep_axis=ep_axis,
+            ),
+        )
+        li += 1
+    b.layer(
+        li,
+        L.RnnOutputLayer(
+            n_in=width, n_out=n_classes, activation="softmax",
+            loss_function=LossFunction.MCXENT,
+        ),
+    )
+    return b.remat(remat).build()
+
+
+def dbn(
+    sizes: Sequence[int] = (784, 500, 250, 10),
+    lr: float = 0.05,
+    seed: int = 12345,
+    updater: Updater = Updater.SGD,
+    momentum: float = 0.9,
+):
+    """DBN: stacked binary RBMs and a softmax output, pretrain then
+    finetune (reference MultiLayerNetwork.pretrain :150). ``momentum``
+    takes effect only with ``updater=Updater.NESTEROVS``."""
+    b = (
+        NeuralNetConfiguration.Builder()
+        .seed(seed)
+        .learning_rate(lr)
+        .updater(updater)
+        .momentum(momentum)
+        .activation("sigmoid")
+        .list()
+    )
+    for i in range(len(sizes) - 2):
+        b.layer(
+            i,
+            L.RBM(
+                n_in=sizes[i], n_out=sizes[i + 1],
+                hidden_unit=L.HiddenUnit.BINARY,
+                visible_unit=L.VisibleUnit.BINARY,
+                loss_function=LossFunction.RECONSTRUCTION_CROSSENTROPY,
+            ),
+        )
+    b.layer(
+        len(sizes) - 2,
+        L.OutputLayer(
+            n_in=sizes[-2], n_out=sizes[-1], activation="softmax",
+            loss_function=LossFunction.MCXENT,
+        ),
+    )
+    return b.pretrain(True).backprop(True).build()

@@ -7,10 +7,11 @@ updater state), the mixed-precision forward ``_forward_fn`` (with
 ``fit`` (a ``DataSet``, features and labels, or an iterator of
 ``DataSet``), ``fit_scan`` (K steps over stacked batches, replayed on
 the card from one captured CUDA graph of the train step), ``score``
-and ``compute_gradient_and_score``, and streaming: ``rnn_time_step``,
-``rnn_clear_previous_state`` and ``generate``, whose decode scan runs on
-the card as one captured CUDA graph per pow2 bucket
-(``nn/cuda_graphs.py``).
+and ``compute_gradient_and_score``, truncated BPTT (``_fit_tbptt``)
+and greedy layer-wise ``pretrain`` (``optimize/pretrainer.py``), and
+streaming: ``rnn_time_step``, ``rnn_clear_previous_state`` and
+``generate``, whose decode scan runs on the card as one captured CUDA
+graph per pow2 bucket (``nn/cuda_graphs.py``).
 Parameters are plain ``{layer_index: {name: Tensor}}`` dicts with the
 JAX package's keys, on the net's ``device``.
 
@@ -20,7 +21,10 @@ autograd every step, so gradients land in f32 as through JAX's cast
 transpose), ``torch.autograd.grad``, then per layer normalize -> updater
 -> ``params - updates`` (new tensors, as JAX returns new arrays), and
 the step's gradient-health scalars (``optimize/telemetry.py:
-grad_health``). Every parameter write bumps ``params_version``.
+grad_health``). The loss adds each layer's l1/l2 penalty and the
+auxiliary losses layers emit through the state channel (``MoeDense``'s
+load-balancing loss, ``_aux_score``). Every parameter write bumps
+``params_version``.
 
 Dropout in ``fit`` draws from one ``torch.Generator`` per layer per
 step, seeded from the net's host generator (JAX splits one key per
@@ -29,8 +33,9 @@ the net's device, which its captured graph registers. With dropout 0
 (the flagship) trajectories match the JAX package; with dropout they
 match only in distribution.
 
-Still out of this slice: truncated BPTT, the second-order ``Solver``,
-``fit_stream`` and ``pretrain``.
+Truncated BPTT runs each window's step eagerly, the carried recurrent
+state detached between windows. Still out of the port: the second-order
+``Solver`` (ROADMAP Queue 1 item 9b) and ``fit_stream``.
 """
 
 from __future__ import annotations
@@ -95,15 +100,11 @@ def _cast_floating(a, dtype):
 
 
 def _cast_tree(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
-    return _cast_floating(tree, dtype)
+    return tree_map(lambda a: _cast_floating(a, dtype), tree)
 
 
 def _detach_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _detach_tree(v) for k, v in tree.items()}
-    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+    return tree_map(torch.Tensor.detach, tree)
 
 
 def _layer_generator(seed: Optional[int], device):
@@ -115,9 +116,9 @@ def _layer_generator(seed: Optional[int], device):
     return gen
 
 
-#: the weights l1/l2 apply to; the recurrent ones (RW, W_bwd, RW_bwd)
-#: join with the recurrent layers that carry them
-_REGULARIZED_KEYS = ("W",)
+#: the weights l1/l2 apply to (the LSTMs' recurrent and backward ones
+#: too)
+_REGULARIZED_KEYS = ("W", "RW", "W_bwd", "RW_bwd")
 
 
 def layer_reg_score(c, layer_params):
@@ -203,6 +204,9 @@ class MultiLayerNetwork:
         #: ``fit_scan``'s per-layer dropout generators on the device,
         #: made at its first call
         self._scan_gens: Optional[List[torch.Generator]] = None
+        #: the draws of ``pretrain`` (RBM CD-k, autoencoder corruption),
+        #: made at its first call
+        self._pretrain_gen: Optional[torch.Generator] = None
 
     def init(self) -> "MultiLayerNetwork":
         """Draw every layer's parameters from one ``torch.Generator`` on
@@ -347,9 +351,13 @@ class MultiLayerNetwork:
         return (acts if collect else x), new_state, new_rnn
 
     def _loss_fn(self, params, state, rng, features, labels, feature_mask,
-                 label_mask):
-        out, new_state, _ = self._forward_fn(params, state, features, rng,
-                                             True, feature_mask)
+                 label_mask, rnn_state=None):
+        """(score, new_state, new_rnn_state) of the training forward from
+        the carried recurrent state ``rnn_state`` (None: each layer's
+        initial carry)."""
+        out, new_state, new_rnn = self._forward_fn(
+            params, state, features, rng, True, feature_mask,
+            rnn_state=rnn_state)
         impl = self._impls[-1]
         if not hasattr(impl, "loss"):
             raise ValueError(
@@ -358,7 +366,8 @@ class MultiLayerNetwork:
             out = _cast_floating(out, self._dtype)  # loss in f32
         score = impl.loss(self.conf.confs[-1], out, labels, label_mask)
         score = score + self._reg_score(params)
-        return score, new_state
+        score = score + self._aux_score(new_state)
+        return score, new_state, new_rnn
 
     def _reg_score(self, params):
         reg = 0.0
@@ -366,22 +375,44 @@ class MultiLayerNetwork:
             reg = reg + layer_reg_score(c, params[str(i)])
         return reg
 
+    def _aux_score(self, new_state):
+        """The auxiliary training losses layers emit through the state
+        channel (``MoeDense``'s load-balancing loss), each weighted by
+        its conf's ``aux_weight``."""
+        aux = 0.0
+        for i, c in enumerate(self.conf.confs):
+            w = getattr(c.layer, "aux_weight", None)
+            st = new_state.get(str(i)) if new_state else None
+            if w and st and "aux_loss" in st:
+                aux = aux + w * st["aux_loss"]
+        return aux
+
     # ------------------------------------------------------------------
     # The train step
     # ------------------------------------------------------------------
     def _value_and_grad(self, params, state, rng, features, labels,
                         feature_mask, label_mask):
-        """(score, grads, new_state): the loss under autograd at
-        requires-grad aliases of ``params`` (no copy), differentiated
-        with ``torch.autograd.grad``; a param the loss does not reach
-        gets a zero gradient."""
+        """(score, grads, new_state) of the loss from each layer's
+        initial carry (:meth:`_grads`)."""
+        score, grads, new_state, _ = self._grads(
+            params, state, rng, features, labels, feature_mask, label_mask)
+        return score, grads, new_state
+
+    def _grads(self, params, state, rng, features, labels, feature_mask,
+               label_mask, rnn_state=None):
+        """(score, grads, new_state, new_rnn_state): the loss under
+        autograd at requires-grad aliases of ``params`` (no copy),
+        differentiated with ``torch.autograd.grad``; a param the loss
+        does not reach gets a zero gradient. The states come out
+        detached: a carried recurrent state passes no gradient into the
+        next truncated-BPTT window."""
         leaves = {si: {k: p.detach().requires_grad_(True)
                        for k, p in sub.items()}
                   for si, sub in params.items()}
         with torch.enable_grad():
-            score, new_state = self._loss_fn(leaves, state, rng, features,
-                                             labels, feature_mask,
-                                             label_mask)
+            score, new_state, new_rnn = self._loss_fn(
+                leaves, state, rng, features, labels, feature_mask,
+                label_mask, rnn_state)
             flat = [p for sub in leaves.values() for p in sub.values()]
             gflat = torch.autograd.grad(score, flat, allow_unused=True)
         it = iter(gflat)
@@ -391,7 +422,8 @@ class MultiLayerNetwork:
             for k, p in sub.items():
                 g = next(it)
                 grads[si][k] = torch.zeros_like(p) if g is None else g
-        return score.detach(), grads, _detach_tree(new_state)
+        return (score.detach(), grads, _detach_tree(new_state),
+                _detach_tree(new_rnn))
 
     def _apply_updates(self, params, upd_state, grads, iteration,
                        grad_scale=1.0, scalars=None):
@@ -430,15 +462,12 @@ class MultiLayerNetwork:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _check_sgd(self, what: str) -> None:
-        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
-            raise NotImplementedError(
-                f"{what}: truncated BPTT (_fit_tbptt) is not ported to the "
-                "torch package yet; use backprop_type STANDARD")
         algo = self.conf.confs[0].optimization_algo
         if algo != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
             raise NotImplementedError(
                 f"{what}: {algo} needs the second-order Solver, which is "
-                "not ported to the torch package yet; use SGD")
+                "not ported to the torch package yet (ROADMAP Queue 1 item "
+                "9b); use SGD")
 
     # ------------------------------------------------------------------
     # Public training API
@@ -455,8 +484,8 @@ class MultiLayerNetwork:
             self._fit_batch(data)
         else:
             if self.conf.pretrain:
-                raise NotImplementedError(
-                    "pretrain is not ported to the torch package yet")
+                self.pretrain(data)
+                data.reset()
             if self.conf.backprop:
                 it = iter(data)
                 while True:
@@ -470,6 +499,9 @@ class MultiLayerNetwork:
 
     def _fit_batch(self, ds) -> None:
         self._check_sgd("fit")
+        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
+            self._fit_tbptt(ds)
+            return
         n_iter = max(1, self.conf.confs[0].num_iterations)
         feats = self._tensor(ds.features, self._dtype)
         labels = self._tensor(ds.labels, self._dtype)
@@ -492,6 +524,69 @@ class MultiLayerNetwork:
                 if listener.invoked_every <= 1 or (
                         self.iteration % listener.invoked_every == 0):
                     listener.iteration_done(self, self.iteration)
+
+    def _fit_tbptt(self, ds) -> None:
+        """Truncated BPTT (reference doTruncatedBPTT :1262-1320): the
+        time axis in windows of ``tbptt_fwd_length``, one train step a
+        window, the recurrent state carried from window to window
+        detached (no gradient crosses a window's start). Each window's
+        step runs eagerly."""
+        length = self.conf.tbptt_fwd_length
+        feats = self._tensor(ds.features, self._dtype)
+        labels = self._tensor(ds.labels, self._dtype)
+        fm = self._tensor(ds.features_mask)
+        lm = self._tensor(ds.labels_mask)
+        rnn_state = None
+        for start in range(0, feats.shape[2], length):
+            end = min(start + length, feats.shape[2])
+            fw, lw = feats[:, :, start:end], labels[:, :, start:end]
+            fmw = None if fm is None else fm[:, start:end]
+            lmw = None if lm is None else lm[:, start:end]
+            t0 = time.perf_counter()
+            (self.params, self.state, self.updater_state, rnn_state,
+             score, health) = self._tbptt_step(
+                self.params, self.state, self.updater_state,
+                self.iteration, self._gen, fw, lw, fmw, lmw, rnn_state)
+            self.params_version += 1
+            self.train_telemetry.record_step(
+                dispatch_s=time.perf_counter() - t0,
+                examples=int(fw.shape[0]),
+                tokens=int(fw.shape[0]) * int(fw.shape[2]), health=health)
+            self.score_value = score
+            self.iteration += 1
+            for listener in self.listeners:
+                listener.iteration_done(self, self.iteration)
+
+    def _tbptt_step(self, params, state, upd_state, iteration, rng, f, y,
+                    fm, lm, rnn_state):
+        """One window: (new_params, new_state, new_upd_state,
+        new_rnn_state, score, health)."""
+        score, grads, new_state, new_rnn = self._grads(
+            params, state, rng, f, y, fm, lm, rnn_state)
+        new_params, new_upd = self._apply_updates(params, upd_state, grads,
+                                                  iteration)
+        with torch.no_grad():
+            health = grad_health(grads, params, new_params)
+        return new_params, new_state, new_upd, new_rnn, score, health
+
+    def pretrain(self, data_iter) -> None:
+        """Greedy layer-wise pretraining of the RBM / autoencoder layers
+        (reference pretrain :150; ``optimize/pretrainer.py``)."""
+        self.init()
+        from deeplearning4j_tpu_torch.optimize.pretrainer import (
+            pretrain_network,
+        )
+
+        pretrain_network(self, data_iter)
+
+    def _pretrain_generator(self) -> torch.Generator:
+        """The generator of pretraining's draws, on the net's device,
+        seeded once from the net's host generator."""
+        if self._pretrain_gen is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=self._gen))
+            self._pretrain_gen = _layer_generator(seed, self.device)
+        return self._pretrain_gen
 
     def fit_scan(self, features_stacked, labels_stacked,
                  features_mask_stacked=None, labels_mask_stacked=None,
@@ -516,6 +611,10 @@ class MultiLayerNetwork:
         eagerly. A graph holds the conf as it was captured: after
         changing a conf bean, ``train_graphs.drop()``."""
         self._check_sgd("fit_scan")
+        if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
+            raise ValueError(
+                "fit_scan is the full-BPTT SGD fast path; truncated-BPTT "
+                "configs train through fit()")
         self.init()
         feats = self._tensor(features_stacked, self._dtype)
         labels = self._tensor(labels_stacked, self._dtype)
@@ -730,11 +829,12 @@ class MultiLayerNetwork:
 
     def rnn_time_step(self, x) -> torch.Tensor:
         """Stateful single/multi-step inference carrying the attention
-        KV caches between calls (reference rnnTimeStep). ``x`` is [N, C]
-        (one step) or [N, C, T]; returns the output [N, n_out, T]. A
-        first call prefills (K1 for an unmasked T >= ``FLASH_MIN_T`` on
-        the card); later calls continue through
-        ``AttentionImpl._stream_attend``."""
+        KV caches and the recurrent layers' ``(h, c)`` / ``h`` between
+        calls (reference rnnTimeStep). ``x`` is [N, C] (one step) or
+        [N, C, T]; returns the output [N, n_out, T]. A first call
+        prefills (K1 for an unmasked T >= ``FLASH_MIN_T`` on the card);
+        later calls continue through ``AttentionImpl._stream_attend``
+        and from each recurrent layer's carry."""
         self.init()
         guard_streamable(
             (str(i), c.layer) for i, c in enumerate(self.conf.confs))
@@ -749,7 +849,8 @@ class MultiLayerNetwork:
         """Reset streaming state (reference rnnClearPreviousState).
         ``slots=None`` wipes the whole batch; ``slots=[...]`` zeroes only
         those batch rows, in place (``nn/streaming.py``: a zeroed
-        attention row is the empty-cache state)."""
+        attention row is the empty-cache state, a zeroed recurrent row
+        the initial carry)."""
         self._rnn_state = reset_streaming_state(self._rnn_state, slots)
 
     def generate(self, prompt, n_tokens: int) -> torch.Tensor:

@@ -6,14 +6,16 @@ network-level rnn-state APIs (``MultiLayerNetwork.rnn_time_step``,
 engine (``serving/engine.py``).
 
 CONTRACT: streaming state is batch-major. Every tensor leaf of an
-rnn-state tree (attention ``k``/``v``/``filled``) has the batch
-dimension on axis 0, one row per batch element. The serving engine
+rnn-state tree (attention ``k``/``v``/``filled``, a recurrent layer's
+carried ``(h, c)`` or ``h``) has the batch dimension on axis 0, one row
+per batch element. The serving engine
 treats those rows as KV-cache *slots*; :func:`clear_state_rows` relies
 on the contract to reset single slots without touching their
 neighbours. A zeroed attention row is exactly the empty-cache state
 (``filled == 0`` masks every cached position in
-``AttentionImpl._stream_attend``), so a cleared slot streams as if
-freshly created.
+``AttentionImpl._stream_attend``) and a zeroed recurrent row is the
+layer's initial carry, so a cleared slot streams as if freshly
+created.
 
 Unlike the JAX package, :func:`clear_state_rows` zeroes the rows IN
 PLACE (the serving engine's slot pool is the static input of its
@@ -43,20 +45,26 @@ def scan_length_bucket(n: int, minimum: int = 8) -> int:
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the tensor leaves of nested dicts (with the matching
-    leaves of ``rest``); anything else passes through unchanged."""
+    """``fn`` over the tensor leaves of nested dicts and tuples (with the
+    matching leaves of ``rest``); anything else passes through
+    unchanged."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     return tree
 
 
 def tree_leaves(tree: Any) -> list:
-    """The tensor leaves of nested dicts, in key order."""
+    """The tensor leaves of nested dicts and tuples, in key order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 

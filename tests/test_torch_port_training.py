@@ -534,12 +534,18 @@ def test_output_after_fit_uses_updated_bf16_weights(tmp_path):
 
 
 def test_unported_training_paths_raise(tmp_path):
+    """Truncated BPTT trains through ``fit`` (its windows are
+    ``tests/test_torch_port_recurrent.py``'s) and ``fit_scan`` refuses
+    it, as JAX's does; the second-order solvers still raise, naming
+    their ROADMAP item."""
     _, net = _pair(tmp_path, **SMALL)
     f, y = _markov(16, 2, 16)
     net.conf.backprop_type = BackpropType.TRUNCATED_BPTT
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        net.fit(f, y)
+    with pytest.raises(ValueError, match="truncated-BPTT"):
+        net.fit_scan(f[None], y[None])
     net.conf.backprop_type = BackpropType.STANDARD
     net.conf.confs[0].optimization_algo = OptimizationAlgorithm.LBFGS
     with pytest.raises(NotImplementedError, match="Solver"):
         net.fit_scan(f[None], y[None])
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        net.fit(f, y)
