@@ -321,6 +321,36 @@ JAX or of the JAX package. Phases, each fatal on failure:
    batches of 1024): pretrain epochs/s over 3-epoch windows, 40
    finetune epochs, accuracy on 2048 test images against 0.97. The
    phase prints its seconds.
+20. ComputationGraph — (a) a DAG LM of the flagship's layers as graph
+   vertices (vocab 64, width 1024, 8 causal ``TransformerBlock``
+   vertices of 8 heads, block 4's and block 8's outputs meeting in an
+   ``ElementWiseVertex(add)`` before the LayerNorm, ``RnnOutputLayer``,
+   Adam with warmup_cosine, random weights from a seed) on K1 and on
+   dense attention from the same params, 4 ``fit`` steps each at B=2,
+   T=2048 on the Markov task, f32 and bf16: losses agree (5e-3 / 2e-2
+   relative; at f32 the params too), K1 launched 8 times a step forward
+   and backward from the graph's vertex loop; tokens/s, s/step, peak
+   memory; ``training_scan_check`` (captured ``fit_scan`` windows
+   bit-identical to the eager loop); the chain twin (no add vertex)
+   from the flagship MLN's params: output and one ``fit`` step
+   bit-identical to the MLN's, or within 1e-6 relative with the
+   difference printed. (b) The DAG LM at bf16 served by the paged
+   engine at phase 6's knobs, the decode round one captured graph:
+   every request finishes, K2 launched 8 times a decode step; tokens/s
+   against eager rounds; the f32 gate as phase 6 holds it (kernel ids
+   identical to the plain-gather engine's, the reordered-sums program
+   passing, the two planted faults rejected); the f32 net written to
+   one graph zip, restored with ``restore_model`` and served: ids
+   identical to the in-process engine's. (c) The zoo's ``mlp`` over
+   1024 synthetic MNIST examples from one zip: 10 iterations each of
+   LBFGS, ConjugateGradient and LineGradientDescent on the card and on
+   the CPU, scores within 1e-3 relative and falling; HF's
+   Hessian-vector product on a small attention net (dense attention)
+   against a central difference of gradients; a double backward
+   through K1, and HF over K1, raise; an ``EarlyStoppingTrainer`` with a
+   ``LocalFileModelSaver`` and a ``CheckpointManager`` (the last 2 plus
+   the best): the best model restores with its score, the manager's
+   best step with outputs equal to it. The phase prints its seconds.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -336,7 +366,8 @@ chunks, ``paged_attention_verify`` (K2 at t=33) from phase
 14's paged timed rounds (phases 15, 17 and 18 add none: 15's and
 17's K2 launches are gated in the phase, 18's are its children's;
 phase 19 adds 19a's K1 launches, fit and the counted ``fit_scan``
-window, at f32 and bf16, and 19b's K2 launches on its bf16 graph run);
+window, at f32 and bf16, and 19b's K2 launches on its bf16 graph run,
+and phase 20 likewise 20a's and 20b's);
 K3's ``conv_taps`` and ``conv_taps_f32`` with
 their launches from phases 10 and 11; every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
@@ -2170,11 +2201,14 @@ def first_divergence(a, b):
 def logprob_gap(net, prompt, shared, tok_a: int, tok_b: int) -> float:
     """log p(tok_a) - log p(tok_b) for the token after ``prompt`` +
     ``shared``, from ``net.output`` (a full forward, no cache) of an
-    LM-shaped net with one-hot input. Near 0 means a near-tie."""
+    LM-shaped net (an MLN or a graph) with one-hot input. Near 0 means a
+    near-tie."""
     ids = torch.as_tensor(list(prompt) + list(shared), dtype=torch.long)
-    vocab = net.conf.confs[0].layer.n_in
+    graph = hasattr(net, "lm_shape")      # a ComputationGraph
+    vocab = net.lm_shape()[2] if graph else net.conf.confs[0].layer.n_in
     x = torch.nn.functional.one_hot(ids, vocab).T[None].float()
-    probs = net.output(x)[0, :, -1].double()
+    out = net.output(x)
+    probs = (out[0] if graph else out)[0, :, -1].double()
     return float(torch.log(probs[tok_a]) - torch.log(probs[tok_b]))
 
 
@@ -6653,6 +6687,521 @@ def rest_of_layers_phase(card: str) -> dict:
     return launches
 
 
+# phase 20: ComputationGraph end to end. The DAG LM is the flagship's
+# layers as graph vertices ("block0".."block7", "ln", "out"), with
+# block 4's and block 8's outputs meeting in an add vertex before the
+# LayerNorm.
+DAG_SKIP = ("block3", "block7")
+DAG_STEPS = 4
+# the chain twin (no add vertex) against the flagship MLN from the same
+# params, on the card: bit-identical, or at most this far apart
+# (relative) with the difference printed
+TWIN_RTOL = 1e-6
+# 20c: the solvers card against CPU (f32 sums in another order on
+# another device, over 10 line-searched iterations), the examples of
+# synthetic MNIST they see, and the HF product's limit against its
+# central difference (relative to max |Hv|; f32 gradients differenced
+# at a step of 1e-2 along a unit vector)
+SOLVER_ITERS = 10
+SOLVER_EXAMPLES = 1024
+SOLVER_RTOL = 1e-3
+HVP_FD_EPS = 1e-2
+HVP_FD_TOL = 5e-2
+ES_EPOCHS = 4
+
+
+def _dag_conf(compute_dtype, use_flash, chain=False, window=None,
+              lr=1e-3, warmup_steps=2, total_steps=100):
+    """The DAG LM (``chain``: its twin without the add vertex) with the
+    flagship's global knobs: seed 11, Adam with warmup_cosine, Xavier."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.enums import Updater, WeightInit
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ElementWiseOp,
+        ElementWiseVertex,
+        LayerVertex,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        TransformerBlock,
+    )
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+
+    g = (NeuralNetConfiguration.Builder().seed(11).learning_rate(lr)
+         .lr_policy("warmup_cosine").lr_warmup_steps(warmup_steps)
+         .lr_total_steps(total_steps).updater(Updater.ADAM)
+         .activation("identity").weight_init(WeightInit.XAVIER)
+         .graph_builder().add_inputs("in"))
+    prev = "in"
+    for i in range(N_LAYERS):
+        g.add_layer(f"block{i}", TransformerBlock(
+            n_in=TRAIN_VOCAB if i == 0 else WIDTH, n_out=WIDTH,
+            n_heads=N_HEADS, causal=True), prev)
+        prev = f"block{i}"
+    if not chain:
+        g.add_vertex("skip", ElementWiseVertex(op=ElementWiseOp.ADD),
+                     *DAG_SKIP)
+        prev = "skip"
+    g.add_layer("ln", L.LayerNormalization(n_in=WIDTH, n_out=WIDTH), prev)
+    g.add_layer("out", L.RnnOutputLayer(
+        n_in=WIDTH, n_out=TRAIN_VOCAB, activation="softmax",
+        loss_function=LossFunction.MCXENT), "ln")
+    conf = g.set_outputs("out").build()
+    for v in conf.vertices.values():
+        if not isinstance(v, LayerVertex):
+            continue
+        if compute_dtype != "float32":
+            v.conf.compute_dtype = compute_dtype
+        if hasattr(v.conf.layer, "use_flash"):
+            v.conf.layer.use_flash = use_flash
+        if window is not None and hasattr(v.conf.layer, "stream_max_t"):
+            v.conf.layer.stream_max_t = window
+    return conf
+
+
+def _dag_net(compute_dtype, use_flash, like=None, **kw):
+    """A DAG LM on the card, its params ``like``'s when given."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(_dag_conf(compute_dtype, use_flash, **kw),
+                           device=DEVICE).init()
+    if like is not None:
+        net.set_params_flat(like.params_flat())
+    return net
+
+
+def _twin_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| (0.0 when bit-identical)."""
+    if torch.equal(a, b):
+        return 0.0
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def dag_chain_twin_check(card: str, batch) -> None:
+    """20a's twin: the chain graph (no add vertex) and the flagship MLN
+    from the same params (MLN layer i = vertex ``block<i>``, then "ln",
+    "out"), f32 on K1: the output and one ``fit`` step (score, every
+    param, Adam's state) bit-identical on the card, or within
+    ``TWIN_RTOL`` with the difference printed."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.streaming import tree_leaves, tree_map
+
+    kw = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+    mln = MultiLayerNetwork(_flagship("float32", True, **kw),
+                            device=DEVICE).init()
+    twin = ComputationGraph(_dag_conf("float32", True, chain=True, **kw),
+                            device=DEVICE).init()
+    names = [f"block{i}" for i in range(N_LAYERS)] + ["ln", "out"]
+    twin.params = {name: tree_map(torch.clone, mln.params[str(i)])
+                   for i, name in enumerate(names)}
+    twin.params_version += 1
+    f, y = batch
+    x = torch.as_tensor(f, device=DEVICE)
+    diffs = {"output": _twin_diff(twin.output(x)[0], mln.output(x))}
+    mln.fit(f, y)
+    twin.fit(f, y)
+    diffs["score"] = _twin_diff(twin.score_value.reshape(1),
+                                mln.score_value.reshape(1))
+    for tree in ("params", "updater_state"):
+        pairs = [(a, b) for i, name in enumerate(names) for a, b in zip(
+            tree_leaves(getattr(twin, tree)[name]),
+            tree_leaves(getattr(mln, tree)[str(i)]))]
+        diffs[tree] = max(_twin_diff(a, b) for a, b in pairs)
+    exact = all(d == 0.0 for d in diffs.values())
+    log(f"20a chain twin (f32, K1, B={TRAIN_B}, T={PARITY_T}) against the "
+        f"flagship MLN from the same params: max relative difference "
+        f"{ {k: f'{v:.3e}' for k, v in diffs.items()} }; bit-identical "
+        f"{exact} (limit {TWIN_RTOL}) [{card}]")
+    if not all(d <= TWIN_RTOL for d in diffs.values()):
+        raise SystemExit(f"chip_smoke: 20a chain twin differs from the "
+                         f"MLN: {diffs}")
+    del mln, twin
+    torch.cuda.empty_cache()
+
+
+def dag_training_phase(card: str) -> dict:
+    """20a: the DAG LM from one set of params on K1 and on dense
+    attention, 4 fit steps each at B=2, T=2048 on the Markov task, f32
+    and bf16: losses agree (5e-3 relative at f32, 2e-2 at bf16; at f32
+    the params too), K1 launched once per block per step forward and
+    backward through the graph's vertex loop; tokens/s, s/step, peak
+    memory; then ``training_scan_check`` (captured ``fit_scan`` windows
+    bit-identical to the eager loop) and the chain twin. Returns K1's
+    launches by kernel-line name."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        paged_attention,
+    )
+
+    batches, floor = _markov_batches(DAG_STEPS, PARITY_T, sample_seed=20)
+    launches = {}
+    for cd in ("float32", "bfloat16"):
+        k1 = _dag_net(cd, True)
+        dense = _dag_net(cd, False, like=k1)
+        n_params = k1.num_params()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        paged_attention.launches = 0
+        k_loss, k_wall = _train(k1, batches)
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        peak = torch.cuda.max_memory_allocated()
+        d_loss, d_wall = _train(dense, batches)
+        dense_launches = flash_attention.launches - fwd
+        rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, d_loss))
+        pdiff = float((k1.params_flat() - dense.params_flat()).abs().max())
+        p_tol = PARITY_PARAM_ATOL.get(cd, float("inf"))
+        step_s = float(np.mean(k_wall[1:]))
+        log(f"20a [{cd}]: DAG LM ({N_LAYERS} blocks, {DAG_SKIP[0]} + "
+            f"{DAG_SKIP[1]} -> ln) {n_params / 1e6:.1f} M params, B="
+            f"{TRAIN_B}, T={PARITY_T}; K1 losses "
+            f"{[f'{x:.6f}' for x in k_loss]}, dense "
+            f"{[f'{x:.6f}' for x in d_loss]} (entropy floor {floor:.4f}); "
+            f"max rel diff {rel:.3e} (tol {PARITY_RTOL[cd]}); max |param "
+            f"diff| {pdiff:.3e} (tol {p_tol}); K1 launches fwd {fwd}, bwd "
+            f"{bwd} over {DAG_STEPS} steps; s/step K1 "
+            f"{[round(w, 4) for w in k_wall]} (first warms up), dense "
+            f"{[round(w, 4) for w in d_wall]}; "
+            f"{TRAIN_B * PARITY_T / step_s:.1f} tokens/s over steps 2-"
+            f"{DAG_STEPS}; peak memory {peak / 2**30:.3f} GiB [{card}]")
+        want = N_LAYERS * DAG_STEPS
+        if (not rel <= PARITY_RTOL[cd] or not pdiff <= p_tol
+                or fwd != want or bwd != want
+                or dense_launches != 0 or paged_attention.launches != 0
+                or not all(np.isfinite(k_loss + d_loss))):
+            raise SystemExit(
+                f"chip_smoke: phase 20a [{cd}] failed: rel {rel}, param "
+                f"diff {pdiff}, K1 launches {fwd}/{bwd} (want {want}), "
+                f"dense net's {dense_launches}, paged "
+                f"{paged_attention.launches}")
+        del dense
+        torch.cuda.empty_cache()
+        s_fwd, s_bwd = training_scan_check(
+            card, f"20a [{cd}]", lambda: _dag_net(cd, True, like=k1),
+            batches, N_LAYERS)
+        del k1
+        torch.cuda.empty_cache()
+        name = "flash_attention_f32" if cd == "float32" else (
+            "flash_attention")
+        launches[name] = fwd + s_fwd
+        launches[name + "_bwd"] = bwd + s_bwd
+    dag_chain_twin_check(card, batches[0])
+    return launches
+
+
+def dag_serving_phase(card: str, tmp: str) -> int:
+    """20b: the DAG LM served at bf16 by the paged engine at phase 6's
+    knobs, its decode round one captured graph: every request finishes,
+    K2 launched once per block per decode step; tokens/s against eager
+    rounds. The f32 gate as phase 6 holds it: the kernel engine's greedy
+    ids identical to the plain-gather engine's, the reordered-sums
+    program identical, the planted faults rejected. Then the f32 net
+    through a graph zip (``restore_model``) serves the kernel engine's
+    ids. Returns K2's launches on the bf16 graph run."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.attention import paged_attention
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Request
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model,
+        write_model,
+    )
+
+    net = _dag_net("bfloat16", None, window=WINDOW)
+    geometry = dict(paged_kv=True, block_tokens=BLOCK_TOKENS,
+                    n_slots=N_SLOTS, decode_chunk=DECODE_CHUNK)
+    prompts = serving_prompts(0)
+    eng = DecodeEngine(net, use_flash_paged=True, **geometry)
+    eng.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))   # warm-up
+    eng.run()                    # captures the decode round's graph
+    steps0 = eng.stats["decode_steps"]
+    paged_attention.launches = 0
+    results, wall = serve_ids(eng, prompts)
+    launches = paged_attention.launches
+    steps = eng.stats["decode_steps"] - steps0
+    bad = [(r.id, r.finish_reason, len(r.tokens)) for r in results
+           if r.finish_reason != "length" or len(r.tokens) != N_GEN]
+    counts = eng.compile_counts()
+    rate = N_REQUESTS * N_GEN / wall
+    layers = sorted(eng._pool)
+    eager = DecodeEngine(net, **geometry)
+    eager._graphs = None
+    eager.submit(Request(prompts[0][:16], DECODE_CHUNK + 1))
+    eager.run()
+    eager_res, eager_wall = serve_ids(eager, prompts)
+    eager_rate = N_REQUESTS * N_GEN / eager_wall
+    agree = float(np.mean(agreement([r.tokens for r in results],
+                                    [r.tokens for r in eager_res])))
+    log(f"20b: DAG LM served (bf16, paged, {N_SLOTS} slots, chunk "
+        f"{DECODE_CHUNK}): {N_REQUESTS} x {N_GEN} tokens, graph rounds "
+        f"{rate:.1f} tokens/s against eager rounds {eager_rate:.1f} "
+        f"({rate / eager_rate:.2f}x); {steps} decode steps, {launches} K2 "
+        f"launches; {counts}; pool layers {layers}; graph / eager id "
+        f"agreement {agree:.4f} [{card}]")
+    if (bad or launches != N_LAYERS * steps or launches == 0
+            or counts["decode"] != 1 or eng._graphs.captures != 1):
+        raise SystemExit(
+            f"chip_smoke: phase 20b failed: unfinished {bad}, K2 "
+            f"launches {launches} for {steps} steps x {N_LAYERS} blocks, "
+            f"{counts}")
+    del eng, eager
+    torch.cuda.empty_cache()
+
+    net32 = _dag_net("float32", None, like=net, window=WINDOW)
+    del net
+
+    def free_ids(model, use_flash_paged, wrap=None):
+        with paged_reference_wrapped(wrap):
+            res, _ = serve_ids(DecodeEngine(
+                model, use_flash_paged=use_flash_paged, **geometry),
+                prompts)
+        return [r.tokens for r in res]
+
+    kernel32 = free_ids(net32, True)
+    plain32 = free_ids(net32, False)
+    reord32 = free_ids(net32, False, reordered_sums)
+    identical, right32 = kernel32 == plain32, reord32 == plain32
+    caught = {name: free_ids(net32, False, wrap) != kernel32
+              for name, wrap in PLANTED_FAULTS.items()}
+    log(f"20b gate f32: kernel ids identical to plain {identical} (per "
+        f"request {[round(a, 4) for a in agreement(kernel32, plain32)]});"
+        f" plain with reordered sums identical {right32}; planted faults "
+        f"rejected {caught} [{card}]")
+    near_tie_report(net32, prompts, kernel32, plain32, "20b f32")
+    path = os.path.join(tmp, "dag32.zip")
+    t0 = time.perf_counter()
+    write_model(net32, path)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    del net32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loaded = restore_model(path, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    zip_ids = free_ids(loaded, True)
+    os.remove(path)
+    log(f"20b: the f32 DAG LM through a {size / 2**20:.1f} MiB graph zip "
+        f"(written in {write_s:.1f} s, restored in {load_s:.1f} s, a "
+        f"{type(loaded).__name__}) serves ids identical to the in-process "
+        f"kernel engine's {zip_ids == kernel32} [{card}]")
+    if (not identical or not right32 or not all(caught.values())
+            or zip_ids != kernel32
+            or not isinstance(loaded, ComputationGraph)):
+        raise SystemExit(
+            f"chip_smoke: phase 20b gate failed: f32 ids identical "
+            f"{identical}, right program {right32}, planted faults "
+            f"rejected {caught}, zip ids identical {zip_ids == kernel32}")
+    del loaded
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _solver_data():
+    from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
+
+    return mnist_dataset(train=True, num_examples=SOLVER_EXAMPLES)
+
+
+def solver_card_cpu_check(card: str, tmp: str) -> None:
+    """20c: the zoo's ``mlp`` (784-500-10) from one zip, 10 iterations
+    each of LBFGS, ConjugateGradient and LineGradientDescent over 1024
+    synthetic MNIST examples on the card and on the CPU: every
+    iteration's score within ``SOLVER_RTOL`` relative and falling."""
+    from deeplearning4j_tpu_torch.models.zoo import mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import solver
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model,
+        write_model,
+    )
+
+    ds = _solver_data()
+    path = os.path.join(tmp, "mlp.zip")
+    write_model(MultiLayerNetwork(mlp(), device=DEVICE).init(), path)
+    for name in ("LBFGS", "ConjugateGradient", "LineGradientDescent"):
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            net = restore_model(path, device=dev)
+            scores = CollectScoresIterationListener()
+            net.set_listeners(scores)
+            t0 = time.perf_counter()
+            getattr(solver, name)(net, max_iterations=SOLVER_ITERS
+                                  ).optimize(ds)
+            runs[dev] = ([s for _, s in scores.scores],
+                         time.perf_counter() - t0)
+        card_s, cpu_s = runs[DEVICE][0], runs["cpu"][0]
+        n = min(len(card_s), len(cpu_s))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_s, cpu_s))
+        log(f"20c {name}: {len(card_s)} / {len(cpu_s)} iterations card / "
+            f"CPU, scores {[round(s, 6) for s in card_s]} (card), max rel "
+            f"diff {rel:.3e} (limit {SOLVER_RTOL}); "
+            f"{runs[DEVICE][1]:.3f} s card, {runs['cpu'][1]:.3f} s CPU "
+            f"[{card}]")
+        if (len(card_s) != len(cpu_s) or n < 2 or not rel <= SOLVER_RTOL
+                or not card_s[-1] < card_s[0]):
+            raise SystemExit(f"chip_smoke: 20c {name} card against CPU "
+                             f"failed: {card_s} vs {cpu_s}")
+    os.remove(path)
+
+
+def hvp_and_double_backward_check(card: str) -> None:
+    """20c: HF's Hessian-vector product on a small attention net on the
+    card (dense attention) against a central difference of its
+    gradients, printed and held within ``HVP_FD_TOL`` of max |Hv|; a
+    double backward through K1 raises, and so does HF on the same net
+    with ``use_flash=True``."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.markov import markov_lm_batches
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
+    from deeplearning4j_tpu_torch.nn.conf.enums import OptimizationAlgorithm
+    from deeplearning4j_tpu_torch.nn.layers.attention import flash_attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.solver import FlatProblem
+
+    conf = transformer_lm_flagship(vocab=16, width=128, n_layers=2,
+                                   n_heads=2, seed=5)
+    for c in conf.confs:
+        c.optimization_algo = OptimizationAlgorithm.HESSIAN_FREE
+        c.num_iterations = 1
+        if hasattr(c.layer, "use_flash"):
+            c.layer.use_flash = False
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    f, y, _ = markov_lm_batches(16, 2, 256, seed=0, sample_seed=7)
+    problem = FlatProblem(net, DataSet(f, y))
+    x0 = problem.x0
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    v = torch.randn(x0.shape, generator=gen, device=DEVICE)
+    v = v / v.norm()
+    hv = problem.hessian_vector_product(x0, v)
+    g_plus = problem.value_and_grad(x0 + HVP_FD_EPS * v)[1]
+    g_minus = problem.value_and_grad(x0 - HVP_FD_EPS * v)[1]
+    fd = (g_plus - g_minus) / (2 * HVP_FD_EPS)
+    err = float((hv - fd).abs().max() / hv.abs().max())
+    cos = float(torch.dot(hv, fd) / (hv.norm() * fd.norm()))
+    log(f"20c HF product (2 blocks, width 128, T=256, dense attention, "
+        f"{x0.numel()} params): max |Hv - central difference| / max |Hv| "
+        f"{err:.3e} (limit {HVP_FD_TOL}, step {HVP_FD_EPS}), cosine "
+        f"{cos:.6f}, max |Hv| {float(hv.abs().max()):.4e} [{card}]")
+    if not err <= HVP_FD_TOL:
+        raise SystemExit(f"chip_smoke: 20c HF product differs from the "
+                         f"central difference: {err}")
+    launches = (flash_attention.launches, flash_attention.bwd_launches)
+    q, k, vv = (torch.randn((1, 2, 256, 64), generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16).requires_grad_(True)
+                for _ in range(3))
+    out = flash_attention(q, k, vv, True)
+    raised = {}
+    try:
+        torch.autograd.grad(out.float().square().sum(), q,
+                            create_graph=True)
+        raised["double backward"] = None
+    except RuntimeError as e:
+        raised["double backward"] = str(e)
+    for c in net.conf.confs:
+        if hasattr(c.layer, "use_flash"):
+            c.layer.use_flash = True
+    try:
+        net.fit(f, y)
+        raised["HF over K1"] = None
+    except RuntimeError as e:
+        raised["HF over K1"] = str(e)
+    flash_attention.launches, flash_attention.bwd_launches = launches
+    log(f"20c: a double backward through K1 and HF over K1 raise: "
+        f"{ {k: (m or 'no raise')[:90] for k, m in raised.items()} } "
+        f"[{card}]")
+    if not all(m and "double backward through K1" in m
+               for m in raised.values()):
+        raise SystemExit(f"chip_smoke: 20c K1 second derivative did not "
+                         f"raise: {raised}")
+    del net, problem
+    torch.cuda.empty_cache()
+
+
+def early_stopping_checkpoint_check(card: str, tmp: str) -> None:
+    """20c: an ``EarlyStoppingTrainer`` on the zoo's ``mlp`` over
+    synthetic MNIST (4 batches of 256, 512 held out) with a
+    ``LocalFileModelSaver`` and, through its listener, a
+    ``CheckpointManager`` (keep the last 2 plus the best) saving every
+    epoch: the best model restores from the saver with its score, and
+    the manager's best step restores with outputs equal to it."""
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    ds = _solver_data()
+    train = ListDataSetIterator([ds.get_range(i, i + 256)
+                                 for i in range(0, 1024 - 512, 256)]
+                                + [ds.get_range(512, 768)])
+    test = ListDataSetIterator([ds.get_range(768, 1024)])
+    saver = es.LocalFileModelSaver(os.path.join(tmp, "es"), device=DEVICE)
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), keep_last_n=2,
+                            keep_best=True)
+
+    class Checkpoints(es.EarlyStoppingListener):
+        def on_epoch(self, epoch, score, config, net):
+            mgr.save(epoch, net, iterator=train, score=score)
+
+    cfg = (es.EarlyStoppingConfiguration.Builder()
+           .score_calculator(es.DataSetLossCalculator(test))
+           .epoch_termination_conditions(
+               es.MaxEpochsTerminationCondition(ES_EPOCHS),
+               es.ScoreImprovementEpochTerminationCondition(2))
+           .model_saver(saver).build())
+    net = MultiLayerNetwork(mlp(lr=0.05), device=DEVICE).init()
+    t0 = time.perf_counter()
+    result = es.EarlyStoppingTrainer(cfg, net, train, Checkpoints()).fit()
+    mgr.wait_until_finished()
+    wall = time.perf_counter() - t0
+    best = saver.get_best_model()
+    best_score = es.DataSetLossCalculator(test).calculate_score(best)
+    restored, meta = mgr.restore(step=mgr.best_step(), device=DEVICE)
+    x = torch.as_tensor(ds.features[768:], device=DEVICE)
+    same = torch.equal(restored.output(x), best.output(x))
+    log(f"20c early stopping: {result.termination_reason.value} "
+        f"({result.termination_details}), {result.total_epochs} epochs in "
+        f"{wall:.2f} s, scores { {e: round(s, 6) for e, s in result.score_vs_epoch.items()} }, "
+        f"best epoch {result.best_model_epoch}; the saver's best model "
+        f"scores {best_score:.6f} (recorded {result.best_model_score:.6f})"
+        f"; checkpoint steps kept {mgr.all_steps()}, best "
+        f"{mgr.best_step()} (score {meta['score']:.6f}); its outputs equal "
+        f"the saver's best model's {same} [{card}]")
+    steps = sorted(result.score_vs_epoch)
+    want_kept = sorted(set(steps[-2:]) | {result.best_model_epoch})
+    if (not same or abs(best_score - result.best_model_score)
+            > 1e-6 * abs(result.best_model_score)
+            or mgr.best_step() != result.best_model_epoch
+            or mgr.all_steps() != want_kept
+            or not np.isfinite(list(result.score_vs_epoch.values())).all()):
+        raise SystemExit(
+            f"chip_smoke: 20c early stopping / checkpoints failed: same "
+            f"outputs {same}, best score {best_score} vs "
+            f"{result.best_model_score}, steps {mgr.all_steps()} (want "
+            f"{want_kept}), best step {mgr.best_step()}")
+
+
+def graph_phase(card: str) -> dict:
+    """Phase 20: 20a-20c; returns K1's and K2's launches on its main
+    paths by kernel-line name."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    launches = dag_training_phase(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["paged_attention"] = dag_serving_phase(card, tmp)
+        solver_card_cpu_check(card, tmp)
+        hvp_and_double_backward_check(card)
+        early_stopping_checkpoint_check(card, tmp)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -6691,6 +7240,8 @@ def main() -> int:
                                             "float32")
     lenet_parity_phase(card)
     for name, n in rest_of_layers_phase(card).items():
+        launches[name] += n
+    for name, n in graph_phase(card).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

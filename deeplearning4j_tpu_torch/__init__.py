@@ -23,6 +23,10 @@ from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
 # with serde
 from deeplearning4j_tpu_torch.nn.layers import get_impl  # noqa: F401
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401
+    ComputationGraphConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: F401
 from deeplearning4j_tpu_torch.util.model_serializer import (
     load_numpy_params,
     restore_model,

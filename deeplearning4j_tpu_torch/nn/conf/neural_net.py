@@ -172,5 +172,14 @@ class NeuralNetConfiguration:
 
             return ListBuilder(self._conf)
 
+        def graph_builder(self):
+            """Start a ComputationGraph configuration builder
+            (reference ``.graphBuilder()``)."""
+            from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+                GraphBuilder,
+            )
+
+            return GraphBuilder(self._conf)
+
         def build(self) -> "NeuralNetConfiguration":
             return self._conf

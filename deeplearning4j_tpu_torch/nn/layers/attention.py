@@ -712,7 +712,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool):
 class _FlashAttention(torch.autograd.Function):
     """K1 under autograd: saves q, k, v, O and LSE; the backward
     recomputes P from them in the kernels. Deterministic (no atomics),
-    so a rerun under ``torch.utils.checkpoint`` gives the same O."""
+    so a rerun under ``torch.utils.checkpoint`` gives the same O.
+
+    The backward is the raw kernels, whose own derivative is not
+    written, so a double backward through K1 (a Hessian-vector product,
+    any gradient taken with ``create_graph=True``) raises at its first,
+    graph-building backward instead of treating attention's gradient as
+    a constant. ``torch.autograd.function.once_differentiable`` would
+    not do: it detaches the backward's outputs behind an error node that
+    a second backward toward the parameters never visits, so the
+    second-order term would drop silently. The plain version,
+    :func:`flash_attention_reference`, is torch ops and stays twice
+    differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -724,6 +735,15 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "flash_attention: a double backward through K1 (a "
+                "Hessian-vector product, or a gradient taken with "
+                "create_graph=True) is not supported: its backward is the "
+                "CUDA kernels, whose own derivative is not written (the JAX "
+                "package's Pallas kernel refuses it too). Set "
+                "use_flash=False to take second derivatives through dense "
+                "attention")
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
                                          _kernel_ready(do), ctx.causal)

@@ -314,7 +314,10 @@ class _ConvTaps(torch.autograd.Function):
     backward is torch ops on both, as the JAX package leaves conv1's
     gradient to XLA: dW by ``torch.nn.grad.conv2d_weight``, in w's own
     dtype, dX by ``conv2d_input`` only when x needs it (LeNet's conv1
-    input does not)."""
+    input does not). Being torch ops over the saved x and w, the
+    backward is itself differentiable, so a double backward (a
+    Hessian-vector product) through K3 is exact; unlike K1's it is not
+    marked once differentiable."""
 
     @staticmethod
     def forward(ctx, x, w, ph, pw):

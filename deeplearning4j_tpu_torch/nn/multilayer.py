@@ -34,8 +34,15 @@ the net's device, which its captured graph registers. With dropout 0
 match only in distribution.
 
 Truncated BPTT runs each window's step eagerly, the carried recurrent
-state detached between windows. Still out of the port: the second-order
-``Solver`` (ROADMAP Queue 1 item 9b) and ``fit_stream``.
+state detached between windows. A conf whose ``optimization_algo`` is not
+SGD trains through the line-search solvers (``optimize/solver.py``) over
+the flat parameter vector (``params_flat``, in the JAX package's
+``ravel_pytree`` order). Still out of the port: ``fit_stream`` (ROADMAP
+Queue 1 item 10).
+
+:class:`BaseNetwork` holds what ``MultiLayerNetwork`` and
+``ComputationGraph`` share: the train step under autograd, the captured
+``fit_scan`` window, the flat-parameter surface and the listeners.
 """
 
 from __future__ import annotations
@@ -116,6 +123,54 @@ def _layer_generator(seed: Optional[int], device):
     return gen
 
 
+def _sorted_leaves(tree) -> list:
+    """The tensors of a nested dict in ``jax.flatten_util.ravel_pytree``'s
+    order: at every level the keys sorted as strings (so layers go "0",
+    "1", "10", "2", ...; a graph's vertices by name)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in
+                _sorted_leaves(tree[k])]
+    return [tree]
+
+
+def ravel_params(params) -> torch.Tensor:
+    """One flat vector of every parameter, in the JAX package's
+    ``ravel_pytree`` order (:func:`_sorted_leaves`)."""
+    leaves = _sorted_leaves(params)
+    if not leaves:
+        return torch.zeros((0,))
+    return torch.cat([p.reshape(-1) for p in leaves])
+
+
+def unravel_params(like, flat: torch.Tensor):
+    """A params tree shaped like ``like`` whose leaves are views of
+    ``flat`` (:func:`ravel_params`'s inverse; gradients flow back to
+    ``flat``)."""
+    offset = 0
+
+    def take(tree):
+        nonlocal offset
+        if isinstance(tree, dict):
+            return {k: take(tree[k]) for k in sorted(tree)}
+        n = tree.numel()
+        leaf = flat[offset:offset + n].view(tree.shape)
+        offset += n
+        return leaf
+
+    out = take(like)
+    if offset != flat.numel():
+        raise ValueError(f"flat vector of {flat.numel()} values for "
+                         f"{offset} parameters")
+    # the caller's key order, not the sorted one
+    return _reorder_like(like, out)
+
+
+def _reorder_like(like, tree):
+    if isinstance(like, dict):
+        return {k: _reorder_like(v, tree[k]) for k, v in like.items()}
+    return tree
+
+
 #: the weights l1/l2 apply to (the LSTMs' recurrent and backward ones
 #: too)
 _REGULARIZED_KEYS = ("W", "RW", "W_bwd", "RW_bwd")
@@ -161,7 +216,273 @@ def layer_update(c, updater, grads, upd_state, iteration: int,
     return updater.apply(g, upd_state, scalars)
 
 
-class MultiLayerNetwork:
+class BaseNetwork:
+    """The training machinery ``MultiLayerNetwork`` and
+    ``ComputationGraph`` share. A subclass provides ``_loss_fn(params,
+    state, rng, inputs, labels, masks, label_masks, rnn_state=None) ->
+    (score, new_state, new_rnn_state)``, :meth:`_units` (its trainable
+    units in updater order) and :meth:`_dropout_order` (the units whose
+    dropout generators ``rng`` lists), and holds ``params``, ``state``,
+    ``updater_state``, ``iteration``, ``listeners``, ``train_graphs``,
+    ``params_version``, ``device`` and the host generator ``_gen``."""
+
+    def _units(self) -> list:
+        """[(params key, conf, updater)] in updater order."""
+        raise NotImplementedError
+
+    def _dropout_order(self) -> list:
+        """The params keys whose dropout generators a list ``rng``
+        holds, in order."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    # The train step
+    # ------------------------------------------------------------------
+    def _value_and_grad(self, params, state, rng, features, labels,
+                        feature_mask, label_mask):
+        """(score, grads, new_state) of the loss from each layer's
+        initial carry (:meth:`_grads`)."""
+        score, grads, new_state, _ = self._grads(
+            params, state, rng, features, labels, feature_mask, label_mask)
+        return score, grads, new_state
+
+    def _grads(self, params, state, rng, features, labels, feature_mask,
+               label_mask, rnn_state=None):
+        """(score, grads, new_state, new_rnn_state): the loss under
+        autograd at requires-grad aliases of ``params`` (no copy),
+        differentiated with ``torch.autograd.grad``; a param the loss
+        does not reach gets a zero gradient. The states come out
+        detached: a carried recurrent state passes no gradient into the
+        next truncated-BPTT window."""
+        leaves = {si: {k: p.detach().requires_grad_(True)
+                       for k, p in sub.items()}
+                  for si, sub in params.items()}
+        with torch.enable_grad():
+            score, new_state, new_rnn = self._loss_fn(
+                leaves, state, rng, features, labels, feature_mask,
+                label_mask, rnn_state)
+            flat = [p for sub in leaves.values() for p in sub.values()]
+            gflat = torch.autograd.grad(score, flat, allow_unused=True)
+        it = iter(gflat)
+        grads = {}
+        for si, sub in leaves.items():
+            grads[si] = {}
+            for k, p in sub.items():
+                g = next(it)
+                grads[si][k] = torch.zeros_like(p) if g is None else g
+        return (score.detach(), grads, _detach_tree(new_state),
+                _detach_tree(new_rnn))
+
+    def _apply_updates(self, params, upd_state, grads, iteration,
+                       grad_scale=1.0, scalars=None):
+        """Per unit (layer or layer vertex, :meth:`_units`) normalize ->
+        scale -> updater -> subtract; ``scalars`` is None (each unit's
+        from ``iteration``) or one dict per unit in :meth:`_units`
+        order (see :func:`layer_update`)."""
+        new_params, new_upd = {}, {}
+        with torch.no_grad():
+            for i, (key, c, upd) in enumerate(self._units()):
+                updates, new_upd[key] = layer_update(
+                    c, upd, grads[key], upd_state[key], iteration,
+                    grad_scale, None if scalars is None else scalars[i])
+                new_params[key] = {k: p - updates[k]
+                                   for k, p in params[key].items()}
+        # in the params' own key order, which the health scalars and a
+        # captured step's outputs pair leaf by leaf with the inputs
+        return ({k: new_params[k] for k in params},
+                {k: new_upd[k] for k in upd_state})
+
+    def _step_body(self, params, state, upd_state, iteration, rng,
+                   features, labels, feature_mask, label_mask,
+                   grad_scale=1.0, scalars=None):
+        """One SGD step; returns (new_params, new_state, new_upd_state,
+        score, health): the gradient-health scalars come out of every
+        step (:func:`grad_health`), fetched only by a consumer."""
+        score, grads, new_state = self._value_and_grad(
+            params, state, rng, features, labels, feature_mask, label_mask)
+        new_params, new_upd = self._apply_updates(
+            params, upd_state, grads, iteration, grad_scale, scalars)
+        with torch.no_grad():
+            health = grad_health(grads, params, new_params)
+        return new_params, new_state, new_upd, score, health
+
+    def _tensor(self, a, dtype=None):
+        if a is None:
+            return None
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _tbptt_step(self, params, state, upd_state, iteration, rng, f, y,
+                    fm, lm, rnn_state):
+        """One window: (new_params, new_state, new_upd_state,
+        new_rnn_state, score, health)."""
+        score, grads, new_state, new_rnn = self._grads(
+            params, state, rng, f, y, fm, lm, rnn_state)
+        new_params, new_upd = self._apply_updates(params, upd_state, grads,
+                                                  iteration)
+        with torch.no_grad():
+            health = grad_health(grads, params, new_params)
+        return new_params, new_state, new_upd, new_rnn, score, health
+
+    def _pretrain_generator(self) -> torch.Generator:
+        """The generator of pretraining's draws, on the net's device,
+        seeded once from the net's host generator."""
+        if self._pretrain_gen is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=self._gen))
+            self._pretrain_gen = _layer_generator(seed, self.device)
+        return self._pretrain_gen
+
+    def _scan_window(self, key, k: int, batch_at, start: int,
+                     grad_scale: float):
+        """The step loop of ``fit_scan``: ``k`` steps from iteration
+        ``start``, step j's batch ``batch_at(j)`` = {x, y, fm, lm}; on
+        the card each step replays the captured graph of ``key`` (see
+        ``MultiLayerNetwork.fit_scan``). Sets the params, state and
+        updater state after the window and returns (scores [k], health
+        [k, 4])."""
+        layout, table = self._window_scalars(start, k)
+        gens = self._scan_generators()
+        graphs = self.train_graphs
+        key = key + (tuple(tuple(names) for names in layout),)
+        ops = {"params": self.params, "state": self.state,
+               "upd": self.updater_state, "grad_scale": torch.full(
+                   (), float(grad_scale), dtype=torch.float32,
+                   device=self.device)}
+        fresh = graphs is not None and key not in graphs
+        scores = health = None
+
+        def body(o):
+            return self._scan_step(o, layout, gens)
+
+        with torch.no_grad():
+            for j in range(k):
+                ops.update(batch_at(j), scalars=table[j])
+                if fresh:
+                    # a capture's tensors become the graph's static
+                    # inputs, which later steps overwrite: never the
+                    # net's params or the caller's batches
+                    ops, fresh = tree_map(torch.clone, ops), False
+                res = (body(ops) if graphs is None
+                       else graphs.run(key, body, ops))
+                if scores is None:
+                    scores = torch.empty((k,), dtype=res["score"].dtype,
+                                         device=self.device)
+                    health = torch.empty((k, len(HEALTH_KEYS)),
+                                         dtype=torch.float32,
+                                         device=self.device)
+                scores[j].copy_(res["score"])
+                health[j].copy_(res["health"])
+                ops.update(params=res["params"], state=res["state"],
+                           upd=res["upd"])
+                self.params_version += 1
+                self.iteration += 1
+        carry = {"params": ops["params"], "state": ops["state"],
+                 "upd": ops["upd"]}
+        if graphs is not None and key in graphs:
+            # the graph's outputs are overwritten by its next replay
+            carry = tree_map(torch.clone, carry)
+        self.params, self.state, self.updater_state = (
+            carry["params"], carry["state"], carry["upd"])
+        return scores, health
+
+    def _scan_step(self, ops, layout, gens):
+        """One ``fit_scan`` step over ``ops`` = {params, state, upd, x,
+        y, fm, lm, scalars: the step's [S] row of the window table,
+        grad_scale: f32 0-dim}, the body of the captured graph and of
+        the eager run alike: it reads nothing back to the host. Returns
+        the new params, state and updater state, the score and the [4]
+        health row."""
+        row = ops["scalars"]
+        scalars, col = [], 0
+        for names in layout:
+            scalars.append({name: row[col + n]
+                            for n, name in enumerate(names)})
+            col += len(names)
+        params, state, upd, score, health = self._step_body(
+            ops["params"], ops["state"], ops["upd"], None, gens,
+            ops["x"], ops["y"], ops["fm"], ops["lm"], ops["grad_scale"],
+            scalars)
+        return {"params": params, "state": state, "upd": upd,
+                "score": score,
+                "health": torch.stack([health[n] for n in HEALTH_KEYS])}
+
+    def _window_scalars(self, start: int, k: int):
+        """The per-step updater scalars of steps ``start`` .. ``start +
+        k - 1``: (layout, one list of names per layer; table, float32
+        [k, S] on the device, row j the names' values at step start + j
+        in layout order), computed on the host as ``fit`` computes them
+        and uploaded in one copy."""
+        layout, rows = None, []
+        for it in range(start, start + k):
+            per = [upd.step_scalars(resolve_lr(c, it), it)
+                   for _, c, upd in self._units()]
+            if layout is None:
+                layout = [list(sc) for sc in per]
+            rows.append([v for sc in per for v in sc.values()])
+        host = torch.from_numpy(np.asarray(rows, dtype=np.float32))
+        if self.device.type == "cuda":
+            # pinned, so the copy neither waits for the device nor
+            # races a later window (the caching host allocator keeps the
+            # block until the copy has run)
+            return layout, host.pin_memory().to(self.device,
+                                                non_blocking=True)
+        return layout, host.to(self.device)
+
+    def _scan_generators(self) -> List[torch.Generator]:
+        """``fit_scan``'s per-unit dropout generators on the net's
+        device (in :meth:`_dropout_order`), seeded once from the net's
+        host generator and registered with ``train_graphs``, so a replay
+        draws fresh masks."""
+        if self._scan_gens is None:
+            seeds = torch.randint(0, 2 ** 62, (len(self._dropout_order()),),
+                                  generator=self._gen).tolist()
+            self._scan_gens = [_layer_generator(sd, self.device)
+                               for sd in seeds]
+        if self.train_graphs is not None:
+            self.train_graphs.generators = tuple(self._scan_gens)
+        return self._scan_gens
+
+    def _fire_listeners(self) -> None:
+        """After one step: each listener whose cadence the iteration
+        meets."""
+        for listener in self.listeners:
+            if listener.invoked_every <= 1 or (
+                    self.iteration % listener.invoked_every == 0):
+                listener.iteration_done(self, self.iteration)
+
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    # ------------------------------------------------------------------
+    # Parameter pack/unpack (reference params() :984-1063)
+    # ------------------------------------------------------------------
+    def params_flat(self) -> torch.Tensor:
+        """Every parameter in one new flat tensor on the net's device, in
+        the JAX package's ``ravel_pytree`` order (keys sorted as strings
+        at every level), so a JAX flat vector lands on the same
+        parameters through :meth:`set_params_flat`."""
+        self.init()
+        return ravel_params(self.params)
+
+    def set_params_flat(self, flat) -> None:
+        """Set every parameter from a flat vector in :meth:`params_flat`'s
+        order (each parameter a copy, cast to the master dtype on the
+        net's device)."""
+        self.init()
+        flat = torch.as_tensor(flat, dtype=self._dtype, device=self.device)
+        self.params = tree_map(torch.clone,
+                               unravel_params(self.params, flat))
+        self.params_version += 1
+
+    def num_params(self) -> int:
+        self.init()
+        return sum(p.numel() for p in _sorted_leaves(self.params))
+
+
+class MultiLayerNetwork(BaseNetwork):
     """Sequential network over layer conf beans, on ``device`` (default
     ``"cuda"``; raises when CUDA is absent, so pass ``device="cpu"`` to
     run on the CPU)."""
@@ -232,6 +553,13 @@ class MultiLayerNetwork:
     @property
     def n_layers(self) -> int:
         return len(self.conf.confs)
+
+    def _units(self) -> list:
+        return [(str(i), c, upd) for i, (c, upd) in
+                enumerate(zip(self.conf.confs, self._updaters))]
+
+    def _dropout_order(self) -> list:
+        return [str(i) for i in range(self.n_layers)]
 
     def _out_f32(self) -> bool:
         # the output layer always runs at the master dtype: a bf16
@@ -388,88 +716,6 @@ class MultiLayerNetwork:
         return aux
 
     # ------------------------------------------------------------------
-    # The train step
-    # ------------------------------------------------------------------
-    def _value_and_grad(self, params, state, rng, features, labels,
-                        feature_mask, label_mask):
-        """(score, grads, new_state) of the loss from each layer's
-        initial carry (:meth:`_grads`)."""
-        score, grads, new_state, _ = self._grads(
-            params, state, rng, features, labels, feature_mask, label_mask)
-        return score, grads, new_state
-
-    def _grads(self, params, state, rng, features, labels, feature_mask,
-               label_mask, rnn_state=None):
-        """(score, grads, new_state, new_rnn_state): the loss under
-        autograd at requires-grad aliases of ``params`` (no copy),
-        differentiated with ``torch.autograd.grad``; a param the loss
-        does not reach gets a zero gradient. The states come out
-        detached: a carried recurrent state passes no gradient into the
-        next truncated-BPTT window."""
-        leaves = {si: {k: p.detach().requires_grad_(True)
-                       for k, p in sub.items()}
-                  for si, sub in params.items()}
-        with torch.enable_grad():
-            score, new_state, new_rnn = self._loss_fn(
-                leaves, state, rng, features, labels, feature_mask,
-                label_mask, rnn_state)
-            flat = [p for sub in leaves.values() for p in sub.values()]
-            gflat = torch.autograd.grad(score, flat, allow_unused=True)
-        it = iter(gflat)
-        grads = {}
-        for si, sub in leaves.items():
-            grads[si] = {}
-            for k, p in sub.items():
-                g = next(it)
-                grads[si][k] = torch.zeros_like(p) if g is None else g
-        return (score.detach(), grads, _detach_tree(new_state),
-                _detach_tree(new_rnn))
-
-    def _apply_updates(self, params, upd_state, grads, iteration,
-                       grad_scale=1.0, scalars=None):
-        """Per-layer normalize -> scale -> updater -> subtract;
-        ``scalars`` is None (each layer's from ``iteration``) or one
-        dict per layer (see :func:`layer_update`)."""
-        new_params, new_upd = {}, {}
-        with torch.no_grad():
-            for i, (c, upd) in enumerate(zip(self.conf.confs,
-                                             self._updaters)):
-                si = str(i)
-                updates, new_upd[si] = layer_update(
-                    c, upd, grads[si], upd_state[si], iteration,
-                    grad_scale, None if scalars is None else scalars[i])
-                new_params[si] = {k: p - updates[k]
-                                  for k, p in params[si].items()}
-        return new_params, new_upd
-
-    def _step_body(self, params, state, upd_state, iteration, rng,
-                   features, labels, feature_mask, label_mask,
-                   grad_scale=1.0, scalars=None):
-        """One SGD step; returns (new_params, new_state, new_upd_state,
-        score, health): the gradient-health scalars come out of every
-        step (:func:`grad_health`), fetched only by a consumer."""
-        score, grads, new_state = self._value_and_grad(
-            params, state, rng, features, labels, feature_mask, label_mask)
-        new_params, new_upd = self._apply_updates(
-            params, upd_state, grads, iteration, grad_scale, scalars)
-        with torch.no_grad():
-            health = grad_health(grads, params, new_params)
-        return new_params, new_state, new_upd, score, health
-
-    def _tensor(self, a, dtype=None):
-        if a is None:
-            return None
-        return torch.as_tensor(a, dtype=dtype, device=self.device)
-
-    def _check_sgd(self, what: str) -> None:
-        algo = self.conf.confs[0].optimization_algo
-        if algo != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
-            raise NotImplementedError(
-                f"{what}: {algo} needs the second-order Solver, which is "
-                "not ported to the torch package yet (ROADMAP Queue 1 item "
-                "9b); use SGD")
-
-    # ------------------------------------------------------------------
     # Public training API
     # ------------------------------------------------------------------
     def fit(self, data, labels=None) -> None:
@@ -498,9 +744,14 @@ class MultiLayerNetwork:
                     self._fit_batch(ds)
 
     def _fit_batch(self, ds) -> None:
-        self._check_sgd("fit")
         if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
             self._fit_tbptt(ds)
+            return
+        algo = self.conf.confs[0].optimization_algo
+        if algo != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            from deeplearning4j_tpu_torch.optimize.solver import Solver
+
+            Solver(self).optimize(ds)
             return
         n_iter = max(1, self.conf.confs[0].num_iterations)
         feats = self._tensor(ds.features, self._dtype)
@@ -520,10 +771,7 @@ class MultiLayerNetwork:
                 tokens=tokens, health=health)
             self.score_value = score
             self.iteration += 1
-            for listener in self.listeners:
-                if listener.invoked_every <= 1 or (
-                        self.iteration % listener.invoked_every == 0):
-                    listener.iteration_done(self, self.iteration)
+            self._fire_listeners()
 
     def _fit_tbptt(self, ds) -> None:
         """Truncated BPTT (reference doTruncatedBPTT :1262-1320): the
@@ -557,18 +805,6 @@ class MultiLayerNetwork:
             for listener in self.listeners:
                 listener.iteration_done(self, self.iteration)
 
-    def _tbptt_step(self, params, state, upd_state, iteration, rng, f, y,
-                    fm, lm, rnn_state):
-        """One window: (new_params, new_state, new_upd_state,
-        new_rnn_state, score, health)."""
-        score, grads, new_state, new_rnn = self._grads(
-            params, state, rng, f, y, fm, lm, rnn_state)
-        new_params, new_upd = self._apply_updates(params, upd_state, grads,
-                                                  iteration)
-        with torch.no_grad():
-            health = grad_health(grads, params, new_params)
-        return new_params, new_state, new_upd, new_rnn, score, health
-
     def pretrain(self, data_iter) -> None:
         """Greedy layer-wise pretraining of the RBM / autoencoder layers
         (reference pretrain :150; ``optimize/pretrainer.py``)."""
@@ -578,15 +814,6 @@ class MultiLayerNetwork:
         )
 
         pretrain_network(self, data_iter)
-
-    def _pretrain_generator(self) -> torch.Generator:
-        """The generator of pretraining's draws, on the net's device,
-        seeded once from the net's host generator."""
-        if self._pretrain_gen is None:
-            seed = int(torch.randint(0, 2 ** 62, (1,),
-                                     generator=self._gen))
-            self._pretrain_gen = _layer_generator(seed, self.device)
-        return self._pretrain_gen
 
     def fit_scan(self, features_stacked, labels_stacked,
                  features_mask_stacked=None, labels_mask_stacked=None,
@@ -598,7 +825,7 @@ class MultiLayerNetwork:
         ACCUM_GRADIENT sum; see :func:`layer_update`). The K steps' health
         scalars go to ``train_telemetry`` as [K] tensors. Listeners fire
         once per call (``fire_crossed``). The SGD path only: tBPTT and
-        second-order solvers raise.
+        second-order solvers raise, as in JAX.
 
         On the card the step replays one captured CUDA graph per key
         (batch shapes, dtype, masks present, updater layout), held in
@@ -610,68 +837,30 @@ class MultiLayerNetwork:
         of the eager loop bit for bit. On the CPU the same step runs
         eagerly. A graph holds the conf as it was captured: after
         changing a conf bean, ``train_graphs.drop()``."""
-        self._check_sgd("fit_scan")
         if self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
             raise ValueError(
                 "fit_scan is the full-BPTT SGD fast path; truncated-BPTT "
                 "configs train through fit()")
+        algo = self.conf.confs[0].optimization_algo
+        if algo != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            raise ValueError(
+                f"fit_scan only supports SGD, not {algo}; use fit()")
         self.init()
         feats = self._tensor(features_stacked, self._dtype)
         labels = self._tensor(labels_stacked, self._dtype)
         fms = self._tensor(features_mask_stacked)
         lms = self._tensor(labels_mask_stacked)
         start = self.iteration
-        k = int(feats.shape[0])
         t0 = time.perf_counter()
-        layout, table = self._window_scalars(start, k)
-        gens = self._scan_generators()
-        graphs = self.train_graphs
         key = (tuple(feats.shape[1:]), tuple(labels.shape[1:]),
                feats.dtype, None if fms is None else tuple(fms.shape[1:]),
-               None if lms is None else tuple(lms.shape[1:]),
-               tuple(tuple(names) for names in layout))
-        ops = {"params": self.params, "state": self.state,
-               "upd": self.updater_state, "grad_scale": torch.full(
-                   (), float(grad_scale), dtype=torch.float32,
-                   device=self.device)}
-        fresh = graphs is not None and key not in graphs
-        scores = health = None
-
-        def body(o):
-            return self._scan_step(o, layout, gens)
-
-        with torch.no_grad():
-            for j in range(k):
-                ops.update(x=feats[j], y=labels[j],
+               None if lms is None else tuple(lms.shape[1:]))
+        scores, health = self._scan_window(
+            key, int(feats.shape[0]),
+            lambda j: dict(x=feats[j], y=labels[j],
                            fm=None if fms is None else fms[j],
-                           lm=None if lms is None else lms[j],
-                           scalars=table[j])
-                if fresh:
-                    # a capture's tensors become the graph's static
-                    # inputs, which later steps overwrite: never the
-                    # net's params or the caller's batches
-                    ops, fresh = tree_map(torch.clone, ops), False
-                res = (body(ops) if graphs is None
-                       else graphs.run(key, body, ops))
-                if scores is None:
-                    scores = torch.empty((k,), dtype=res["score"].dtype,
-                                         device=self.device)
-                    health = torch.empty((k, len(HEALTH_KEYS)),
-                                         dtype=torch.float32,
-                                         device=self.device)
-                scores[j].copy_(res["score"])
-                health[j].copy_(res["health"])
-                ops.update(params=res["params"], state=res["state"],
-                           upd=res["upd"])
-                self.params_version += 1
-                self.iteration += 1
-        carry = {"params": ops["params"], "state": ops["state"],
-                 "upd": ops["upd"]}
-        if graphs is not None and key in graphs:
-            # the graph's outputs are overwritten by its next replay
-            carry = tree_map(torch.clone, carry)
-        self.params, self.state, self.updater_state = (
-            carry["params"], carry["state"], carry["upd"])
+                           lm=None if lms is None else lms[j]),
+            start, grad_scale)
         k, examples, tokens = window_counts(feats.shape)
         self.train_telemetry.record_step(
             dispatch_s=time.perf_counter() - t0, steps=k,
@@ -681,62 +870,6 @@ class MultiLayerNetwork:
         self.score_value = scores[-1]
         fire_crossed(self.listeners, self, start, self.iteration)
         return scores
-
-    def _scan_step(self, ops, layout, gens):
-        """One ``fit_scan`` step over ``ops`` = {params, state, upd, x,
-        y, fm, lm, scalars: the step's [S] row of the window table,
-        grad_scale: f32 0-dim}, the body of the captured graph and of
-        the eager run alike: it reads nothing back to the host. Returns
-        the new params, state and updater state, the score and the [4]
-        health row."""
-        row = ops["scalars"]
-        scalars, col = [], 0
-        for names in layout:
-            scalars.append({name: row[col + n]
-                            for n, name in enumerate(names)})
-            col += len(names)
-        params, state, upd, score, health = self._step_body(
-            ops["params"], ops["state"], ops["upd"], None, gens,
-            ops["x"], ops["y"], ops["fm"], ops["lm"], ops["grad_scale"],
-            scalars)
-        return {"params": params, "state": state, "upd": upd,
-                "score": score,
-                "health": torch.stack([health[n] for n in HEALTH_KEYS])}
-
-    def _window_scalars(self, start: int, k: int):
-        """The per-step updater scalars of steps ``start`` .. ``start +
-        k - 1``: (layout, one list of names per layer; table, float32
-        [k, S] on the device, row j the names' values at step start + j
-        in layout order), computed on the host as ``fit`` computes them
-        and uploaded in one copy."""
-        layout, rows = None, []
-        for it in range(start, start + k):
-            per = [upd.step_scalars(resolve_lr(c, it), it)
-                   for c, upd in zip(self.conf.confs, self._updaters)]
-            if layout is None:
-                layout = [list(sc) for sc in per]
-            rows.append([v for sc in per for v in sc.values()])
-        host = torch.from_numpy(np.asarray(rows, dtype=np.float32))
-        if self.device.type == "cuda":
-            # pinned, so the copy neither waits for the device nor
-            # races a later window (the caching host allocator keeps the
-            # block until the copy has run)
-            return layout, host.pin_memory().to(self.device,
-                                                non_blocking=True)
-        return layout, host.to(self.device)
-
-    def _scan_generators(self) -> List[torch.Generator]:
-        """``fit_scan``'s per-layer dropout generators on the net's
-        device, seeded once from the net's host generator and registered
-        with ``train_graphs``, so a replay draws fresh masks."""
-        if self._scan_gens is None:
-            seeds = torch.randint(0, 2 ** 62, (self.n_layers,),
-                                  generator=self._gen).tolist()
-            self._scan_gens = [_layer_generator(sd, self.device)
-                               for sd in seeds]
-        if self.train_graphs is not None:
-            self.train_graphs.generators = tuple(self._scan_gens)
-        return self._scan_gens
 
     def score(self, ds=None) -> float:
         """The last training score, or the loss (plus regularization) of
@@ -767,12 +900,6 @@ class MultiLayerNetwork:
             self._tensor(ds.labels, self._dtype),
             self._tensor(ds.features_mask), self._tensor(ds.labels_mask))
         return float(score), Gradient.from_tree(grads)
-
-    def set_listeners(self, *listeners) -> None:
-        self.listeners = list(listeners)
-
-    def add_listener(self, listener) -> None:
-        self.listeners.append(listener)
 
     # ------------------------------------------------------------------
     # Inference and parameters
@@ -917,6 +1044,30 @@ class MultiLayerNetwork:
         self.params[idx][name] = torch.as_tensor(
             value, dtype=self._dtype, device=self.device).clone()
         self.params_version += 1
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A deep copy on the same device: the conf (``conf.clone()``),
+        params, updater state, layer state and iteration as new tensors,
+        so training either net never touches the other."""
+        net = MultiLayerNetwork(self.conf.clone(), device=self.device)
+        net.params = tree_map(torch.clone, self.params)
+        net.updater_state = tree_map(torch.clone, self.updater_state)
+        net.state = tree_map(torch.clone, self.state)
+        net.iteration = self.iteration
+        net._initialized = True
+        net.params_version += 1
+        return net
+
+    def unsharded_clone(self) -> "MultiLayerNetwork":
+        """A clone with every bean's mesh-axis fields (``ring_axis``,
+        ``ep_axis``) cleared: the single-device serving and eval view of
+        a mesh-trained net (JAX's ``unsharded_clone``)."""
+        net = self.clone()
+        for c in net.conf.confs:
+            for axis_field in ("ring_axis", "ep_axis"):
+                if getattr(c.layer, axis_field, None):
+                    setattr(c.layer, axis_field, None)
+        return net
 
     def save(self, path: str) -> None:
         """One-zip checkpoint in the JAX package's format."""

@@ -8,8 +8,9 @@ stack below it (inference mode), then run the layer's unsupervised
 update (RBM CD-k, the autoencoders' reconstruction gradient) through
 its updater, ``num_iterations`` times a batch. The draws come from the
 net's pretrain generator on its device (``net._pretrain_generator()``),
-seeded once from the net's host generator. ``pretrain_graph`` waits for
-ComputationGraph (ROADMAP Queue 1 item 9b).
+seeded once from the net's host generator. ``pretrain_graph`` does the
+same for a ComputationGraph's pretrainable layer vertices, in
+topological order (reference ComputationGraph.pretrain :341-427).
 """
 
 from __future__ import annotations
@@ -34,6 +35,25 @@ def pretrain_network(net, data_iter) -> None:
 
         _pretrain_unit(net, str(i), conf, impl, net._updaters[i],
                        get_input, data_iter)
+
+
+def pretrain_graph(net, data_iter) -> None:
+    """Greedy pretrain of a ComputationGraph's RBM / autoencoder layer
+    vertices, in topological order, each fed the activations of the
+    vertex below it (``net._pretrain_input``)."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import LayerVertex
+
+    for name in net.order:
+        vertex = net.conf.vertices[name]
+        if not (isinstance(vertex, LayerVertex)
+                and isinstance(vertex.conf.layer, PRETRAIN_LAYER_TYPES)):
+            continue
+
+        def get_input(ds, _n=name):
+            return net._pretrain_input(_n, ds)
+
+        _pretrain_unit(net, name, vertex.conf, net._impls[name],
+                       net._updaters[name], get_input, data_iter)
 
 
 def _pretrain_unit(net, key_name, conf, impl, upd, get_input,

@@ -1,23 +1,64 @@
-"""Training telemetry: the per-step phase clock
-``MultiLayerNetwork.fit`` stamps.
+"""Training telemetry: the per-step phase clock every fit path stamps,
+the gradient-health scalars, and the headless JSONL metrics sink.
 
-Port of the parts of ``deeplearning4j_tpu/optimize/telemetry.py`` that
-fit uses: :class:`TrainTelemetry` (the host-side phase accumulator every
-network owns), the batch/window counters and the gradient-health
-scalars every train step returns (:func:`grad_health`). The tracing
-listener that reads them and the JSONL sink belong to a later slice.
+Port of ``deeplearning4j_tpu/optimize/telemetry.py`` (less the parallel
+trainers' span helpers, which wait for ROADMAP Queue 1 item 11):
+:class:`TrainTelemetry` (the host-side phase accumulator every network
+owns), the batch/window counters, the gradient-health scalars every
+train step returns (:func:`grad_health`; :func:`host_grad_health` for
+the solvers' host loop), :func:`fetch_health` for the tracing listener,
+the training histogram tracks, and :class:`MetricsLog`.
 """
 
 from __future__ import annotations
 
+import json
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
+
+#: The five training histogram tracks: latency-style phases in seconds
+#: plus gradient-health value distributions.
+TRAIN_HISTOGRAMS = (
+    "train_step_s",
+    "train_data_wait_s",
+    "train_grad_norm",
+    "train_update_ratio",
+    "train_param_norm",
+)
+
+#: Host-sync wall also keeps a histogram beside the five core tracks.
+TRAIN_SYNC_HISTOGRAM = "train_sync_s"
+
+#: ``# HELP`` text per training track, applied via ``Tracer.describe``.
+TRAIN_TRACK_HELP: Dict[str, str] = {
+    "train_step_s": "per-step wall time (window wall / steps)",
+    "train_data_wait_s": "per-step host wait on the data iterator",
+    "train_sync_s": "host-sync wall at the listener's score fetch",
+    "train_grad_norm": "global L2 norm of the step gradient",
+    "train_update_ratio":
+        "L2 norm of the applied parameter delta / new param norm",
+    "train_param_norm": "global L2 norm of the post-step parameters",
+    "train_examples_per_sec": "training throughput over the last window",
+    "train_tokens_per_sec":
+        "token throughput over the last window (time-series batches)",
+    "train_score": "latest training score (loss)",
+    "train_steps_total": "cumulative training steps observed",
+    "train_nonfinite_grads":
+        "cumulative count of non-finite gradient elements seen",
+    "train_early_stop": "early-stopping terminations fired",
+}
 
 #: Gradient-health leaf names, in the order every producer emits them.
 HEALTH_KEYS = ("grad_norm", "update_ratio", "param_norm",
                "nonfinite_grads")
+
+#: Norm-valued histograms span 1e-8 .. 1e4 (4 log buckets/decade): grad
+#: and param norms roam far outside the latency default of 100us..100s.
+VALUE_BOUNDS = tuple(10.0 ** (e / 4.0) for e in range(-32, 17))
 
 
 def _leaves(tree):
@@ -55,6 +96,43 @@ def grad_health(grads, params, new_params) -> Dict[str, torch.Tensor]:
         "nonfinite_grads": (sum(leaf.numel() for leaf in g)
                             - finite).float(),
     }
+
+
+def _host(a) -> np.ndarray:
+    """A tensor on any device, or anything numpy takes, as float64."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().double().cpu().numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def host_grad_health(grad, x_old, x_new) -> Dict[str, float]:
+    """Gradient health of one solver iteration (``optimize/solver.py``)
+    from its flat vectors, as host floats: the solver loop reads the
+    score every iteration anyway."""
+    g, new = _host(grad), _host(x_new)
+    param_norm = float(np.linalg.norm(new))
+    return {
+        "grad_norm": float(np.linalg.norm(g)),
+        "update_ratio": float(np.linalg.norm(new - _host(x_old))
+                              / max(param_norm, 1e-12)),
+        "param_norm": param_norm,
+        "nonfinite_grads": float(np.count_nonzero(~np.isfinite(g))),
+    }
+
+
+def fetch_health(health) -> Optional[Dict[str, List[float]]]:
+    """A recorded health payload as ``{key: [floats]}``: a dict of
+    0-dim tensors or floats, a dict of [K] per-step tensors (a
+    ``fit_scan`` window), a zero-argument callable producing either, or
+    None. The device read happens here, at the consumer's sync."""
+    if health is None:
+        return None
+    if callable(health):
+        health = health()
+    if health is None:
+        return None
+    return {key: [float(v) for v in _host(value).ravel()]
+            for key, value in health.items()}
 
 
 class TrainTelemetry:
@@ -164,3 +242,48 @@ def window_counts(shape) -> tuple:
     tokens = (examples * int(shape[3]) if len(shape) == 4
               else examples)
     return k, examples, tokens
+
+
+class MetricsLog:
+    """Append-only JSONL metrics sink for headless training runs: one
+    JSON object a line; ``write`` is thread-safe and flushes, so a
+    crashed run keeps every completed record. ``MetricsLog.read(path)``
+    returns the records, skipping a torn final line."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        self._f = open(path, "a", encoding="utf-8")
+
+    def write(self, record: Dict[str, Any]) -> None:
+        line = json.dumps(record, sort_keys=True)
+        with self._lock:
+            if self._f.closed:
+                raise ValueError(f"MetricsLog {self.path} is closed")
+            self._f.write(line + "\n")
+            self._f.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._f.closed:
+                self._f.close()
+
+    def __enter__(self) -> "MetricsLog":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    @staticmethod
+    def read(path: str) -> List[Dict[str, Any]]:
+        records = []
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    records.append(json.loads(line))
+                except json.JSONDecodeError:
+                    break  # torn tail from a hard crash
+        return records

@@ -578,6 +578,46 @@ def _jax_key_words(seed: int) -> List[int]:
     return [0, int(seed) & 0xFFFFFFFF]
 
 
+def _lm_shape_of(net):
+    """(forward, vocab, named layer beans) for a MultiLayerNetwork or an
+    LM-shaped single-input / single-output ComputationGraph (JAX's
+    ``_lm_shape_of``). ``forward(x, mask, rnn) -> (out [B, V, T],
+    new_rnn)`` is the net's streaming forward on its current params; a
+    graph's carried state is keyed by vertex name, an MLN's by layer
+    index."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    if isinstance(net, ComputationGraph):
+        in_name, out_name, vocab = net.lm_shape()
+
+        def forward(x, mask, rnn):
+            acts, _, new_rnn = net._forward_fn(
+                net.params, net.state, {in_name: x}, None, False,
+                masks=None if mask is None else {in_name: mask},
+                rnn_state=rnn)
+            return acts[out_name], new_rnn
+
+        beans = [(name, lv.conf.layer)
+                 for name, lv in net._layer_vertices.items()]
+        return forward, vocab, beans
+
+    vocab = net.conf.confs[0].layer.n_in
+    out_n = getattr(net.conf.confs[-1].layer, "n_out", None)
+    if vocab != out_n:
+        raise ValueError(
+            "DecodeEngine requires an LM-shaped net (first-layer n_in "
+            f"== output n_out; got {vocab} vs {out_n})")
+
+    def forward(x, mask, rnn):
+        out, _, new_rnn = net._forward_fn(
+            net.params, net.state, x, None, False, feature_mask=mask,
+            rnn_state=rnn)
+        return out, new_rnn
+
+    beans = [(str(i), c.layer) for i, c in enumerate(net.conf.confs)]
+    return forward, vocab, beans
+
+
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -614,8 +654,11 @@ def _one_hot(tok: torch.Tensor, vocab: int, dtype) -> torch.Tensor:
 
 class DecodeEngine:
     """Slot-multiplexed batched decoding for one LM-shaped
-    ``MultiLayerNetwork`` (first layer ``n_in`` == output ``n_out`` ==
-    vocab, one-hot io), on the net's device.
+    ``MultiLayerNetwork`` or single-input / single-output
+    ``ComputationGraph`` (first layer ``n_in`` == output ``n_out`` ==
+    vocab, one-hot io; :func:`_lm_shape_of`), on the net's device. A
+    graph's carried K/V (and the paged pool's layer keys) are keyed by
+    vertex name.
 
     ``submit`` requests, then ``run()`` drains queue and slots and
     returns ``{request_id: GenerationResult}``, or drive one round at a
@@ -740,20 +783,13 @@ class DecodeEngine:
         self.decode_chunk = int(decode_chunk)
         self.fused_rounds = int(fused_rounds)
         self.async_rounds = bool(async_rounds)
-        confs = net.conf.confs
-        self.vocab = confs[0].layer.n_in
-        out_n = getattr(confs[-1].layer, "n_out", None)
-        if self.vocab != out_n:
-            raise ValueError(
-                "DecodeEngine requires an LM-shaped net (first-layer n_in "
-                f"== output n_out; got {self.vocab} vs {out_n})")
+        self._forward, self.vocab, beans = _lm_shape_of(net)
         windows = []
         attn = []
-        for i, c in enumerate(confs):
-            bean = c.layer
+        for name, bean in beans:
             if getattr(bean, "ring_axis", None):
                 raise ValueError(
-                    f"layer {i} is configured with ring_axis="
+                    f"layer {name} is configured with ring_axis="
                     f"{bean.ring_axis!r} and cannot stream; rebuild the "
                     "conf with ring_axis=None for serving")
             if not isinstance(bean, BaseRecurrentLayer):
@@ -761,8 +797,8 @@ class DecodeEngine:
             if not isinstance(bean, ATTENTION_BEANS):
                 raise ValueError(
                     f"DecodeEngine streams through the attention KV cache; "
-                    f"layer {i} ({type(bean).__name__}) carries a recurrent "
-                    "state this engine does not support")
+                    f"layer {name} ({type(bean).__name__}) carries a "
+                    "recurrent state this engine does not support")
             windows.append(bean.stream_max_t)
             attn.append(bean)
         if not windows:
@@ -985,14 +1021,6 @@ class DecodeEngine:
                 f"+ one round of writes ({slot_worst} blocks of {bt} "
                 "tokens)")
         self.block_pool = BlockPool(self.kv_blocks, bt)
-
-    # -- forward -------------------------------------------------------
-    def _forward(self, x, mask, rnn):
-        """(out [B, V, T], new_rnn) of the net's streaming forward."""
-        out, _, new_rnn = self.net._forward_fn(
-            self.net.params, self.net.state, x, None, False,
-            feature_mask=mask, rnn_state=rnn)
-        return out, new_rnn
 
     # -- request lifecycle ---------------------------------------------
     def submit(self, request: Request) -> int:

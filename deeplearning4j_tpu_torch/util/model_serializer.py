@@ -4,14 +4,17 @@ Port of ``deeplearning4j_tpu/util/model_serializer.py``; a zip written
 by either package loads in the other::
 
     model.zip
-    ├── type                conf-class marker ("multilayer")
+    ├── type                conf-class marker ("multilayer" | "graph")
     ├── conf.json           configuration (the wire format)
-    ├── params.npz          params, keys "layer␟name" flattened
+    ├── params.npz          params, keys "layer␟name" (a graph's
+    │                       "vertex␟name") flattened
     └── extras.pkl          updater state + layer state + iteration
 
 Everything in the zip is numpy. :func:`load_numpy_params` is the weight
 carry-over: it turns the JAX package's parameters, as numpy arrays, into
-the port's tensors.
+the port's tensors. :func:`snapshot` and :func:`write_snapshot` split a
+save into the host copy (on the training thread) and the atomic write
+(``os.replace``; the checkpoint manager's background thread).
 """
 
 from __future__ import annotations
@@ -28,14 +31,16 @@ import torch
 _SEP = "␟"  # unit-separator-ish key joiner, never in param names
 
 
-def _to_numpy(tree):
+def _to_numpy(tree, copy: bool = False):
+    """Tensors to numpy (bfloat16 as float32); ``copy`` never shares a
+    CPU tensor's memory."""
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
+        return {k: _to_numpy(v, copy) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.numpy()
+        return t.numpy().copy() if copy else t.numpy()
     return tree
 
 
@@ -79,7 +84,7 @@ def load_numpy_params(net, params: Dict[str, Dict[str, np.ndarray]]) -> None:
     for si, sub in params.items():
         if si not in net.params:
             raise ValueError(f"layer {si!r} not in the network "
-                             f"(layers {sorted(net.params, key=int)})")
+                             f"(layers {sorted(net.params)})")
         for name, arr in sub.items():
             cur = net.params[si].get(name)
             if cur is None:
@@ -96,29 +101,54 @@ def load_numpy_params(net, params: Dict[str, Dict[str, np.ndarray]]) -> None:
     net.params_version += 1
 
 
-def write_model(net, path: str) -> None:
-    """Serialize a MultiLayerNetwork to one zip file, atomically: conf,
-    params, and the training state (updater state, layer state,
-    iteration) as numpy, so either package resumes training from it."""
+def snapshot(net) -> Dict[str, Any]:
+    """A host copy of everything that rebuilds ``net`` (kind, conf JSON,
+    params, updater state, layer state, iteration) as numpy, untouched
+    by further training."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
     net.init()
-    buf = io.BytesIO()
-    np.savez(buf, **_flatten(_to_numpy(net.params)))
-    extras = {
-        "updater_state": _to_numpy(net.updater_state),
-        "state": _to_numpy(net.state),
+    return {
+        "kind": ("multilayer" if isinstance(net, MultiLayerNetwork)
+                 else "graph"),
+        "conf_json": net.conf.to_json(),
+        "params": _to_numpy(net.params, copy=True),
+        "updater_state": _to_numpy(net.updater_state, copy=True),
+        "state": _to_numpy(net.state, copy=True),
         "iteration": int(net.iteration),
+    }
+
+
+def write_snapshot(snap: Dict[str, Any], path: str) -> None:
+    """Write a :func:`snapshot` to ``path`` as one zip, atomically (a
+    ``.tmp`` file renamed into place)."""
+    buf = io.BytesIO()
+    np.savez(buf, **_flatten(snap["params"]))
+    extras = {
+        "updater_state": snap["updater_state"],
+        "state": snap["state"],
+        "iteration": snap["iteration"],
     }
     tmp = path + ".tmp"
     with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
-        z.writestr("type", "multilayer")
-        z.writestr("conf.json", net.conf.to_json())
+        z.writestr("type", snap["kind"])
+        z.writestr("conf.json", snap["conf_json"])
         z.writestr("params.npz", buf.getvalue())
         z.writestr("extras.pkl", pickle.dumps(extras))
-    os.replace(tmp, path)
+    os.replace(tmp, path)   # atomic commit: no torn checkpoint on a crash
+
+
+def write_model(net, path: str) -> None:
+    """Serialize a MultiLayerNetwork or ComputationGraph to one zip file,
+    atomically: conf, params, and the training state (updater state,
+    layer state, iteration) as numpy, so either package resumes training
+    from it."""
+    write_snapshot(snapshot(net), path)
 
 
 def restore_model(path: str, device="cuda"):
-    """Load a model zip into a MultiLayerNetwork on ``device`` (default
+    """Load a model zip into a MultiLayerNetwork or ComputationGraph
+    (by its ``type``) on ``device`` (default
     ``"cuda"``; raises when CUDA is absent), with its updater state
     (Adam ``m``/``v``, ...) as tensors on the device and its iteration,
     so ``fit`` resumes where the writer stopped (the ``warmup_cosine``
@@ -133,17 +163,25 @@ def restore_model(path: str, device="cuda"):
         npz = np.load(io.BytesIO(z.read("params.npz")))
         params = _unflatten({k: npz[k] for k in npz.files})
         extras = pickle.loads(z.read("extras.pkl"))
-    if kind != "multilayer":
-        raise NotImplementedError(
-            f"{path} holds a {kind!r} model; the torch package restores "
-            "MultiLayerNetwork zips only")
-    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
-        MultiLayerConfiguration,
-    )
-    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    if kind == "multilayer":
+        from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+            MultiLayerConfiguration,
+        )
+        from deeplearning4j_tpu_torch.nn.multilayer import (
+            MultiLayerNetwork,
+        )
 
-    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
-                            device=dev).init()
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(conf_json), device=dev).init()
+    else:
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+            ComputationGraphConfiguration,
+        )
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+        net = ComputationGraph(
+            ComputationGraphConfiguration.from_json(conf_json),
+            device=dev).init()
     load_numpy_params(net, params)
     net.updater_state = _to_tensors(extras["updater_state"], dev)
     net.state = _to_tensors(extras["state"], dev)

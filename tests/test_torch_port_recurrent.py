@@ -31,7 +31,10 @@ from deeplearning4j_tpu.util.model_serializer import (
 )
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-from deeplearning4j_tpu_torch.nn.conf.enums import OptimizationAlgorithm
+from deeplearning4j_tpu_torch.nn.conf.enums import (
+    BackpropType,
+    OptimizationAlgorithm,
+)
 from deeplearning4j_tpu_torch.nn.layers import get_impl
 from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTMImpl
 from deeplearning4j_tpu_torch.nn.streaming import tree_leaves
@@ -312,14 +315,26 @@ def test_tbptt_detaches_the_carry_between_windows(zips, monkeypatch):
 
 
 def test_non_sgd_still_raises_naming_the_solver_item(zips):
-    _, tnet = _pair(zips, "tbptt")
+    """A truncated-BPTT conf trains its windows by SGD whatever its
+    ``optimization_algo``, as JAX's ``_fit_batch`` takes the TBPTT
+    branch first (the second-order solvers run only on a full-BPTT
+    conf); ``fit_scan`` refuses both, the TBPTT check first, then the
+    solver with JAX's message."""
+    from deeplearning4j_tpu.nn.conf.enums import OptimizationAlgorithm as JA
+
+    jnet, tnet = _pair(zips, "tbptt")
+    jnet.conf.confs[0].optimization_algo = JA.LBFGS
     tnet.conf.confs[0].optimization_algo = OptimizationAlgorithm.LBFGS
     x, y, _, _ = _data("GravesLSTM", t=11)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tnet.fit(x, y)
-    tnet.conf.confs[0].optimization_algo = (
-        OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT)
+    jnet.fit(x, y)
+    tnet.fit(x, y)
+    assert tnet.iteration == jnet.iteration == 3
+    np.testing.assert_allclose(float(tnet.score_value),
+                               float(jnet.score_value), rtol=LOSS_RTOL)
     with pytest.raises(ValueError, match="truncated-BPTT"):
+        tnet.fit_scan(x[None], y[None])
+    tnet.conf.backprop_type = BackpropType.STANDARD
+    with pytest.raises(ValueError, match="only supports SGD"):
         tnet.fit_scan(x[None], y[None])
 
 

@@ -536,16 +536,24 @@ def test_output_after_fit_uses_updated_bf16_weights(tmp_path):
 def test_unported_training_paths_raise(tmp_path):
     """Truncated BPTT trains through ``fit`` (its windows are
     ``tests/test_torch_port_recurrent.py``'s) and ``fit_scan`` refuses
-    it, as JAX's does; the second-order solvers still raise, naming
-    their ROADMAP item."""
-    _, net = _pair(tmp_path, **SMALL)
+    it, as JAX's does; ``fit_scan`` refuses a second-order solver with
+    JAX's message, and ``fit`` runs it (``optimize/solver.py``; the
+    solvers' own tests are ``tests/test_torch_port_solvers.py``), one
+    LBFGS iteration scoring as JAX's."""
+    from deeplearning4j_tpu.nn.conf.enums import OptimizationAlgorithm as JA
+
+    jnet, net = _pair(tmp_path, **SMALL)
     f, y = _markov(16, 2, 16)
     net.conf.backprop_type = BackpropType.TRUNCATED_BPTT
     with pytest.raises(ValueError, match="truncated-BPTT"):
         net.fit_scan(f[None], y[None])
     net.conf.backprop_type = BackpropType.STANDARD
     net.conf.confs[0].optimization_algo = OptimizationAlgorithm.LBFGS
-    with pytest.raises(NotImplementedError, match="Solver"):
+    jnet.conf.confs[0].optimization_algo = JA.LBFGS
+    with pytest.raises(ValueError, match="only supports SGD"):
         net.fit_scan(f[None], y[None])
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        net.fit(f, y)
+    jnet.fit(f, y)
+    net.fit(f, y)
+    assert net.iteration == jnet.iteration == 1
+    np.testing.assert_allclose(float(net.score_value),
+                               float(jnet.score_value), rtol=LOSS_RTOL)
