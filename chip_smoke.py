@@ -351,6 +351,37 @@ JAX or of the JAX package. Phases, each fatal on failure:
    ``LocalFileModelSaver`` and a ``CheckpointManager`` (the last 2 plus
    the best): the best model restores with its score, the manager's
    best step with outputs equal to it. The phase prints its seconds.
+21. host-fed training — (a) bench.py's ``bench_flagship`` model and
+   pool at full width (``transformer_lm_flagship(vocab=64, width=2048,
+   n_layers=8, n_heads=16)``, bf16, 403 M params; 1024 Markov sequences
+   of T=512 written as one DL4JTOK1 file) fed by
+   ``TokenSequenceFileIterator(batch_size=16)`` inside
+   ``NativeAsyncDataSetIterator(queue_size=8)`` (the C++ ring; the
+   native library built with g++ first, ``native_available()`` True)
+   into ``fit_stream(scan_steps=64)`` with a one-hot ingest: the first
+   window's 64 scores and the params after it bit-identical to
+   ``fit_scan`` on the same stacked window from the same params, Adam
+   state, iteration and generators; K1 launched 8 times a step forward
+   and backward; one captured step for the window key; finite scores
+   falling over 3 host-fed epochs, the second run with host syncs made
+   fatal (``set_sync_debug_mode("error")``); host-fed against device-resident
+   tokens/s, the data wait and peak memory reported. (b)
+   bench.py's ``bench_hostfed_cnn`` shape: ``wide_cnn(lr=0.005)`` at
+   bf16, 65,536 u8 images (192 MiB) in one CIFAR-binary file in a temp
+   dir, ``CifarBinStreamIterator`` inside the async wrapper into
+   ``fit_stream(scan_steps=64)`` with a u8 -> bf16 ingest,
+   ``sync_each_window`` False and True: finite, falling scores, one
+   capture, the second False epoch with host syncs fatal; both host-fed
+   / device-resident ratios reported; then the
+   real-patches fixture through 120 f32 ``fit`` steps, the held-out
+   accuracy reported. (c) The CLI in process: ``train`` of the zoo's
+   f32 ``lenet5()`` conf JSON on 2048 MNIST images (an ``.npz`` of
+   [N, 1, 28, 28]: the ``mnist`` source's flat rows do not fit a conv
+   conf, in either package) at batch 256 on the card, K3
+   (``conv_taps_f32``) launched on conv1 every step; ``test`` and
+   ``predict``; ``predict --raw`` on the card against the CPU's from
+   the same zip (argmax identical, within 1e-4); ``train --mesh dp=2``
+   exits naming ROADMAP item 11. The phase prints its seconds.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -367,9 +398,10 @@ chunks, ``paged_attention_verify`` (K2 at t=33) from phase
 17's K2 launches are gated in the phase, 18's are its children's;
 phase 19 adds 19a's K1 launches, fit and the counted ``fit_scan``
 window, at f32 and bf16, and 19b's K2 launches on its bf16 graph run,
-and phase 20 likewise 20a's and 20b's);
-K3's ``conv_taps`` and ``conv_taps_f32`` with
-their launches from phases 10 and 11; every f32 operations bound at the
+phase 20 likewise 20a's and 20b's, and phase 21 21a's host-fed
+epochs); K3's ``conv_taps`` and ``conv_taps_f32`` with their launches
+from phases 10 and 11 (``conv_taps_f32`` plus 21c's card ``train``,
+``test`` and ``predict``); every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when any phase fails or no card is present.
@@ -1094,10 +1126,10 @@ FLASH_FAULTS = {
 }
 
 
-def _flash_case(gen, t, dh, dtype, dev):
-    """q/k/v/dO from a seeded generator; q's row 3 (where T > 3) is zero
-    in every head."""
-    shape = (FLASH_B, FLASH_H, t, dh)
+def _flash_case(gen, t, dh, dtype, dev, b=FLASH_B, h=FLASH_H):
+    """q/k/v/dO [b, h, t, dh] from a seeded generator; q's row 3 (where
+    T > 3) is zero in every head."""
+    shape = (b, h, t, dh)
     q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                    for _ in range(4))
     if t > 3:
@@ -7202,6 +7234,539 @@ def graph_phase(card: str) -> dict:
     return launches
 
 
+# phase 21: host-fed training and the data runtime. (a) is
+# bench.py:bench_flagship's model and token pool fed from a DL4JTOK1
+# file, (b) bench.py:bench_hostfed_cnn's shape, (c) the CLI's train /
+# test / predict on LeNet-5.
+HOSTFED_VOCAB, HOSTFED_T, HOSTFED_B, HOSTFED_POOL = 64, 512, 16, 1024
+HOSTFED_WIDTH, HOSTFED_LAYERS, HOSTFED_HEADS = 2048, 8, 16
+HOSTFED_K = 64          # scan steps a window: the pool is one window
+# host-fed epochs: the first alone (one window, held against the first
+# fit_scan window), the other two through one fit_stream call (two
+# windows with no host sync between them: the second's upload is queued
+# while the first's replays run), held against fit_scan's second and
+# third windows
+HOSTFED_EPOCHS = 3
+HOSTFED_RESIDENT = 2    # device-resident windows timed after the capture
+HOSTFED_DENSE_STEPS = 4  # eager fit steps, K1 against dense attention
+HOSTFED_QUEUE = 8
+CNN_B, CNN_K = 1024, 64
+CNN_EPOCHS = 2          # host-fed epochs for each sync_each_window value
+CNN_RESIDENT = 2
+CNN_REAL_STEPS = 120
+CLI_EXAMPLES, CLI_BATCH, CLI_TEST = 2048, 256, 1024
+CLI_PREDICT_TOL = 1e-4
+
+
+def _one_hot_ingest(vocab, dtype):
+    """``fit_stream``'s device-side ingest for token ids: [K, B, T] ids
+    -> one-hot [K, B, V, T] at ``dtype``, as a comparison against an
+    ``arange`` on the ids' device (no range check, so no host read)."""
+    def ingest(ids):
+        classes = torch.arange(vocab, device=ids.device)[:, None]
+        return (ids.long()[..., None, :] == classes).to(dtype)
+    return ingest
+
+
+@contextlib.contextmanager
+def _no_host_sync(what: str):
+    """Run the block under ``torch.cuda.set_sync_debug_mode("error")``:
+    any host synchronisation in it is fatal."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        raise SystemExit(f"chip_smoke: {what} synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _net_state(net):
+    """What a train step moves: params, layer and updater state,
+    iteration and the generators' states (the host one and
+    ``fit_scan``'s per-layer ones)."""
+    clone = lambda t: {k: clone(v) for k, v in t.items()} if isinstance(
+        t, dict) else (t.clone() if isinstance(t, torch.Tensor) else t)
+    return (clone(net.params), clone(net.state), clone(net.updater_state),
+            net.iteration, net._gen.get_state(),
+            [g.get_state() for g in net._scan_generators()])
+
+
+def _set_net_state(net, saved) -> None:
+    params, state, upd, it, gen, scan_gens = saved
+    net.params, net.state, net.updater_state = params, state, upd
+    net.iteration = it
+    net.params_version += 1
+    net._gen.set_state(gen)
+    for g, st in zip(net._scan_generators(), scan_gens):
+        g.set_state(st)
+
+
+def _hostfed_conf(use_flash=None):
+    """21a's flagship conf at bf16 compute; ``use_flash=False`` gives
+    the dense-attention twin (None: the auto rule, K1 at T=512)."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
+
+    K = HOSTFED_K
+    conf = transformer_lm_flagship(
+        vocab=HOSTFED_VOCAB, width=HOSTFED_WIDTH, n_layers=HOSTFED_LAYERS,
+        n_heads=HOSTFED_HEADS, lr=2e-4, warmup_steps=K,
+        total_steps=(HOSTFED_EPOCHS + HOSTFED_RESIDENT + 1) * K)
+    for c in conf.confs:
+        c.compute_dtype = "bfloat16"
+        if use_flash is not None and hasattr(c.layer, "use_flash"):
+            c.layer.use_flash = use_flash
+    return conf
+
+
+def hostfed_k1_check() -> None:
+    """21a's K1 at the phase's own shape (B=16, H=16, T=512, dh=128,
+    bf16, causal: 256 (batch, head) tiles), forward and backward held
+    against the plain version on the f32 upcast at FLASH_TOL's bf16
+    limits; the planted faults at this shape must fail the limits of
+    both dtypes; a rerun bit for bit. Comparison launches: the counts
+    are put back."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    t, dh, bf16 = HOSTFED_T, HOSTFED_WIDTH // HOSTFED_HEADS, torch.bfloat16
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    q, k, v, do = _flash_case(gen, t, dh, bf16, dev, b=HOSTFED_B,
+                              h=HOSTFED_HEADS)
+    out, grads = _k1_grads(q, k, v, do, True)
+    qf, kf, vf = (a.float().requires_grad_(True) for a in (q, k, v))
+    ref = flash_attention_reference(qf, kf, vf, True)
+    ref_grads = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+    ref = ref.detach()
+    name = (f"21a: flash_attention B={HOSTFED_B}, H={HOSTFED_HEADS}, "
+            f"T={t}, dh={dh}, causal, bfloat16")
+    _flash_hold(name, bf16, out, grads, ref, ref_grads)
+    flash_fault_readings(q, k, v, do, ref, ref_grads)
+    flash_rerun_check(name, q, k, v, do, True)
+    flash_attention.launches, flash_attention.bwd_launches = before
+
+
+def hostfed_dense_check(card: str, net, toks: np.ndarray) -> None:
+    """21a's K1 against dense attention through the net:
+    HOSTFED_DENSE_STEPS eager ``fit`` steps on the pool's first batches
+    from the net's params, on K1 and on a ``use_flash=False`` twin; the
+    losses agree within PARITY_RTOL at bf16, K1 launched 8 times a step
+    each way on the K1 net and never on the twin. The params' max
+    difference is reported, not held (at bf16 Adam's normalized step
+    turns rounding-level gradient differences into lr-sized ones). The
+    caller restores the net's state; the counts are put back."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import flash_attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    V, B, T = HOSTFED_VOCAB, HOSTFED_B, HOSTFED_T
+    ids = toks.reshape(-1, B, T + 1)[:HOSTFED_DENSE_STEPS]
+    hot = np.eye(V, dtype=np.float32)[ids].transpose(0, 1, 3, 2)
+    batches = [(h[..., :-1], h[..., 1:]) for h in hot]
+    dense = MultiLayerNetwork(_hostfed_conf(False), device=DEVICE).init()
+    dense.set_params_flat(net.params_flat())
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    k_loss, k_wall = _train(net, batches)
+    fwd = flash_attention.launches - before[0]
+    bwd = flash_attention.bwd_launches - before[1]
+    d_loss, d_wall = _train(dense, batches)
+    dense_launches = flash_attention.launches - before[0] - fwd
+    flash_attention.launches, flash_attention.bwd_launches = before
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, d_loss))
+    pdiff = float((net.params_flat() - dense.params_flat()).abs().max())
+    log(f"21a: K1 vs dense attention, {HOSTFED_DENSE_STEPS} eager fit "
+        f"steps at B={B}, T={T}, bf16 from one set of params: K1 losses "
+        f"{[f'{x:.6f}' for x in k_loss]}, dense "
+        f"{[f'{x:.6f}' for x in d_loss]}; max rel diff {rel:.3e} (tol "
+        f"{PARITY_RTOL['bfloat16']}); max |param diff| {pdiff:.3e} (a "
+        f"report); K1 launches fwd {fwd}, bwd {bwd}, dense twin's "
+        f"{dense_launches}; s/step K1 {[round(w, 4) for w in k_wall]}, "
+        f"dense {[round(w, 4) for w in d_wall]} [{card}]")
+    want = HOSTFED_LAYERS * HOSTFED_DENSE_STEPS
+    if (not rel <= PARITY_RTOL["bfloat16"] or fwd != want or bwd != want
+            or dense_launches != 0
+            or not all(np.isfinite(k_loss + d_loss))):
+        raise SystemExit(
+            f"chip_smoke: phase 21a K1 vs dense failed: rel {rel}, K1 "
+            f"launches {fwd}/{bwd} (want {want}), dense twin's "
+            f"{dense_launches}")
+    del dense
+    torch.cuda.empty_cache()
+
+
+def hostfed_flagship_phase(card: str, tmp: str) -> dict:
+    """21a: the width-2048 flagship, bf16 compute, trained host-fed:
+    the Markov pool written once as a DL4JTOK1 file, read by
+    ``TokenSequenceFileIterator`` inside ``NativeAsyncDataSetIterator``
+    (the C++ ring) into ``fit_stream`` with a one-hot ingest. First K1
+    at the phase's shape against its plain version
+    (``hostfed_k1_check``) and through the net against dense attention
+    (``hostfed_dense_check``). Then, from one starting state, three
+    ``fit_scan`` windows on the stacked pool (the reference; the second
+    and third timed as the device-resident rate), and host-fed: one
+    epoch alone, then two epochs through one ``fit_stream`` call
+    (``MultipleEpochsIterator``, two windows, host syncs fatal), each
+    bit-identical to the matching ``fit_scan`` window (scores and
+    params). K1 8 times a step forward and backward; one captured step
+    for the window key; finite, falling scores. Host-fed against
+    device-resident tokens/s (JAX's ratio, bench.py:550), the data wait
+    and peak memory are reported. Returns K1's launches over the
+    host-fed epochs."""
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        MultipleEpochsIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.markov import (
+        make_chain,
+        sample_tokens,
+    )
+    from deeplearning4j_tpu_torch.datasets.streaming import (
+        TokenSequenceFileIterator,
+        write_token_file,
+    )
+    from deeplearning4j_tpu_torch.native_rt import (
+        NativeAsyncDataSetIterator,
+        native_available,
+    )
+    from deeplearning4j_tpu_torch.native_rt.lib import NativeLib
+    from deeplearning4j_tpu_torch.nn.layers.attention import flash_attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    earlier = NativeLib._instance is not None   # an earlier phase's load
+    t0 = time.perf_counter()
+    if not native_available():
+        raise SystemExit("chip_smoke: phase 21a: the native data library "
+                         "did not build (native_available() is False)")
+    log("21a: native data library (native/dl4j_native.cpp, g++ -O3) "
+        + ("loaded at its first use in an earlier phase" if earlier else
+           f"built and loaded in {time.perf_counter() - t0:.2f} s"))
+    hostfed_k1_check()
+    V, T, B, K = HOSTFED_VOCAB, HOSTFED_T, HOSTFED_B, HOSTFED_K
+    net = MultiLayerNetwork(_hostfed_conf(), device=DEVICE).init()
+    chain, _, floor = make_chain(V, seed=0)
+    toks = sample_tokens(chain, HOSTFED_POOL, T, seed=1)
+    path = os.path.join(tmp, "flagship_tokens.bin")
+    write_token_file(path, toks, vocab=V)
+    ingest = _one_hot_ingest(V, torch.bfloat16)
+
+    def stream(epochs=1):
+        base = TokenSequenceFileIterator(path, batch_size=B)
+        if epochs > 1:
+            base = MultipleEpochsIterator(epochs, base)
+        return NativeAsyncDataSetIterator(base, queue_size=HOSTFED_QUEUE)
+
+    saved = _net_state(net)
+    hostfed_dense_check(card, net, toks)
+    _set_net_state(net, saved)
+    # the same window stacked by hand, resident on the device
+    ids = torch.as_tensor(toks.reshape(-1, B, T + 1)[:K], device=DEVICE)
+    feats, labels = ingest(ids[..., :-1]), ingest(ids[..., 1:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [net.fit_scan(feats, labels).cpu()]     # captures the step
+    capture_s = time.perf_counter() - t0
+    want_params = [net.params_flat()]
+    res_rates = []
+    for _ in range(HOSTFED_RESIDENT):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want.append(net.fit_scan(feats, labels).cpu())
+        res_rates.append(K * B * T / (time.perf_counter() - t0))
+    want_params.append(net.params_flat())
+    _set_net_state(net, saved)
+    del saved
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    wait0 = net.train_telemetry.data_wait_s
+    torch.cuda.reset_peak_memory_stats()
+    host_rates, host_scores, same, same_params = [], [], [], []
+    for epochs, ref in ((1, 0), (HOSTFED_EPOCHS - 1, -1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the two-window call runs with host syncs made fatal: a
+        # window's upload, ingest and replays must not wait on the card
+        with (_no_host_sync("21a: two host-fed windows") if epochs > 1
+              else contextlib.nullcontext()):
+            scores = net.fit_stream(stream(epochs), scan_steps=K,
+                                    ingest=ingest, ingest_labels=ingest)
+        host_scores.append(scores.cpu())      # syncs the call
+        host_rates.append(epochs * K * B * T / (time.perf_counter() - t0))
+        same.append(bool(torch.equal(host_scores[-1], want[ref])))
+        same_params.append(bool(torch.equal(net.params_flat(),
+                                            want_params[ref])))
+    del want_params
+    peak = torch.cuda.max_memory_allocated()
+    data_wait = net.train_telemetry.data_wait_s - wait0
+    fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+    runner = net.train_graphs
+    first, last = host_scores[0], host_scores[-1]
+    finite = all(bool(torch.isfinite(s).all()) for s in host_scores)
+    falling = float(last.mean()) < float(first.mean())
+    steps = HOSTFED_EPOCHS * K
+    res = float(np.median(res_rates))
+    log(f"21a: flagship width {HOSTFED_WIDTH} x {HOSTFED_LAYERS}, bf16, "
+        f"{net.num_params() / 1e6:.1f} M params, B={B}, T={T}, pool "
+        f"{HOSTFED_POOL} from a DL4JTOK1 file through the C++ ring "
+        f"(queue {HOSTFED_QUEUE}) into fit_stream(scan_steps={K}), one-hot "
+        f"ingest; bit-identical to fit_scan on the same stacked windows "
+        f"(one window alone, then the last of two windows in one call): "
+        f"scores {same}, params {same_params}; mean score of fit_scan's "
+        f"windows {[round(float(s.mean()), 6) for s in want]}, host-fed "
+        f"{[round(float(s.mean()), 6) for s in host_scores]} (entropy "
+        f"floor {floor:.4f}); the two-window call under "
+        f"set_sync_debug_mode('error') without a host sync; K1 launches "
+        f"fwd {fwd}, bwd {bwd} over {steps} steps; {len(runner)} graph, "
+        f"{runner.captures} capture (the capture window "
+        f"{capture_s:.2f} s); host-fed {[round(r, 1) for r in host_rates]}"
+        f" tokens/s (one window; two windows in one call), device-"
+        f"resident {[round(r, 1) for r in res_rates]} tokens/s: ratios "
+        f"{[round(r / res, 4) for r in host_rates]} (against the median); "
+        f"data wait {data_wait:.4f} s over {HOSTFED_EPOCHS} epochs; peak "
+        f"memory {peak / 2**30:.3f} GiB [{card}]")
+    want_k1 = HOSTFED_LAYERS * steps
+    if (not all(same) or not all(same_params) or fwd != want_k1
+            or bwd != want_k1 or len(runner) != 1 or runner.captures != 1
+            or not finite or not falling):
+        raise SystemExit(
+            f"chip_smoke: phase 21a failed: identical {same} (params "
+            f"{same_params}), K1 {fwd}/{bwd} (want {want_k1}), graphs "
+            f"{len(runner)} ({runner.captures} captures), finite {finite}, "
+            f"falling {falling}")
+    del net, feats, labels, ids
+    torch.cuda.empty_cache()
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd}
+
+
+def _cifar_rows(path: str, n: int) -> np.ndarray:
+    """bench.py:bench_hostfed_cnn's template task as u8 pixels, written
+    as one CIFAR-binary file; returns the labels."""
+    rng = np.random.default_rng(0)
+    templates = rng.normal(size=(10, 3, 32, 32)).astype(np.float32)
+    cls = rng.integers(0, 10, n)
+    x = 0.5 * templates[cls] + rng.normal(size=(n, 3, 32, 32))
+    xu8 = np.clip((x + 4.0) * (255.0 / 8.0), 0, 255).astype(np.uint8)
+    rows = np.concatenate([cls.astype(np.uint8)[:, None],
+                           xu8.reshape(n, -1)], axis=1)
+    rows.tofile(path)
+    return cls
+
+
+def hostfed_cnn_phase(card: str, tmp: str) -> None:
+    """21b: ``wide_cnn(lr=0.005)`` at bf16 fed host-side as
+    bench.py:bench_hostfed_cnn: 65,536 u8 images (201 MB) in one
+    CIFAR-binary file, ``CifarBinStreamIterator`` inside
+    ``NativeAsyncDataSetIterator`` into ``fit_stream(scan_steps=64)``
+    with a u8 -> bf16 ingest, ``sync_each_window`` False and then True;
+    scores finite and falling, one captured step for the key; host-fed
+    against device-resident examples/s for both. Then bench.py's real
+    patches (the CIFAR-binary fixture) through ``fit`` for 120 steps,
+    the held-out accuracy reported. No TPU kernel runs here: the convs
+    have three or more input channels (cuDNN, as JAX's are ``lax.conv``
+    outside Pallas)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.fixtures import (
+        real_patches_cifar,
+    )
+    from deeplearning4j_tpu_torch.datasets.streaming import (
+        CifarBinStreamIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import wide_cnn
+    from deeplearning4j_tpu_torch.native_rt import NativeAsyncDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    B, K = CNN_B, CNN_K
+    conf = wide_cnn(lr=0.005)
+    for c in conf.confs:
+        c.compute_dtype = "bfloat16"
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    path = os.path.join(tmp, "train_batch.bin")
+    cls = _cifar_rows(path, K * B)
+    mib = os.path.getsize(path) / 2**20
+
+    def ingest(a):
+        return a.to(torch.bfloat16) * (8.0 / 255.0) - 4.0
+
+    raw = np.fromfile(path, np.uint8).reshape(K, B, 3073)
+    feats_dev = torch.as_tensor(raw[..., 1:].reshape(K, B, 3, 32, 32),
+                                device=DEVICE)
+    del raw
+    labels_dev = torch.as_tensor(np.eye(10, dtype=np.float32)[cls].reshape(
+        K, B, 10), device=DEVICE)
+    first = net.fit_scan(ingest(feats_dev), labels_dev).cpu()   # captures
+    res_rates = []
+    for _ in range(CNN_RESIDENT):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(net.fit_scan(ingest(feats_dev), labels_dev)[-1])
+        res_rates.append(K * B / (time.perf_counter() - t0))
+    del feats_dev, labels_dev
+    host = {}
+    last = None
+    for sync in (False, True):
+        rates = []
+        for epoch in range(CNN_EPOCHS):
+            it = NativeAsyncDataSetIterator(
+                CifarBinStreamIterator([path], batch_size=B),
+                queue_size=HOSTFED_QUEUE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (_no_host_sync("21b: a host-fed epoch")
+                  if not sync and epoch == 1 else contextlib.nullcontext()):
+                scores = net.fit_stream(it, scan_steps=K, ingest=ingest,
+                                        sync_each_window=sync)
+            last = scores.cpu()
+            rates.append(K * B / (time.perf_counter() - t0))
+        host[sync] = rates
+    runner = net.train_graphs
+    finite = bool(torch.isfinite(first).all() and torch.isfinite(last).all())
+    falling = float(last.mean()) < float(first.mean())
+    res = float(np.median(res_rates))
+    ratios = {s: float(np.median(r)) / res for s, r in host.items()}
+    log(f"21b: wide_cnn(lr=0.005), bf16, B={B}, {K * B} u8 images "
+        f"({mib:.1f} MiB) in one CIFAR-binary file through the C++ ring "
+        f"into fit_stream(scan_steps={K}); mean score first window "
+        f"{float(first.mean()):.6f}, last {float(last.mean()):.6f}; "
+        f"device-resident {[round(r, 1) for r in res_rates]} examples/s; "
+        f"host-fed sync_each_window=False "
+        f"{[round(r, 1) for r in host[False]]} (ratio "
+        f"{ratios[False]:.4f}), True {[round(r, 1) for r in host[True]]} "
+        f"(ratio {ratios[True]:.4f}; the second False epoch under "
+        f"set_sync_debug_mode('error') without a host sync); "
+        f"{len(runner)} graph, {runner.captures} capture [{card}]")
+    if (not finite or not falling or len(runner) != 1
+            or runner.captures != 1):
+        raise SystemExit(
+            f"chip_smoke: phase 21b failed: finite {finite}, falling "
+            f"{falling}, graphs {len(runner)} ({runner.captures} captures)")
+    del net
+    torch.cuda.empty_cache()
+    rtr, rte = real_patches_cifar(n_test=40, seed=0)
+    pad = lambda y: np.pad(np.asarray(y), ((0, 0), (0, 8)))  # noqa: E731
+    rnet = MultiLayerNetwork(wide_cnn(lr=0.01), device=DEVICE).init()
+    rds = DataSet(rtr.features, pad(rtr.labels))
+    t0 = time.perf_counter()
+    for _ in range(CNN_REAL_STEPS):
+        rnet.fit(rds)
+    out = rnet.output(rte.features).float().cpu().numpy()
+    fit_s = time.perf_counter() - t0
+    acc = float((out.argmax(1) == np.asarray(rte.labels).argmax(1)).mean())
+    log(f"21b: wide_cnn(lr=0.01) f32 on the real-patches fixture "
+        f"({rtr.num_examples()} train, {rte.num_examples()} held out), "
+        f"{CNN_REAL_STEPS} fit steps in {fit_s:.2f} s: held-out accuracy "
+        f"{acc:.4f} (a report; bench.py gates 0.9) [{card}]")
+    if not np.isfinite(out).all():
+        raise SystemExit("chip_smoke: phase 21b: non-finite outputs on "
+                         "the real patches")
+
+
+def cli_phase(card: str, tmp: str) -> int:
+    """21c: the CLI in process (``cli.driver.main``), so the launch
+    counters are read: ``train`` of the zoo's f32 ``lenet5()`` conf JSON
+    on 2048 MNIST images at batch 256, one epoch, on the card, K3
+    (``conv_taps`` on its CUDA-core kernel, ``conv_taps_f32``) launched
+    on conv1 at every step; ``test`` and ``predict`` on the zip;
+    ``predict --raw`` on the card against the CPU's from the same zip
+    (argmax identical, probabilities within 1e-4); ``train --mesh dp=2``
+    exits naming ROADMAP item 11. Both packages' ``mnist`` source gives
+    flat [N, 784] rows, which a conv conf does not take, so the images
+    go in as an ``.npz`` of [N, 1, 28, 28]. Returns K3's launches over
+    the card's train, test and predict."""
+    import io
+
+    from deeplearning4j_tpu_torch.cli.driver import main as cli
+    from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
+    from deeplearning4j_tpu_torch.models.zoo import lenet5
+    from deeplearning4j_tpu_torch.nn.layers.convolution import conv_taps
+
+    conf = os.path.join(tmp, "lenet5.json")
+    with open(conf, "w") as f:
+        f.write(lenet5().to_json())
+    data = {}
+    for name, train, n in (("train", True, CLI_EXAMPLES),
+                           ("test", False, CLI_TEST)):
+        ds = mnist_dataset(train=train, num_examples=n, as_image=True)
+        data[name] = os.path.join(tmp, f"mnist_{name}.npz")
+        np.savez(data[name], features=ds.features, labels=ds.labels)
+    model = os.path.join(tmp, "lenet5.zip")
+    conv_taps.launches = conv_taps.mma_launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc_train = cli(["train", "--conf", conf, "--input", data["train"],
+                        "--output", model, "--batch-size", str(CLI_BATCH),
+                        "--epochs", "1", "--device", DEVICE])
+    train_s = time.perf_counter() - t0
+    train_launches, train_mma = conv_taps.launches, conv_taps.mma_launches
+    with contextlib.redirect_stdout(out):
+        rc_test = cli(["test", "--model", model, "--input", data["test"],
+                       "--device", DEVICE])
+        preds = {}
+        for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+            if side == "cpu":
+                card_launches = conv_taps.launches
+            preds[side] = os.path.join(tmp, f"probs_{side}.csv")
+            rc = cli(["predict", "--model", model, "--input", data["test"],
+                      "--raw", "--has-labels", "--output", preds[side],
+                      "--device", dev])
+            if rc != 0:
+                raise SystemExit(f"chip_smoke: phase 21c: predict on {dev} "
+                                 f"returned {rc}")
+    text = out.getvalue()
+    acc_lines = [ln for ln in text.splitlines() if "Accuracy" in ln]
+    p_card = np.loadtxt(preds["card"], delimiter=",", ndmin=2)
+    p_cpu = np.loadtxt(preds["cpu"], delimiter=",", ndmin=2)
+    diff = float(np.abs(p_card - p_cpu).max())
+    same_argmax = bool((p_card.argmax(1) == p_cpu.argmax(1)).all())
+    try:
+        cli(["train", "--conf", conf, "--input", data["train"], "--output",
+             os.path.join(tmp, "mesh.zip"), "--mesh", "dp=2",
+             "--device", DEVICE])
+        mesh_msg = None
+    except SystemExit as e:
+        mesh_msg = str(e)
+    steps = -(-CLI_EXAMPLES // CLI_BATCH)
+    log(f"21c: cli train lenet5 (f32) on {CLI_EXAMPLES} MNIST images, "
+        f"batch {CLI_BATCH}, 1 epoch: rc {rc_train} in {train_s:.2f} s, K3 "
+        f"launches {train_launches} ({train_mma} on the tensor cores) over "
+        f"{steps} steps and the final score's forward; test rc {rc_test} "
+        f"({acc_lines[0].strip() if acc_lines else 'no accuracy line'}); "
+        f"predict --raw card vs CPU on {len(p_card)} images: argmax "
+        f"identical {same_argmax}, max |prob diff| {diff:.3e} (tol "
+        f"{CLI_PREDICT_TOL}); K3 launches over train, test and the card's "
+        f"predict {card_launches}; train --mesh dp=2: {mesh_msg!r} "
+        f"[{card}]")
+    if (rc_train != 0 or rc_test != 0 or train_launches != steps + 1
+            or train_mma != 0 or not same_argmax
+            or not diff <= CLI_PREDICT_TOL or not acc_lines
+            or mesh_msg is None or "item 11" not in mesh_msg):
+        raise SystemExit(
+            f"chip_smoke: phase 21c failed: train rc {rc_train} with K3 "
+            f"{train_launches} (want {steps + 1}, tensor cores "
+            f"{train_mma}), test rc {rc_test}, argmax identical "
+            f"{same_argmax}, prob diff {diff}, --mesh {mesh_msg!r}")
+    return card_launches
+
+
+def hostfed_phase(card: str) -> dict:
+    """Phase 21: 21a-21c in a temp dir removed afterwards; returns K1's
+    and K3's launches on their paths by kernel-line name."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hostfed_")
+    try:
+        launches = hostfed_flagship_phase(card, tmp)
+        hostfed_cnn_phase(card, tmp)
+        launches["conv_taps_f32"] = cli_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -7242,6 +7807,8 @@ def main() -> int:
     for name, n in rest_of_layers_phase(card).items():
         launches[name] += n
     for name, n in graph_phase(card).items():
+        launches[name] += n
+    for name, n in hostfed_phase(card).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

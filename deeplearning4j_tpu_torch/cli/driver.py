@@ -1,22 +1,35 @@
 """The command line: ``python -m deeplearning4j_tpu_torch.cli
-serve|route|fleet``.
+train|test|predict|serve|route|fleet|client``.
 
-The ``serve``, ``route`` and ``fleet`` subcommands of
-``deeplearning4j_tpu/cli/driver.py``. ``serve`` loads an LM-shaped model
-zip (either package's ``write_model``) onto the card (``--device``,
-default ``cuda``) and runs the streaming HTTP gateway over it
-(serving/gateway.py): blocking and SSE generation, cancel, metrics,
-drain to a snapshot on shutdown, restore on boot when the snapshot
-exists. ``route`` fronts running gateways (either package's) with the
-failure-tolerant prefix-affinity router (serving/router.py); ``fleet``
-spawns N ``serve`` children on the same ``--device``, the router over
-them and the SLO-driven fleet controller (serving/controller.py). The
-parsers are JAX's: ``--tenant`` (repeatable, ``TenantSpec.parse``'s
-spelling) turns on the weighted-fair scheduler,
-``--kv-host-tier-bytes``, ``--kv-disk-tier-path`` and
-``--kv-disk-tier-bytes`` the KV spill tiers; ``--tp``, the flag of the
-one knob the port does not carry yet, is parsed, and any value but 1
-exits with a message naming the ROADMAP item that brings it.
+The subcommands of ``deeplearning4j_tpu/cli/driver.py`` but ``worker``
+(which comes with scale-out, ROADMAP item 11). Every one that builds or
+loads a net takes ``--device`` (default ``cuda``; ``cpu`` on a host
+without a card).
+
+- ``train`` builds a net from a conf JSON (the model-config-is-the-wire-
+  format property) or a properties file, fits it on the input and saves
+  a model zip (the JAX package's format); ``test`` evaluates a zip and
+  prints ``Evaluation.stats()``; ``predict`` writes argmax classes, or
+  the probabilities with ``--raw``, as CSV (reference
+  deeplearning4j-cli Train/Test/Predict). Inputs: ``mnist``,
+  ``mnist-test``, ``iris``, a numeric CSV (last column the integer
+  class) or an ``.npz`` with ``features`` [+ ``labels``].
+- ``serve`` loads an LM-shaped model zip (either package's
+  ``write_model``) and runs the streaming HTTP gateway over it
+  (serving/gateway.py): blocking and SSE generation, cancel, metrics,
+  drain to a snapshot on shutdown, restore on boot when the snapshot
+  exists. ``route`` fronts running gateways (either package's) with the
+  failure-tolerant prefix-affinity router (serving/router.py); ``fleet``
+  spawns N ``serve`` children on the same ``--device``, the router over
+  them and the SLO-driven fleet controller (serving/controller.py).
+  ``client`` sends one generation to any of them (``GatewayClient``).
+
+The parsers are JAX's: ``--tenant`` (repeatable, ``TenantSpec.parse``'s
+spelling) turns on the weighted-fair scheduler, ``--kv-host-tier-bytes``,
+``--kv-disk-tier-path`` and ``--kv-disk-tier-bytes`` the KV spill tiers.
+The flags of the knobs the port does not carry yet (``serve --tp``,
+``train --mesh`` and ``--pp-interleave``) are parsed, and a value
+exits with a message naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -24,6 +37,9 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Optional, Tuple
+
+import numpy as np
 
 #: --use-flash-paged CLI spelling -> DecodeEngine toggle value (JAX's
 #: "interpret", the Pallas interpreter, has no counterpart here)
@@ -32,6 +48,8 @@ FLASH_PAGED_MODES = {"auto": None, "on": True, "off": False}
 #: flags of knobs the port refuses: (attribute, default, ROADMAP item)
 UNPORTED_FLAGS = (
     ("tp", 1, "11 (tensor parallelism)"),
+    ("mesh", None, "11 (data, tensor and pipeline parallel training)"),
+    ("pp_interleave", None, "11 (pipeline parallel training)"),
 )
 
 
@@ -45,6 +63,179 @@ def refuse_unported(args) -> None:
             raise SystemExit(
                 f"{flag} {value!r}: not ported to the torch package yet "
                 f"(ROADMAP item {item})")
+
+
+# ---------------------------------------------------------------------------
+# input resolution (the FileScheme / RecordReader role)
+# ---------------------------------------------------------------------------
+
+def load_csv(path: str, num_classes: Optional[int] = None,
+             label_column: int = -1) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Numeric CSV → (features, one-hot labels). ``label_column=None``
+    (via --no-labels) means feature-only input for predict."""
+    from deeplearning4j_tpu_torch.native_rt import read_csv
+
+    data = read_csv(path)
+    if label_column is None:
+        return data.astype(np.float32), None
+    labels_raw = data[:, label_column].astype(int)
+    feats = np.delete(data, label_column % data.shape[1], axis=1)
+    n_cls = num_classes or int(labels_raw.max()) + 1
+    labels = np.eye(n_cls, dtype=np.float32)[labels_raw]
+    return feats.astype(np.float32), labels
+
+
+def resolve_input(uri: str, num_classes: Optional[int] = None,
+                  with_labels: bool = True,
+                  num_examples: Optional[int] = None):
+    """URI/path → (features, labels|None)."""
+    if uri == "iris":
+        from deeplearning4j_tpu_torch.datasets.iris import iris_dataset
+
+        ds = iris_dataset()
+        return np.asarray(ds.features), np.asarray(ds.labels)
+    if uri in ("mnist", "mnist-test"):
+        from deeplearning4j_tpu_torch.datasets.mnist import mnist_dataset
+
+        ds = mnist_dataset(train=(uri == "mnist"),
+                           num_examples=num_examples)
+        return np.asarray(ds.features), np.asarray(ds.labels)
+    if not os.path.exists(uri):
+        raise FileNotFoundError(f"input not found: {uri}")
+    if uri.endswith(".npz"):
+        arc = np.load(uri)
+        feats = arc["features"].astype(np.float32)
+        labels = arc["labels"].astype(np.float32) if (
+            with_labels and "labels" in arc) else None
+        return feats, labels
+    return load_csv(uri, num_classes,
+                    label_column=-1 if with_labels else None)
+
+
+# ---------------------------------------------------------------------------
+# conf resolution (JSON conf or java-style properties file)
+# ---------------------------------------------------------------------------
+
+def _conf_from_properties(path: str):
+    """Minimal properties-file network spec (reference Train.java builds a
+    conf from a properties file): keys ``layers`` (comma sizes, e.g.
+    784,500,10), ``activation``, ``learning_rate``, ``updater``, ``seed``,
+    ``iterations``, ``loss``."""
+    props = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith(("#", "!")):
+                continue
+            key, _, value = line.partition("=")
+            props[key.strip()] = value.strip()
+
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration, Updater
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+
+    sizes = [int(s) for s in props["layers"].split(",")]
+    if len(sizes) < 2:
+        raise ValueError("properties 'layers' needs >=2 comma-separated sizes")
+    builder = (NeuralNetConfiguration.Builder()
+               .seed(int(props.get("seed", 12345)))
+               .iterations(int(props.get("iterations", 1)))
+               .learning_rate(float(props.get("learning_rate", 0.1)))
+               .updater(Updater[props.get("updater", "SGD").upper()])
+               .list())
+    act = props.get("activation", "relu")
+    loss = LossFunction[props.get("loss", "MCXENT").upper()]
+    for i in range(len(sizes) - 2):
+        builder.layer(i, L.DenseLayer(n_in=sizes[i], n_out=sizes[i + 1],
+                                      activation=act))
+    builder.layer(len(sizes) - 2,
+                  L.OutputLayer(n_in=sizes[-2], n_out=sizes[-1],
+                                activation="softmax", loss_function=loss))
+    return builder.build()
+
+
+def resolve_conf(path: str):
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import MultiLayerConfiguration
+
+    if path.endswith((".properties", ".props")):
+        return _conf_from_properties(path)
+    with open(path) as f:
+        return MultiLayerConfiguration.from_json(f.read())
+
+
+# ---------------------------------------------------------------------------
+# subcommands
+# ---------------------------------------------------------------------------
+
+def _cmd_train(args) -> int:
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        ScoreIterationListener,
+    )
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+
+    refuse_unported(args)
+    conf = resolve_conf(args.conf)
+    net = MultiLayerNetwork(conf, device=args.device).init()
+    if args.verbose:
+        net.set_listeners(ScoreIterationListener(10))
+    feats, labels = resolve_input(args.input, num_classes=args.num_classes,
+                                  num_examples=args.num_examples)
+    if labels is None:
+        raise ValueError("training input must include labels")
+    batch = args.batch_size or len(feats)
+    sets = [DataSet(feats[i:i + batch], labels[i:i + batch])
+            for i in range(0, len(feats), batch)]
+    for _ in range(args.epochs):
+        net.fit(ListDataSetIterator(sets))
+    write_model(net, args.output)
+    score = net.score(DataSet(feats[:batch], labels[:batch]))
+    print(f"saved model to {args.output} (final score {score:.6f})")
+    return 0
+
+
+def _outputs(net, feats) -> np.ndarray:
+    """The net's output on ``feats`` as float32 numpy on the host."""
+    return net.output(feats).float().cpu().numpy()
+
+
+def _cmd_test(args) -> int:
+    from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+
+    net = restore_model(args.model, device=args.device)
+    feats, labels = resolve_input(args.input, num_classes=args.num_classes,
+                                  num_examples=args.num_examples)
+    if labels is None:
+        raise ValueError("test input must include labels")
+    ev = Evaluation()
+    ev.eval(labels, _outputs(net, feats))
+    print(ev.stats())
+    return 0
+
+
+def _cmd_predict(args) -> int:
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+
+    net = restore_model(args.model, device=args.device)
+    feats, _ = resolve_input(args.input, with_labels=args.has_labels,
+                             num_examples=args.num_examples)
+    if args.raw:
+        rows = _outputs(net, feats)
+        fmt = "%.8f"
+    else:
+        rows = net.predict(feats).reshape(-1, 1)
+        fmt = "%d"
+    if args.output == "-":
+        np.savetxt(sys.stdout, rows, fmt=fmt, delimiter=",")
+    else:
+        np.savetxt(args.output, rows, fmt=fmt, delimiter=",")
+        print(f"wrote {rows.shape[0]} predictions to {args.output}")
+    return 0
 
 
 def tenants_from_args(args):
@@ -345,14 +536,114 @@ def _cmd_fleet(args) -> int:
     return 0
 
 
+def _cmd_client(args) -> int:
+    """One generation against a running gateway or router
+    (the ``client`` subcommand): the smallest way to exercise a serving
+    deployment — including its tenancy surface (``--tenant`` /
+    ``--priority`` ride the request; a 429 prints that tenant's own
+    Retry-After instead of dying with a traceback)."""
+    from deeplearning4j_tpu_torch.serving import GatewayClient, GatewayError
+
+    try:
+        prompt = [int(t) for t in args.prompt.split(",") if t.strip()]
+    except ValueError:
+        raise SystemExit(
+            f"--prompt {args.prompt!r}: expected comma-separated "
+            "token ids, e.g. '1,4,7,2'")
+    if not prompt:
+        raise SystemExit("--prompt must carry at least one token id")
+    kwargs = {}
+    if args.tenant is not None:
+        kwargs["tenant"] = args.tenant
+    if args.priority is not None:
+        kwargs["priority"] = args.priority
+    if args.temperature:
+        kwargs["temperature"] = args.temperature
+    client = GatewayClient(args.address, timeout_s=args.timeout)
+    try:
+        if args.stream:
+            stream = client.stream(prompt, args.max_new_tokens,
+                                   **kwargs)
+            tokens = []
+            for delta in stream:
+                tokens.extend(delta)
+                print(f"delta: {delta}", flush=True)
+            result = stream.result or {}
+        else:
+            result = client.generate(prompt, args.max_new_tokens,
+                                     **kwargs)
+            tokens = result.get("tokens", [])
+    except GatewayError as e:
+        if e.status == 429:
+            tenant = e.payload.get("tenant")
+            print(f"429 throttled"
+                  + (f" (tenant {tenant})" if tenant else "")
+                  + f": retry after {e.retry_after_s}s "
+                  f"({e.payload.get('error')})")
+            return 2
+        raise SystemExit(f"request failed: {e}")
+    print(f"tokens: {tokens}")
+    print(f"finish_reason: {result.get('finish_reason')}"
+          + (f" tenant: {result['tenant']}"
+             if result.get("tenant") else ""))
+    return 0 if result.get("finish_reason") in ("length", "eos") \
+        else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m deeplearning4j_tpu_torch.cli",
-        description="Serve deeplearning4j_tpu_torch models: one "
-                    "gateway, a router over gateways, or an elastic "
-                    "fleet (the serve, route and fleet subcommands "
-                    "of the JAX package's CLI).")
+        description="Train, test and predict with "
+                    "deeplearning4j_tpu_torch models, and serve them: "
+                    "one gateway, a router over gateways, or an "
+                    "elastic fleet (the JAX package's CLI but "
+                    "worker).")
     sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp, model_in: bool):
+        sp.add_argument("--input", required=True,
+                        help="data source: mnist | mnist-test | iris | "
+                             "path.csv | path.npz")
+        sp.add_argument("--num-classes", type=int, default=None)
+        sp.add_argument("--num-examples", type=int, default=None,
+                        help="cap examples loaded from built-in datasets")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device the net runs on (default "
+                             "cuda; cpu for a card-less host)")
+        if model_in:
+            sp.add_argument("--model", required=True,
+                            help="model zip from train (either "
+                                 "package's)")
+
+    t = sub.add_parser("train", help="fit a network and save a model zip")
+    common(t, model_in=False)
+    t.add_argument("--conf", required=True,
+                   help="MultiLayerConfiguration JSON or .properties file")
+    t.add_argument("--output", required=True, help="model zip path")
+    t.add_argument("--epochs", type=int, default=1)
+    t.add_argument("--batch-size", type=int, default=None)
+    t.add_argument("--verbose", action="store_true")
+    t.add_argument("--mesh", default=None,
+                   help="device mesh, e.g. 'dp=8' (not ported: any "
+                        "value exits)")
+    t.add_argument("--pp-interleave", type=int, default=None,
+                   help="pipeline virtual-stage interleave depth (not "
+                        "ported: any value exits)")
+    t.set_defaults(fn=_cmd_train)
+
+    e = sub.add_parser("test", help="evaluate a saved model")
+    common(e, model_in=True)
+    e.set_defaults(fn=_cmd_test)
+
+    r = sub.add_parser("predict", help="write predictions for an input")
+    common(r, model_in=True)
+    r.add_argument("--output", default="-",
+                   help="CSV path or '-' for stdout")
+    r.add_argument("--raw", action="store_true",
+                   help="write class probabilities instead of argmax")
+    r.add_argument("--has-labels", action="store_true",
+                   help="input CSV has a trailing label column to strip")
+    r.set_defaults(fn=_cmd_predict)
 
     s = sub.add_parser(
         "serve",
@@ -561,6 +852,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "batched (default: SIGKILL-safe, fsync "
                          "coalesced), off (flush-only)")
     rt.set_defaults(fn=_cmd_route)
+
+    cl = sub.add_parser(
+        "client",
+        help="send one generation to a running serve/route/fleet "
+             "deployment (--tenant/--priority ride the request)")
+    cl.add_argument("--address", required=True,
+                    help="gateway or router address host:port")
+    cl.add_argument("--prompt", required=True,
+                    help="comma-separated token ids, e.g. '1,4,7,2'")
+    cl.add_argument("--max-new-tokens", type=int, default=16)
+    cl.add_argument("--tenant", default=None,
+                    help="tenant to bill the request against "
+                         "(quotas, rate limits, priority class; "
+                         "default = the unlabeled 'default' class)")
+    cl.add_argument("--priority", type=int, default=None,
+                    help="per-request priority override, clamped to "
+                         "the tenant's class (you can lower your own "
+                         "batch traffic, never self-boost)")
+    cl.add_argument("--temperature", type=float, default=0.0)
+    cl.add_argument("--stream", action="store_true",
+                    help="SSE streaming instead of one blocking call")
+    cl.add_argument("--timeout", type=float, default=120.0)
+    cl.set_defaults(fn=_cmd_client)
     return p
 
 

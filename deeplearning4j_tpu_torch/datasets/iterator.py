@@ -1,12 +1,12 @@
-"""DataSetIterator SPI and the iterators the CNN slice uses.
+"""DataSetIterator SPI + combinators.
 
-Copy of ``DataSetIterator``, ``BaseDataSetIterator``,
-``ListDataSetIterator`` and ``AsyncDataSetIterator`` from
-``deeplearning4j_tpu/datasets/iterator.py`` (numpy only): the reference
-DataSetIterator.java:54 contract (next(num), totalExamples,
+A copy of ``deeplearning4j_tpu/datasets/iterator.py`` (numpy only): the
+reference DataSetIterator.java:54 contract (next(num), totalExamples,
 inputColumns, reset, preprocessor hook), a cursor over in-memory
-arrays, a list of DataSets, and a background prefetch thread with a
-bounded blocking queue.
+arrays, a list of DataSets, a background prefetch thread with a bounded
+blocking queue, MultipleEpochsIterator, SamplingDataSetIterator, the
+TestDataSetIterator wrapper (datasets/test/TestDataSetIterator.java),
+ReconstructionDataSetIterator and MovingWindowDataSetIterator.
 
 Iterators are Python iterables of :class:`DataSet`; ``reset()`` rewinds.
 """
@@ -16,6 +16,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, List, Optional
+
+import numpy as np
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 
@@ -276,3 +278,204 @@ class AsyncDataSetIterator(DataSetIterator):
 
     def total_outcomes(self) -> int:
         return self._base.total_outcomes()
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replay a base iterator N times (reference MultipleEpochsIterator)."""
+
+    def __init__(self, num_epochs: int, base: DataSetIterator):
+        super().__init__(base.batch)
+        self._base = base
+        self.num_epochs = num_epochs
+        self._epoch = 0
+
+    def next(self, num: Optional[int] = None) -> Optional[DataSet]:
+        ds = self._base.next(num)
+        if ds is None:
+            self._epoch += 1
+            if self._epoch >= self.num_epochs:
+                return None
+            self._base.reset()
+            ds = self._base.next(num)
+        return self._post(ds)
+
+    def reset(self) -> None:
+        self._epoch = 0
+        self._base.reset()
+
+    def state_dict(self) -> dict:
+        return {"epoch": self._epoch, "base": self._base.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._epoch = int(state["epoch"])
+        self._base.load_state_dict(state["base"])
+
+    def total_examples(self) -> int:
+        return self._base.total_examples() * self.num_epochs
+
+    def input_columns(self) -> int:
+        return self._base.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self._base.total_outcomes()
+
+
+class SamplingDataSetIterator(DataSetIterator):
+    """Sample batches with replacement from one DataSet (reference
+    SamplingDataSetIterator)."""
+
+    def __init__(
+        self,
+        dataset: DataSet,
+        batch_size: int,
+        total_num_samples: int,
+        seed: int = 123,
+    ):
+        super().__init__(batch_size)
+        self._data = dataset
+        self._total = total_num_samples
+        self._given = 0
+        self._rng = np.random.default_rng(seed)
+
+    def next(self, num: Optional[int] = None) -> Optional[DataSet]:
+        n = num or self.batch
+        if self._given >= self._total:
+            return None
+        idx = self._rng.integers(0, self._data.num_examples(), size=n)
+        self._given += n
+        return self._post(self._data.get_examples(idx))
+
+    def reset(self) -> None:
+        self._given = 0
+
+    def state_dict(self) -> dict:
+        return {"given": self._given, "rng": self._rng.bit_generator.state}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._given = int(state["given"])
+        self._rng.bit_generator.state = state["rng"]
+
+    def total_examples(self) -> int:
+        return self._total
+
+    def input_columns(self) -> int:
+        return self._data.num_inputs()
+
+    def total_outcomes(self) -> int:
+        return self._data.num_outcomes()
+
+
+class TestDataSetIterator(DataSetIterator):
+    """Wrapper that tracks call counts for iterator-contract tests
+    (reference datasets/test/TestDataSetIterator.java)."""
+
+    def __init__(self, base: DataSetIterator):
+        super().__init__(base.batch)
+        self._base = base
+        self.next_calls = 0
+        self.reset_calls = 0
+
+    def next(self, num: Optional[int] = None) -> Optional[DataSet]:
+        self.next_calls += 1
+        return self._post(self._base.next(num))
+
+    def reset(self) -> None:
+        self.reset_calls += 1
+        self._base.reset()
+
+    def state_dict(self) -> dict:
+        return self._base.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self._base.load_state_dict(state)
+
+    def total_examples(self) -> int:
+        return self._base.total_examples()
+
+    def input_columns(self) -> int:
+        return self._base.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self._base.total_outcomes()
+
+
+class ReconstructionDataSetIterator(DataSetIterator):
+    """Wraps an iterator, replacing labels with the features themselves —
+    autoencoder/reconstruction training (reference datasets/iterator/
+    ReconstructionDataSetIterator.java)."""
+
+    def __init__(self, base: DataSetIterator):
+        super().__init__(base.batch)
+        self.base = base
+
+    def next(self, num: Optional[int] = None) -> Optional[DataSet]:
+        ds = self.base.next(num)
+        if ds is None:
+            return None
+        return self._post(
+            DataSet(ds.features, ds.features,
+                    ds.features_mask, ds.features_mask)
+        )
+
+    def reset(self) -> None:
+        self.base.reset()
+
+    def total_examples(self) -> int:
+        return self.base.total_examples()
+
+    def input_columns(self) -> int:
+        return self.base.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self.base.input_columns()
+
+    def state_dict(self) -> dict:
+        return self.base.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.base.load_state_dict(state)
+
+
+class MovingWindowDataSetIterator(BaseDataSetIterator):
+    """Slides a (rows x cols) window over each example matrix, emitting
+    each window as one flattened feature row (reference
+    datasets/iterator/MovingWindowBaseDataSetIterator.java backed by
+    util/MovingWindowMatrix)."""
+
+    def __init__(self, data: DataSet, window_rows: int, window_cols: int,
+                 batch_size: int = 10, rotate: int = 0):
+        from deeplearning4j_tpu_torch.util.moving_window import (
+            moving_window_matrices,
+        )
+
+        rows = []
+        labels = []
+        for i in range(data.num_examples()):
+            mat = np.asarray(data.features[i])
+            if mat.ndim == 1:
+                side = int(np.sqrt(mat.shape[0]))
+                if side * side != mat.shape[0]:
+                    raise ValueError(
+                        f"1-D feature rows must have square length to "
+                        f"window over; got {mat.shape[0]}"
+                    )
+                mat = mat.reshape(side, side)
+            elif mat.ndim != 2:
+                raise ValueError(
+                    f"windowing needs [rows, cols] examples; got "
+                    f"shape {mat.shape}"
+                )
+            for w in moving_window_matrices(
+                mat, window_rows, window_cols, rotate=rotate
+            ):
+                rows.append(w.reshape(-1))
+                if data.labels is not None:
+                    labels.append(data.labels[i])
+        feats = np.asarray(rows, np.float32)
+        labs = np.asarray(labels, np.float32) if labels else None
+        super().__init__(batch_size, DataSet(feats, labs))
+
+    def total_outcomes(self) -> int:
+        return (
+            0 if self._data.labels is None else self._data.num_outcomes()
+        )

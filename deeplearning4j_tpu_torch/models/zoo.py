@@ -1,7 +1,8 @@
-"""Model zoo: the MLP, LeNet-5, recurrent, transformer, mixture-of-
-experts and DBN builders.
+"""Model zoo: the MLP, LeNet-5, wide CNN, recurrent, transformer,
+mixture-of-experts and DBN builders.
 
-Port of ``mlp``, ``lenet5``, ``image_captioner``, ``lstm_classifier``,
+Port of ``mlp``, ``lenet5``, ``wide_cnn``, ``image_captioner``,
+``lstm_classifier``,
 ``transformer_lm``, ``transformer_lm_flagship``, ``moe_transformer_lm``
 and ``dbn`` from ``deeplearning4j_tpu/models/zoo.py``: the same
 builders, producing the same conf JSON.
@@ -108,6 +109,56 @@ def lenet5(
                 loss_function=LossFunction.MCXENT,
             ),
         )
+        .set_input_type(InputType.convolutional(height, width, channels))
+        .build()
+    )
+
+
+def wide_cnn(
+    height: int = 32,
+    width: int = 32,
+    channels: int = 3,
+    n_classes: int = 10,
+    lr: float = 0.05,
+    seed: int = 12345,
+):
+    """CIFAR-scale modern-width CNN (64/128-channel 3x3 convs): the
+    conv-MFU control experiment — same conv machinery as lenet5 but
+    with contraction sizes a matrix unit can fill, demonstrating the
+    framework's conv ceiling when the ARCHITECTURE permits. Its convs
+    have three or more input channels, so none runs on K3 (which takes
+    one-channel images): they are cuDNN's, as JAX computes them with
+    ``lax.conv`` outside Pallas."""
+    return (
+        NeuralNetConfiguration.Builder()
+        .seed(seed)
+        .learning_rate(lr)
+        .updater(Updater.NESTEROVS)
+        .momentum(0.9)
+        .weight_init(WeightInit.XAVIER)
+        .list()
+        .layer(0, L.ConvolutionLayer(
+            n_out=64, kernel_size=(3, 3), stride=(1, 1),
+            padding=(1, 1), activation="relu"))
+        .layer(1, L.ConvolutionLayer(
+            n_out=64, kernel_size=(3, 3), stride=(1, 1),
+            padding=(1, 1), activation="relu"))
+        .layer(2, L.SubsamplingLayer(
+            pooling_type=L.PoolingType.MAX,
+            kernel_size=(2, 2), stride=(2, 2)))
+        .layer(3, L.ConvolutionLayer(
+            n_out=128, kernel_size=(3, 3), stride=(1, 1),
+            padding=(1, 1), activation="relu"))
+        .layer(4, L.ConvolutionLayer(
+            n_out=128, kernel_size=(3, 3), stride=(1, 1),
+            padding=(1, 1), activation="relu"))
+        .layer(5, L.SubsamplingLayer(
+            pooling_type=L.PoolingType.MAX,
+            kernel_size=(2, 2), stride=(2, 2)))
+        .layer(6, L.DenseLayer(n_out=256, activation="relu"))
+        .layer(7, L.OutputLayer(
+            n_out=n_classes, activation="softmax",
+            loss_function=LossFunction.MCXENT))
         .set_input_type(InputType.convolutional(height, width, channels))
         .build()
     )

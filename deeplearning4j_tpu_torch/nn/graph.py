@@ -12,7 +12,8 @@ truncated BPTT), ``fit_scan`` (one captured train step per key on the
 card), ``rnn_time_step``, ``generate``, ``pretrain``, ``output``,
 ``feed_forward``, ``score``, ``compute_gradient_and_score``,
 ``evaluate``, the flat-parameter surface, ``clone`` and ``save`` /
-``load``.
+``load``, and ``fit_stream`` (host-fed windows of DataSet / MultiDataSet
+batches, as ``MultiLayerNetwork.fit_stream``).
 
 Parameters are ``{vertex name: {name: Tensor}}`` dicts with the JAX
 package's keys, on the net's ``device``. ``init`` draws every layer
@@ -21,7 +22,7 @@ seeded with the first layer vertex's seed (the numbers differ from
 JAX's; load a model zip to match it). Training dropout draws one
 generator per layer vertex per step in sorted vertex order, as JAX
 splits its key; trajectories with dropout match JAX only in
-distribution. ``fit_stream`` raises (ROADMAP Queue 1 item 10).
+distribution.
 """
 
 from __future__ import annotations
@@ -299,24 +300,31 @@ class ComputationGraph(BaseNetwork):
         return reg
 
     # ------------------------------------------------------------------
-    def _coerce_multi(self, data) -> Tuple[Dict[str, torch.Tensor],
-                                           List[torch.Tensor],
-                                           Optional[Dict], Optional[Dict]]:
+    def _coerce_multi(self, data, host: bool = False) -> Tuple[
+            Dict, List, Optional[Dict], Optional[Dict]]:
         """(inputs by name, labels per output, feature masks by input
         name or None, label masks by output name or None) from a
         ``DataSet`` (single input and output), a ``MultiDataSet`` or a
-        (features list, labels list) pair, as tensors on the device."""
+        (features list, labels list) pair, as tensors on the device; with
+        ``host``, as numpy arrays in their own dtype and with no device
+        transfer, so a ``fit_stream`` window keeps its wire format (u8
+        pixels, integer ids) until its one upload."""
         from deeplearning4j_tpu_torch.datasets.dataset import (
             DataSet,
             MultiDataSet,
         )
 
         ins, outs = self.conf.network_inputs, self.conf.network_outputs
+        if host:
+            conv = mask_conv = np.asarray
+        else:
+            conv = lambda a: self._tensor(a, self._dtype)  # noqa: E731
+            mask_conv = self._tensor
 
-        def named(names, arrays, dtype=None):
+        def named(names, arrays, to):
             if arrays is None:
                 return None
-            return {n: self._tensor(a, dtype) for n, a in zip(names, arrays)
+            return {n: to(a) for n, a in zip(names, arrays)
                     if a is not None} or None
 
         if isinstance(data, MultiDataSet):
@@ -328,18 +336,17 @@ class ComputationGraph(BaseNetwork):
                 raise ValueError(
                     f"MultiDataSet has {len(data.labels)} label arrays but "
                     f"graph has {len(outs)} outputs")
-            return (named(ins, data.features, self._dtype),
-                    [self._tensor(y, self._dtype) for y in data.labels],
-                    named(ins, data.features_masks),
-                    named(outs, data.labels_masks))
+            return (named(ins, data.features, conv),
+                    [conv(y) for y in data.labels],
+                    named(ins, data.features_masks, mask_conv),
+                    named(outs, data.labels_masks, mask_conv))
         if isinstance(data, DataSet):
-            return ({ins[0]: self._tensor(data.features, self._dtype)},
-                    [self._tensor(data.labels, self._dtype)],
-                    named(ins[:1], [data.features_mask]),
-                    named(outs[:1], [data.labels_mask]))
+            return ({ins[0]: conv(data.features)}, [conv(data.labels)],
+                    named(ins[:1], [data.features_mask], mask_conv),
+                    named(outs[:1], [data.labels_mask], mask_conv))
         features, labels = data
-        return (named(ins, features, self._dtype),
-                [self._tensor(y, self._dtype) for y in labels], None, None)
+        return (named(ins, features, conv), [conv(y) for y in labels],
+                None, None)
 
     def _inputs(self, features) -> Dict[str, torch.Tensor]:
         return {n: torch.as_tensor(f, dtype=self._dtype, device=self.device)
@@ -531,11 +538,92 @@ class ComputationGraph(BaseNetwork):
         return scores
 
     def fit_stream(self, iterator, scan_steps: int = 16, ingest=None,
-                   ingest_labels=None, sync_each_window: bool = False):
-        raise NotImplementedError(
-            "ComputationGraph.fit_stream (host-fed windows over the native "
-            "iterator) is not ported to the torch package yet (ROADMAP "
-            "Queue 1 item 10); stack batches and call fit_scan")
+                   ingest_labels=None,
+                   sync_each_window: bool = False) -> torch.Tensor:
+        """Host-fed graph training, ``MultiLayerNetwork.fit_stream`` for
+        DataSet / MultiDataSet batches: ``scan_steps`` batches stacked
+        into [K, B, ...] arrays per input and output on the host, one
+        upload per window (``_upload_window``), one ``fit_scan`` call.
+        ``ingest`` gets the stacked input dict and ``ingest_labels`` the
+        label list, both on the device, on fused windows and on ragged
+        tails alike (stacked [1, B, ...], then trained batch by batch
+        with ``fit``). A window that mixes batches with and without
+        masks, or mask name sets, raises. Returns the last window's
+        scores."""
+        from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+        from deeplearning4j_tpu_torch.nn.multilayer import (
+            device_batch,
+            window_masks,
+        )
+        from deeplearning4j_tpu_torch.nn.streaming_fit import (
+            drive_stream_windows,
+        )
+
+        self.init()
+        ins, outs = self.conf.network_inputs, self.conf.network_outputs
+        scores = None
+
+        def stack_masks(per_batch, what):
+            per_batch = window_masks(per_batch, what)
+            if per_batch is None:
+                return None
+            names = sorted(per_batch[0])
+            if any(sorted(m) != names for m in per_batch):
+                raise ValueError(
+                    f"fit_stream window mixes {what} name sets")
+            ups = self._upload_window(
+                [[m[k] for m in per_batch] for k in names], False)
+            return dict(zip(names, ups))
+
+        def stacked(window):
+            multi = [self._coerce_multi(b, host=True) for b in window]
+            fm = stack_masks([c[2] for c in multi], "feature masks")
+            lm = stack_masks([c[3] for c in multi], "label masks")
+            names = list(multi[0][0])
+            n_out = len(multi[0][1])
+            ups = self._upload_window(
+                [[c[0][k] for c in multi] for k in names]
+                + [[c[1][i] for c in multi] for i in range(n_out)],
+                sync_each_window)
+            inputs = dict(zip(names, ups[:len(names)]))
+            labels = ups[len(names):]
+            if ingest is not None:
+                inputs = ingest(inputs)
+            if ingest_labels is not None:
+                labels = ingest_labels(labels)
+            return inputs, list(labels), fm, lm
+
+        def flush(window, fused):
+            nonlocal scores
+            if fused:
+                inputs, labels, fm, lm = stacked(window)
+                scores = self.fit_scan(inputs, labels, masks_stacked=fm,
+                                       label_masks_stacked=lm)
+                if sync_each_window:
+                    float(scores[-1])
+                return
+            for b in window:   # ragged: correctness over throughput
+                inputs, labels, fm, lm = stacked([b])
+                self._fit_one(device_batch(
+                    MultiDataSet,
+                    features=[inputs[n][0] for n in ins],
+                    labels=[y[0] for y in labels],
+                    features_masks=None if fm is None else [
+                        fm[n][0] if n in fm else None for n in ins],
+                    labels_masks=None if lm is None else [
+                        lm[n][0] if n in lm else None for n in outs]))
+            scores = self._last_score()
+
+        def batch_shape(ds):
+            # label shapes too: identical features with variable-length
+            # labels must also break a window
+            inputs, labels, _, _ = self._coerce_multi(ds, host=True)
+            return ({k: np.shape(v) for k, v in inputs.items()},
+                    tuple(np.shape(y) for y in labels))
+
+        drive_stream_windows(iterator, scan_steps, flush, batch_shape,
+                             telemetry=self.train_telemetry)
+        return scores
 
     # ------------------------------------------------------------------
     # Streaming inference (reference rnnTimeStep :1196)

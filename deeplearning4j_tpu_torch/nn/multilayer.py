@@ -37,12 +37,19 @@ Truncated BPTT runs each window's step eagerly, the carried recurrent
 state detached between windows. A conf whose ``optimization_algo`` is not
 SGD trains through the line-search solvers (``optimize/solver.py``) over
 the flat parameter vector (``params_flat``, in the JAX package's
-``ravel_pytree`` order). Still out of the port: ``fit_stream`` (ROADMAP
-Queue 1 item 10).
+``ravel_pytree`` order).
+
+``fit_stream`` is host-fed training: batches from an iterator (an
+async prefetcher over files on disk, ``native_rt``) are stacked into
+``scan_steps``-step windows in pinned host memory, uploaded in one copy
+per window on a copy stream while the device trains on the previous
+window, and trained by ``fit_scan``; a ragged tail trains batch by
+batch (``nn/streaming_fit.py``).
 
 :class:`BaseNetwork` holds what ``MultiLayerNetwork`` and
 ``ComputationGraph`` share: the train step under autograd, the captured
-``fit_scan`` window, the flat-parameter surface and the listeners.
+``fit_scan`` window, ``fit_stream``'s window upload, the flat-parameter
+surface and the listeners.
 """
 
 from __future__ import annotations
@@ -214,6 +221,28 @@ def layer_update(c, updater, grads, upd_state, iteration: int,
     if scalars is None:
         scalars = updater.step_scalars(resolve_lr(c, iteration), iteration)
     return updater.apply(g, upd_state, scalars)
+
+
+def device_batch(cls, **fields):
+    """A ``DataSet`` / ``MultiDataSet`` (``cls``) holding ``fields`` as
+    given (tensors on the net's device), without the numpy conversion of
+    its constructor: ``fit_stream``'s ragged batches after ``ingest``."""
+    batch = cls.__new__(cls)
+    for name, value in fields.items():
+        setattr(batch, name, value)
+    return batch
+
+
+def window_masks(masks, what: str):
+    """The per-batch masks of one ``fit_stream`` window: None when no
+    batch has one, else the list; a window that mixes batches with and
+    without a mask raises."""
+    if all(m is None for m in masks):
+        return None
+    if any(m is None for m in masks):
+        raise ValueError(
+            f"fit_stream window mixes batches with and without {what}")
+    return masks
 
 
 class BaseNetwork:
@@ -441,6 +470,55 @@ class BaseNetwork:
         if self.train_graphs is not None:
             self.train_graphs.generators = tuple(self._scan_gens)
         return self._scan_gens
+
+    def _upload_window(self, stacks, sync: bool) -> List[torch.Tensor]:
+        """``fit_stream``'s transport: each entry of ``stacks``, a list of
+        same-shaped host arrays, stacked into one [K, ...] tensor on the
+        net's device, in the arrays' own dtype (the wire format: u8
+        pixels, integer ids).
+
+        On the card each stack is written straight into pinned host
+        memory and goes up in one copy on the net's copy stream; the
+        current stream waits for it through an event, so the upload of
+        a window runs while the device still trains on the one before
+        it. The copy lands in a fresh buffer (handed to the current
+        stream with ``record_stream``), never in a captured graph's
+        static inputs, which only the graph's own input copies write, in
+        stream order. The host does not wait for the copy unless
+        ``sync`` (``sync_each_window``). On the CPU the stacks are the
+        tensors."""
+        on_card = self.device.type == "cuda"
+        hosts = []
+        for arrays in stacks:
+            arrays = [np.asarray(a) for a in arrays]
+            dtype = torch.from_numpy(np.empty(0, arrays[0].dtype)).dtype
+            host = torch.empty((len(arrays),) + arrays[0].shape,
+                               dtype=dtype, pin_memory=on_card)
+            np.stack(arrays, out=host.numpy())
+            hosts.append(host)
+        if not on_card:
+            return hosts
+        copy_stream = getattr(self, "_copy_stream", None)
+        if copy_stream is None:
+            copy_stream = self._copy_stream = torch.cuda.Stream(
+                device=self.device)
+        with torch.cuda.stream(copy_stream):
+            devs = [h.to(self.device, non_blocking=True) for h in hosts]
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(done)
+        for d in devs:
+            d.record_stream(current)
+        if sync:
+            done.synchronize()
+        return devs
+
+    def _last_score(self) -> torch.Tensor:
+        """The last step's score as a [1] tensor (``fit_stream``'s return
+        after a ragged flush), left on the device."""
+        return torch.as_tensor(self.score_value,
+                               device=self.device).reshape(1)
 
     def _fire_listeners(self) -> None:
         """After one step: each listener whose cadence the iteration
@@ -869,6 +947,82 @@ class MultiLayerNetwork(BaseNetwork):
                     enumerate(HEALTH_KEYS)})
         self.score_value = scores[-1]
         fire_crossed(self.listeners, self, start, self.iteration)
+        return scores
+
+    def fit_stream(self, iterator, scan_steps: int = 16, ingest=None,
+                   ingest_labels=None,
+                   sync_each_window: bool = False) -> torch.Tensor:
+        """Host-fed training: consume a DataSetIterator (typically
+        ``native_rt.NativeAsyncDataSetIterator`` over files on disk, the
+        reference's AsyncDataSetIterator role,
+        datasets/iterator/AsyncDataSetIterator.java:1) while keeping the
+        card busy.
+
+        ``scan_steps`` consecutive batches are stacked on the host,
+        uploaded in one copy (:meth:`BaseNetwork._upload_window`: pinned
+        memory, a copy stream, no host sync) and trained in one
+        ``fit_scan`` call, one captured graph replay a step, so disk
+        reads, stacking and the next window's upload run under the
+        previous window's compute. ``ingest`` / ``ingest_labels`` are
+        torch callables on the stacked [K, B, ...] device tensors (u8
+        pixels -> compute dtype, token ids -> one-hot), keeping the wire
+        format minimal; they run on the current stream. Masks are
+        stacked too, and a window that mixes masked and unmasked batches
+        raises. ``sync_each_window`` waits for each upload before the
+        window's compute and fetches the window's last score before the
+        next upload.
+
+        A ragged tail (the iterator runs out mid-window, or a batch
+        whose shape differs from the window's first) trains batch by
+        batch with ``fit``, after ``ingest`` on [1, B, ...]. Returns the
+        last window's scores, a device tensor ([1] after a ragged
+        flush), as JAX's ``fit_stream`` does."""
+        from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+        from deeplearning4j_tpu_torch.nn.streaming_fit import (
+            drive_stream_windows,
+        )
+
+        self.init()
+        scores = None
+
+        def transform(window):
+            feats, labels = self._upload_window(
+                [[b.features for b in window], [b.labels for b in window]],
+                sync_each_window)
+            if ingest is not None:
+                feats = ingest(feats)
+            if ingest_labels is not None:
+                labels = ingest_labels(labels)
+            return feats, labels
+
+        def flush(window, fused):
+            nonlocal scores
+            if fused:
+                fms = window_masks([b.features_mask for b in window],
+                                   "features_mask")
+                lms = window_masks([b.labels_mask for b in window],
+                                   "labels_mask")
+                feats, labels = transform(window)
+                fms, lms = (None if m is None else
+                            self._upload_window([m], False)[0]
+                            for m in (fms, lms))
+                scores = self.fit_scan(feats, labels,
+                                       features_mask_stacked=fms,
+                                       labels_mask_stacked=lms)
+                if sync_each_window:
+                    float(scores[-1])
+                return
+            for b in window:   # ragged: correctness over throughput
+                feats, labels = transform([b])
+                self._fit_batch(device_batch(
+                    DataSet, features=feats[0], labels=labels[0],
+                    features_mask=b.features_mask,
+                    labels_mask=b.labels_mask))
+            scores = self._last_score()
+
+        drive_stream_windows(iterator, scan_steps, flush,
+                             lambda ds: np.shape(ds.features),
+                             telemetry=self.train_telemetry)
         return scores
 
     def score(self, ds=None) -> float:

@@ -460,18 +460,26 @@ def test_fit_scan_through_one_captured_step_equals_the_eager_loop(
 
 
 def test_fit_scan_refusals_match_jax(zips):
-    _, tnet = _pair(zips, "dag")
+    jnet, tnet = _pair(zips, "dag")
     f, y = _markov(2)
     with pytest.raises(ValueError, match="inputs"):
         tnet.fit_scan({"nope": f[None]}, y[None])
     with pytest.raises(ValueError, match="not network inputs"):
         tnet.fit_scan(f[None], y[None], masks_stacked={"x": f[None, :, 0]})
-    tnet.conf.vertices["ln"].conf.optimization_algo = (
-        tenums.OptimizationAlgorithm.LBFGS)
+    for net in (jnet, tnet):
+        net.conf.vertices["ln"].conf.optimization_algo = (
+            tenums.OptimizationAlgorithm.LBFGS)
     with pytest.raises(ValueError, match="only supports SGD"):
         tnet.fit_scan(f[None], y[None])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tnet.fit_stream(iter(()))
+    # fit_stream (ported): an empty iterator trains nothing, and a fused
+    # window goes through fit_scan, which refuses the solver, as JAX's
+    assert tnet.fit_stream(ListDataSetIterator([])) is None
+    assert jnet.fit_stream(JListIterator([])) is None
+    with pytest.raises(ValueError, match="only supports SGD"):
+        tnet.fit_stream(ListDataSetIterator([DataSet(f, y)] * 2),
+                        scan_steps=2)
+    with pytest.raises(ValueError, match="only supports SGD"):
+        jnet.fit_stream(JListIterator([JDataSet(f, y)] * 2), scan_steps=2)
 
 
 def test_multi_dataset_training_matches_jax(zips):

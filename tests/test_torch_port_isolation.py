@@ -46,7 +46,10 @@ def test_port_modules_import_without_jax():
     for mod in ("serving.gateway", "serving.client", "util.httpjson",
                 "profiler.tracer", "cli.driver", "cli.__main__",
                 "serving.tenancy", "serving.kv_transfer",
-                "serving.kv_tier"):
+                "serving.kv_tier", "native_rt.iterator",
+                "datasets.streaming", "datasets.records",
+                "datasets.fetchers", "datasets.fixtures",
+                "storage.backends", "nn.streaming_fit"):
         assert f"deeplearning4j_tpu_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
