@@ -102,6 +102,24 @@ def build_all(names: Iterable[str]) -> Dict[str, float]:
     return secs
 
 
+class KernelNotExportable(RuntimeError):
+    """A forward being exported (``native_rt/aoti.py``) reaches one of
+    these kernels: a ctypes call, which ``torch.export`` cannot trace."""
+
+
+def refuse_tracing(kernel: str, t) -> None:
+    """Raise :class:`KernelNotExportable` naming ``kernel`` when ``t`` is
+    a meta tensor (the route probe ``native_rt/aoti.py`` runs before it
+    traces an export) rather than a tensor on the card: an export never
+    swaps in a plain version."""
+    if t.is_meta:
+        raise KernelNotExportable(
+            f"the forward reaches {kernel}, a ctypes call that torch.export "
+            "cannot trace; export a forward that stays off it (for K1 a "
+            "shorter sequence or use_flash=False; for K3 another route) "
+            "until the kernels are registered as TORCH_LIBRARY ops")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)

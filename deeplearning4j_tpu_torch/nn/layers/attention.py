@@ -764,6 +764,8 @@ def flash_attention(q, k, v, causal: bool):
         return flash_attention_reference(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    cuda_build.refuse_tracing("K1 flash_attention (csrc/flash_attention.cu)",
+                              q)
     _check_flash_args(q, k, v)
     return _FlashAttention.apply(q, k, v, bool(causal))
 

@@ -361,6 +361,8 @@ def conv_taps(x, w, padding=(0, 0)):
     padding = tuple(int(p) for p in padding)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv_taps: unsupported device {x.device}")
+    if x.device.type == "cuda":
+        cuda_build.refuse_tracing("K3 conv_taps (csrc/conv_taps.cu)", x)
     problem = _conv_taps_problem(x, w, padding)
     if problem is not None:
         raise ValueError(f"conv_taps: {problem}")

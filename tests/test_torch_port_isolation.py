@@ -49,7 +49,13 @@ def test_port_modules_import_without_jax():
                 "serving.kv_tier", "native_rt.iterator",
                 "datasets.streaming", "datasets.records",
                 "datasets.fetchers", "datasets.fixtures",
-                "storage.backends", "nn.streaming_fit"):
+                "storage.backends", "nn.streaming_fit",
+                "native_rt.aoti", "clustering.vptree",
+                "nlp.sequence_vectors", "nlp.word2vec", "nlp.glove",
+                "nlp.paragraph_vectors", "nlp.serializer",
+                "nlp.cooccurrence", "nlp.vectorizers",
+                "nlp.word2vec_iterator", "nlp.model_utils",
+                "graph.deepwalk", "graph.walker", "graph.loader"):
         assert f"deeplearning4j_tpu_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
@@ -85,6 +91,32 @@ def test_sources_never_import_jax(path):
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]
         assert not bad, f"{f} imports {bad}"
+
+
+def test_runner_veneer_loads_without_torch():
+    """``native_rt/aoti.py`` loaded by file path (no package
+    ``__init__``) brings in ctypes and numpy only, so a serving process
+    that drives the native runner never imports torch; a missing runner
+    library fails there without importing it either."""
+    from deeplearning4j_tpu_torch.native_rt import aoti
+
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('v', sys.argv[1])\n"
+        "v = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(v)\n"
+        "try:\n"
+        "    v.NativeClient('cuda', library=sys.argv[1] + '.missing.so')\n"
+        "except OSError:\n"
+        "    pass\n"
+        "names = [n for n in ('NativeClient', 'CompiledProgram',\n"
+        "         'DeviceBuffer', 'buffer_from_host') if hasattr(v, n)]\n"
+        "print(len(names), sorted(m for m in sys.modules\n"
+        "      if m.split('.')[0] in ('torch', 'jax')))\n")
+    out = subprocess.run([sys.executable, "-c", code, aoti.__file__],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "4 []"
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
