@@ -321,21 +321,23 @@ JAX or of the JAX package. Phases, each fatal on failure:
    finetune epochs, accuracy on 2048 test images against 0.97. The
    phase prints its seconds.
 20. ComputationGraph — (a) a DAG LM of the flagship's layers as graph
-   vertices (vocab 64, width 1024, 8 causal ``TransformerBlock``
-   vertices of 8 heads, block 4's and block 8's outputs meeting in an
+   vertices (vocab 64, width 1024, 4 causal ``TransformerBlock``
+   vertices of 8 heads: the flagship's width at half its depth, which
+   keeps the whole script under 900 s; block 2's and block 4's outputs
+   meeting in an
    ``ElementWiseVertex(add)`` before the LayerNorm, ``RnnOutputLayer``,
    Adam with warmup_cosine, random weights from a seed) on K1 and on
    dense attention from the same params, 4 ``fit`` steps each at B=2,
    T=2048 on the Markov task, f32 and bf16: losses agree (5e-3 / 2e-2
-   relative; at f32 the params too), K1 launched 8 times a step forward
+   relative; at f32 the params too), K1 launched 4 times a step forward
    and backward from the graph's vertex loop; tokens/s, s/step, peak
    memory; ``training_scan_check`` (captured ``fit_scan`` windows
    bit-identical to the eager loop); the chain twin (no add vertex)
-   from the flagship MLN's params: output and one ``fit`` step
+   from a 4-block flagship MLN's params: output and one ``fit`` step
    bit-identical to the MLN's, or within 1e-6 relative with the
    difference printed. (b) The DAG LM at bf16 served by the paged
    engine at phase 6's knobs, the decode round one captured graph:
-   every request finishes, K2 launched 8 times a decode step; tokens/s
+   every request finishes, K2 launched 4 times a decode step; tokens/s
    against eager rounds; the f32 gate as phase 6 holds it (kernel ids
    identical to the plain-gather engine's, the reordered-sums program
    passing, the two planted faults rejected); the f32 net written to
@@ -380,7 +382,8 @@ JAX or of the JAX package. Phases, each fatal on failure:
    (``conv_taps_f32``) launched on conv1 every step; ``test`` and
    ``predict``; ``predict --raw`` on the card against the CPU's from
    the same zip (argmax identical, within 1e-4); ``train --mesh dp=2``
-   exits naming ROADMAP item 11. The phase prints its seconds.
+   outside a launcher exits saying how to launch it (``torchrun
+   --nproc-per-node 2``). The phase prints its seconds.
 22. decode without Python and the embedding trainers — (a)
    ``csrc/aoti_runner.cpp`` built with g++ against the torch wheel's
    libtorch (beside the compiles); the serving net's decode step (f32,
@@ -414,6 +417,38 @@ JAX or of the JAX package. Phases, each fatal on failure:
    criteria on the card. The phase prints its
    seconds. No kernel runs on phase 22's paths; the kernels line does
    not change.
+23. the data-parallel trainer over ``torch.distributed``
+   (``parallel/``) on phase A's flagship (width 1024, 8 layers, 8
+   heads, vocab 64, random weights from seed 11, f32, K1 on), 3 ``fit``
+   steps a run on the Markov task at T=2048, every rank a process the
+   phase spawns, (a)'s beside (b)-(d)'s (results through a queue; every
+   child reaped on every way out; their step times are reports). Which axis runs where is fixed by
+   ``scripts/torch_collective_probe.py``'s answer on the card (PERF.md:
+   gloo takes CUDA tensors for all-reduce, broadcast, all-gather,
+   reduce-scatter and all-to-all, and aborts on send/recv). (a) One
+   NCCL rank: ``ParallelTrainer`` over {dp: 1, tp: 1} at B=2 against
+   plain ``fit`` from the same params (losses within 5e-3 relative,
+   params within 1e-4, K1 8 launches a step each way), then 2
+   ``fit_scan`` windows of 3 steps replayed from the captured step with
+   NCCL's all-reduce inside it against the same trainer run eagerly
+   (params, updater state and scores bit-identical; one capture for the
+   key, none on the repeat). (b) Two gloo ranks on card 0: dp=2 at
+   global B=4 and tp=2 at B=2 (K1 on 4 heads a rank) against
+   single-process ``fit`` of the global batch (5e-3 / 1e-4; K1 8
+   launches a step each way in each rank; s/step, which gloo's host
+   transfers dominate, and each rank's peak memory printed); the planted
+   faults (tp without *g* after Wo, dp without the gradient mean) must
+   fall outside those limits; bf16 dp and tp runs as a report (2e-2).
+   (c) fsdp=2 (params + Adam state a rank about half of dp=2's), Ulysses
+   sp=2 (K1 on [B, 4, 2048, 128]) and ep=2 on ``moe_transformer_lm``
+   (width 1024, 8 heads, 8 experts, 2 blocks, 4 experts a rank) over
+   the gloo ranks; ring sp at world size 1 under NCCL in (a)'s child
+   (its hops are point-to-point). (d) tp=2's ranks write an
+   ``OrbaxCheckpointer`` (DCP) step; it restores into a single-device
+   net on the card and on the CPU with params equal to the gathered
+   ones, and its ``write_model`` zip reads back. The phase prints its
+   seconds; K1's launches of its trainer runs (every rank) join the
+   kernels line's f32 entries.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after (comparison launches do not count).
@@ -431,7 +466,8 @@ chunks, ``paged_attention_verify`` (K2 at t=33) from phase
 phase 19 adds 19a's K1 launches, fit and the counted ``fit_scan``
 window, at f32 and bf16, and 19b's K2 launches on its bf16 graph run,
 phase 20 likewise 20a's and 20b's, and phase 21 21a's host-fed
-epochs); K3's ``conv_taps`` and ``conv_taps_f32`` with their launches
+epochs, and phase 23 its trainer runs' in every rank); K3's
+``conv_taps`` and ``conv_taps_f32`` with their launches
 from phases 10 and 11 (``conv_taps_f32`` plus 21c's card ``train``,
 ``test`` and ``predict``); every f32 operations bound at the
 f32-accurate rate, ``F32_ACCURATE_FLOPS``); the last is
@@ -1919,8 +1955,8 @@ def _flagship(compute_dtype, use_flash, **kw):
     from deeplearning4j_tpu_torch.models.zoo import transformer_lm_flagship
 
     conf = transformer_lm_flagship(vocab=TRAIN_VOCAB, width=WIDTH,
-                                   n_layers=N_LAYERS, n_heads=N_HEADS,
-                                   seed=11, **kw)
+                                   n_layers=kw.pop("n_layers", N_LAYERS),
+                                   n_heads=N_HEADS, seed=11, **kw)
     for c in conf.confs:
         if compute_dtype != "float32":
             c.compute_dtype = compute_dtype
@@ -6744,10 +6780,12 @@ def rest_of_layers_phase(card: str) -> dict:
 
 
 # phase 20: ComputationGraph end to end. The DAG LM is the flagship's
-# layers as graph vertices ("block0".."block7", "ln", "out"), with
-# block 4's and block 8's outputs meeting in an add vertex before the
-# LayerNorm.
-DAG_SKIP = ("block3", "block7")
+# layers, at the flagship's width and DAG_LAYERS deep, as graph
+# vertices ("block0".."block3", "ln", "out"), with block 2's and block
+# 4's outputs meeting in an add vertex before the LayerNorm. Half the
+# flagship's depth keeps the whole script under 900 s.
+DAG_LAYERS = 4
+DAG_SKIP = ("block1", "block3")
 DAG_STEPS = 4
 # the chain twin (no add vertex) against the flagship MLN from the same
 # params, on the card: bit-identical, or at most this far apart
@@ -6789,7 +6827,7 @@ def _dag_conf(compute_dtype, use_flash, chain=False, window=None,
          .activation("identity").weight_init(WeightInit.XAVIER)
          .graph_builder().add_inputs("in"))
     prev = "in"
-    for i in range(N_LAYERS):
+    for i in range(DAG_LAYERS):
         g.add_layer(f"block{i}", TransformerBlock(
             n_in=TRAIN_VOCAB if i == 0 else WIDTH, n_out=WIDTH,
             n_heads=N_HEADS, causal=True), prev)
@@ -6844,11 +6882,11 @@ def dag_chain_twin_check(card: str, batch) -> None:
     from deeplearning4j_tpu_torch.nn.streaming import tree_leaves, tree_map
 
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=100)
-    mln = MultiLayerNetwork(_flagship("float32", True, **kw),
-                            device=DEVICE).init()
+    mln = MultiLayerNetwork(_flagship("float32", True, n_layers=DAG_LAYERS,
+                                      **kw), device=DEVICE).init()
     twin = ComputationGraph(_dag_conf("float32", True, chain=True, **kw),
                             device=DEVICE).init()
-    names = [f"block{i}" for i in range(N_LAYERS)] + ["ln", "out"]
+    names = [f"block{i}" for i in range(DAG_LAYERS)] + ["ln", "out"]
     twin.params = {name: tree_map(torch.clone, mln.params[str(i)])
                    for i, name in enumerate(names)}
     twin.params_version += 1
@@ -6909,7 +6947,7 @@ def dag_training_phase(card: str) -> dict:
         pdiff = float((k1.params_flat() - dense.params_flat()).abs().max())
         p_tol = PARITY_PARAM_ATOL.get(cd, float("inf"))
         step_s = float(np.mean(k_wall[1:]))
-        log(f"20a [{cd}]: DAG LM ({N_LAYERS} blocks, {DAG_SKIP[0]} + "
+        log(f"20a [{cd}]: DAG LM ({DAG_LAYERS} blocks, {DAG_SKIP[0]} + "
             f"{DAG_SKIP[1]} -> ln) {n_params / 1e6:.1f} M params, B="
             f"{TRAIN_B}, T={PARITY_T}; K1 losses "
             f"{[f'{x:.6f}' for x in k_loss]}, dense "
@@ -6921,7 +6959,7 @@ def dag_training_phase(card: str) -> dict:
             f"{[round(w, 4) for w in d_wall]}; "
             f"{TRAIN_B * PARITY_T / step_s:.1f} tokens/s over steps 2-"
             f"{DAG_STEPS}; peak memory {peak / 2**30:.3f} GiB [{card}]")
-        want = N_LAYERS * DAG_STEPS
+        want = DAG_LAYERS * DAG_STEPS
         if (not rel <= PARITY_RTOL[cd] or not pdiff <= p_tol
                 or fwd != want or bwd != want
                 or dense_launches != 0 or paged_attention.launches != 0
@@ -6935,7 +6973,7 @@ def dag_training_phase(card: str) -> dict:
         torch.cuda.empty_cache()
         s_fwd, s_bwd = training_scan_check(
             card, f"20a [{cd}]", lambda: _dag_net(cd, True, like=k1),
-            batches, N_LAYERS)
+            batches, DAG_LAYERS)
         del k1
         torch.cuda.empty_cache()
         name = "flash_attention_f32" if cd == "float32" else (
@@ -6994,11 +7032,11 @@ def dag_serving_phase(card: str, tmp: str) -> int:
         f"({rate / eager_rate:.2f}x); {steps} decode steps, {launches} K2 "
         f"launches; {counts}; pool layers {layers}; graph / eager id "
         f"agreement {agree:.4f} [{card}]")
-    if (bad or launches != N_LAYERS * steps or launches == 0
+    if (bad or launches != DAG_LAYERS * steps or launches == 0
             or counts["decode"] != 1 or eng._graphs.captures != 1):
         raise SystemExit(
             f"chip_smoke: phase 20b failed: unfinished {bad}, K2 "
-            f"launches {launches} for {steps} steps x {N_LAYERS} blocks, "
+            f"launches {launches} for {steps} steps x {DAG_LAYERS} blocks, "
             f"{counts}")
     del eng, eager
     torch.cuda.empty_cache()
@@ -7693,7 +7731,7 @@ def cli_phase(card: str, tmp: str) -> int:
     on conv1 at every step; ``test`` and ``predict`` on the zip;
     ``predict --raw`` on the card against the CPU's from the same zip
     (argmax identical, probabilities within 1e-4); ``train --mesh dp=2``
-    exits naming ROADMAP item 11. Both packages' ``mnist`` source gives
+    outside a launcher exits saying how to launch it. Both packages' ``mnist`` source gives
     flat [N, 784] rows, which a conv conf does not take, so the images
     go in as an ``.npz`` of [N, 1, 28, 28]. Returns K3's launches over
     the card's train, test and predict."""
@@ -7764,7 +7802,8 @@ def cli_phase(card: str, tmp: str) -> int:
     if (rc_train != 0 or rc_test != 0 or train_launches != steps + 1
             or train_mma != 0 or not same_argmax
             or not diff <= CLI_PREDICT_TOL or not acc_lines
-            or mesh_msg is None or "item 11" not in mesh_msg):
+            or mesh_msg is None
+            or "torchrun --nproc-per-node 2" not in mesh_msg):
         raise SystemExit(
             f"chip_smoke: phase 21c failed: train rc {rc_train} with K3 "
             f"{train_launches} (want {steps + 1}, tensor cores "
@@ -8426,6 +8465,583 @@ def embedding_phase(card: str) -> None:
         f"22b {t2 - t1:.1f} s, 22c {time.perf_counter() - t2:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the data-parallel trainer over torch.distributed
+# ---------------------------------------------------------------------------
+
+P23_STEPS = 3
+P23_SCAN_K, P23_SCAN_WINDOWS = 3, 2
+P23_LOSS_RTOL, P23_PARAM_ATOL, P23_BF16_RTOL = 5e-3, 1e-4, 2e-2
+P23_DP_B, P23_TP_B = 4, 2
+P23_MOE_BLOCKS = 2
+P23_TIMEOUT_S = 420
+#: where each axis runs, fixed by ``scripts/torch_collective_probe.py``
+#: on the card (PERF.md): gloo takes CUDA tensors for all_reduce,
+#: broadcast, all_gather_into_tensor, reduce_scatter_tensor and
+#: all_to_all_single, and aborts its process on a send/recv of them.
+#: So dp, tp, fsdp, Ulysses sp and ep run over two gloo ranks on the
+#: card; ring attention (its hops are batch_isend_irecv) runs at world
+#: size 1 under NCCL.
+P23_GLOO_RUNS = ("dp", "tp", "fsdp", "ulysses", "ep")
+P23_NCCL_WORLD1_RUNS = ("ring",)
+
+
+def _p23_batches(b: int, n: int, sample_seed: int) -> list:
+    """``n`` Markov-task batches of ``b`` sequences at ``PARITY_T``."""
+    from deeplearning4j_tpu_torch.datasets.markov import markov_lm_batches
+
+    f, y, _ = markov_lm_batches(TRAIN_VOCAB, b * n, PARITY_T, seed=0,
+                                sample_seed=sample_seed)
+    return [(f[i:i + b], y[i:i + b]) for i in range(0, len(f), b)]
+
+
+def _p23_net(compute_dtype="float32", ring=None, sp_mode="ring",
+             device=None):
+    """Phase A's flagship (random weights from seed 11, K1 on), with
+    ``ring_axis`` on its blocks when ``ring`` is set."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = _flagship(compute_dtype, True, lr=1e-3, warmup_steps=2,
+                     total_steps=100)
+    for c in conf.confs:
+        if ring and hasattr(c.layer, "ring_axis"):
+            c.layer.ring_axis, c.layer.sp_mode = ring, sp_mode
+    return MultiLayerNetwork(conf, device=device or DEVICE).init()
+
+
+def _p23_moe_net(device=None):
+    from deeplearning4j_tpu_torch.models.zoo import moe_transformer_lm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = moe_transformer_lm(
+        n_in=TRAIN_VOCAB, width=MOE_WIDTH, n_blocks=P23_MOE_BLOCKS,
+        n_heads=MOE_HEADS, n_classes=TRAIN_VOCAB, n_experts=MOE_EXPERTS,
+        capacity_factor=MOE_CF, lr=1e-3, seed=11)
+    for c in conf.confs:
+        if hasattr(c.layer, "use_flash"):
+            c.layer.use_flash = True
+    return MultiLayerNetwork(conf, device=device or DEVICE).init()
+
+
+def _p23_fit(net_or_trainer, batches) -> tuple:
+    """(losses, s/step) of one ``fit`` per batch."""
+    losses = []
+    t0 = time.perf_counter()
+    for f, y in batches:
+        if hasattr(net_or_trainer, "mesh"):
+            losses.append(float(net_or_trainer.fit(f, y)))
+        else:
+            net_or_trainer.fit(f, y)
+            losses.append(float(net_or_trainer.score_value))
+    return losses, (time.perf_counter() - t0) / len(batches)
+
+
+def _p23_diff(losses, base_losses, params, base_params) -> tuple:
+    """(max relative loss difference, max |param difference|)."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+    pdiff = max(float((params[k][n].float().cpu() - p.float().cpu())
+                      .abs().max())
+                for k, sub in base_params.items() for n, p in sub.items())
+    return rel, pdiff
+
+
+class _K1Shapes:
+    """Records the [B, H, T, dh] of every K1 forward launch (through the
+    module attribute the layers and the ring hops call)."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.nn.layers import attention as A
+
+        self.shapes, self._A, self._real = [], A, A.flash_attention_fwd
+
+        def rec(q, k, v, causal):
+            self.shapes.append(tuple(q.shape))
+            return self._real(q, k, v, causal)
+
+        A.flash_attention_fwd = rec
+        A.flash_attention.launches = A.flash_attention.bwd_launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.fwd = self._A.flash_attention.launches
+        self.bwd = self._A.flash_attention.bwd_launches
+        self._A.flash_attention_fwd = self._real
+
+    def heads(self) -> list:
+        return sorted({s[1] for s in self.shapes})
+
+
+#: the module constants a phase 23 child takes from its parent (a
+#: rehearsal on the CPU sets them small there)
+P23_SHARED = ("DEVICE", "WIDTH", "N_LAYERS", "N_HEADS", "PARITY_T",
+              "TRAIN_VOCAB", "TRAIN_B", "MOE_WIDTH", "MOE_HEADS",
+              "MOE_EXPERTS", "P23_DP_B", "P23_TP_B", "P23_STEPS",
+              "P23_SCAN_K")
+
+
+def _p23_child_setup(rank, world, port, backend, shared):
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+    )
+
+    globals().update(shared)
+    # the children's work is on the card; few host threads leave the
+    # host's cores to gloo's transfers and the parent's 23d
+    torch.set_num_threads(2)
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"tcp://127.0.0.1:{port}", world, rank,
+                         backend=backend, device=DEVICE)
+
+
+def _p23_sync():
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p23_peak_reset():
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _p23_peak_gb() -> float:
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else 0.0)
+
+
+def p23_world1_child(port, shared, queue) -> None:
+    """23a, one NCCL rank: ``ParallelTrainer`` over {dp: 1, tp: 1} held
+    against plain ``fit`` from the same params, then two ``fit_scan``
+    windows replayed from the captured step (NCCL's all-reduce inside
+    the graph) against the same trainer run eagerly; and ring attention
+    over {sp: 1} (ring hops are point-to-point, which gloo cannot do on
+    CUDA tensors) against the same ``fit``. The backend follows
+    ``DEVICE``: NCCL on the card, gloo in a rehearsal on the CPU."""
+    out = {}
+    try:
+        _p23_child_setup(0, 1, port, None, shared)
+        from deeplearning4j_tpu_torch.parallel.data_parallel import (
+            ParallelTrainer,
+        )
+        from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+        batches = _p23_batches(TRAIN_B, P23_STEPS + P23_SCAN_K
+                               * P23_SCAN_WINDOWS, 23)
+        fit_b, scan_b = batches[:P23_STEPS], batches[P23_STEPS:]
+        base = _p23_net()
+        net = base.clone()
+        base_losses, base_s = _p23_fit(base, fit_b)
+        mesh = make_mesh({"dp": 1, "tp": 1})
+        tr = ParallelTrainer(net, mesh, tp_axis="tp")
+        _p23_peak_reset()
+        with _K1Shapes() as k1:
+            losses, s = _p23_fit(tr, fit_b)
+            _p23_sync()
+        out["a"] = dict(
+            losses=losses, base=base_losses, s=s, base_s=base_s,
+            diff=_p23_diff(losses, base_losses, tr.full_params(),
+                           base.params),
+            k1=(k1.fwd, k1.bwd), heads=k1.heads(), peak_gb=_p23_peak_gb())
+        eager = ParallelTrainer(net.clone(), mesh, tp_axis="tp")
+        eager.train_graphs = None
+        same = [_nets_equal(tr.net, eager.net)]
+        scan_k1, scan_s = [], []
+        for w in range(P23_SCAN_WINDOWS):
+            win = scan_b[w * P23_SCAN_K:(w + 1) * P23_SCAN_K]
+            feats = np.stack([f for f, _ in win])
+            labels = np.stack([y for _, y in win])
+            with _K1Shapes() as k1:
+                t0 = time.perf_counter()
+                g_scores = tr.fit_scan(feats, labels)
+                _p23_sync()
+                scan_s.append((time.perf_counter() - t0) / P23_SCAN_K)
+            scan_k1.append((k1.fwd, k1.bwd))
+            e_scores = eager.fit_scan(feats, labels)
+            same.append(_nets_equal(tr.net, eager.net)
+                        and torch.equal(g_scores, e_scores))
+        runner = tr.train_graphs
+        out["scan"] = dict(same=same, graphs=len(runner),
+                           captures=runner.captures, k1=scan_k1, s=scan_s)
+        del tr, eager, net
+        # ring attention over a ring of one (the same seed: the same
+        # params as ``base`` started from): K1 on the diagonal hop
+        rtr = ParallelTrainer(_p23_net(ring="sp"), make_mesh({"sp": 1}),
+                              sp_axis="sp")
+        with _K1Shapes() as k1:
+            r_losses, r_s = _p23_fit(rtr, fit_b)
+            _p23_sync()
+        out["ring"] = dict(
+            losses=r_losses, s=r_s, k1=(k1.fwd, k1.bwd), heads=k1.heads(),
+            diff=_p23_diff(r_losses, base_losses, rtr.full_params(),
+                           base.params))
+        queue.put(("nccl", True, out))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        import traceback
+
+        queue.put(("nccl", False, traceback.format_exc()))
+    finally:
+        from deeplearning4j_tpu_torch.parallel.multihost import (
+            shutdown_multihost,
+        )
+
+        shutdown_multihost()
+
+
+def _p23_state_bytes(net) -> int:
+    from deeplearning4j_tpu_torch.nn.streaming import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(net.params)
+               + tree_leaves(net.updater_state))
+
+
+def _p23_plant(name) -> tuple:
+    """A planted fault as (module, attribute, planted, real): "tp
+    without g after Wo" (each block's attention output keeps this rank's
+    partial sum: the first of a block's two *g* calls is skipped), "dp
+    without the gradient mean" (each rank applies its own share of the
+    gradient)."""
+    from deeplearning4j_tpu_torch.nn.layers import attention as A
+    from deeplearning4j_tpu_torch.parallel import data_parallel as D
+
+    if name == "tp without g after Wo":
+        real, calls = A._tp_out, [0]
+
+        def planted(y, tp):
+            calls[0] += 1
+            return y if calls[0] % 2 == 1 else real(y, tp)
+
+        return A, "_tp_out", planted, real
+    return (D, "reduce_tensors", lambda tensors, group: list(tensors),
+            D.reduce_tensors)
+
+
+def p23_gloo_rank(rank, port, ckpt_dir, shared, queue) -> None:
+    """23b-d on one of two gloo ranks sharing card 0: tp=2 (B=2, 4
+    heads a rank; its ranks write an ``OrbaxCheckpointer`` step and rank
+    0 the gathered params beside it, then tells the parent) and dp=2
+    (global B=4), the two planted faults, fsdp=2, Ulysses sp=2, ep=2 and
+    the bf16 reports; then rank 0 runs single-process ``fit`` of each
+    global batch from the same params and holds every run against it."""
+    out = {}
+    try:
+        _p23_child_setup(rank, 2, port, "gloo", shared)
+        import torch.distributed as dist
+
+        from deeplearning4j_tpu_torch.checkpoint.orbax_io import (
+            OrbaxCheckpointer,
+        )
+        from deeplearning4j_tpu_torch.parallel.data_parallel import (
+            ParallelTrainer,
+        )
+        from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+        b4 = _p23_batches(P23_DP_B, P23_STEPS, 231)
+        b2 = _p23_batches(P23_TP_B, P23_STEPS, 232)
+        gathered = {}
+
+        def run(name, mesh, axes, batches, make=_p23_net, plant=None,
+                save=False):
+            net = make()
+            tr = ParallelTrainer(net, make_mesh(mesh, device_type=DEVICE),
+                                 **axes)
+            _p23_peak_reset()
+            patch = None if plant is None else _p23_plant(plant)
+            if patch:
+                setattr(patch[0], patch[1], patch[2])
+            try:
+                with _K1Shapes() as k1:
+                    losses, s = _p23_fit(tr, batches)
+                    _p23_sync()
+            finally:
+                if patch:
+                    setattr(patch[0], patch[1], patch[3])
+            out[name] = dict(losses=losses, s=s, k1=(k1.fwd, k1.bwd),
+                             heads=k1.heads(), peak_gb=_p23_peak_gb(),
+                             state_bytes=_p23_state_bytes(net))
+            full = {k: {n: t.cpu() for n, t in sub.items()}
+                    for k, sub in tr.full_params().items()}
+            if save:
+                OrbaxCheckpointer(ckpt_dir).save(net.iteration, tr)
+                if rank == 0:
+                    torch.save(full, os.path.join(ckpt_dir, "gathered.pt"))
+                    # the parent restores it while the ranks run on
+                    queue.put(("checkpoint", True, None))
+            if rank == 0:
+                gathered[name] = full
+            del tr, net
+            _p23_peak_reset()
+
+        # tp first: its checkpoint starts 23d in the parent early
+        run("tp", {"dp": 1, "tp": 2}, {"tp_axis": "tp"}, b2, save=True)
+        run("dp", {"dp": 2}, {}, b4)
+        run("tp fault", {"dp": 1, "tp": 2}, {"tp_axis": "tp"}, b2,
+            plant="tp without g after Wo")
+        run("dp fault", {"dp": 2}, {}, b4,
+            plant="dp without the gradient mean")
+        run("fsdp", {"fsdp": 2}, {"fsdp_axis": "fsdp"}, b4)
+        run("ulysses", {"sp": 2}, {"sp_axis": "sp"}, b2,
+            make=lambda: _p23_net(ring="sp", sp_mode="ulysses"))
+        run("ep", {"ep": 2}, {"ep_axis": "ep"}, b2, make=_p23_moe_net)
+        run("dp bf16", {"dp": 2}, {}, b4, make=lambda: _p23_net("bfloat16"))
+        run("tp bf16", {"dp": 1, "tp": 2}, {"tp_axis": "tp"}, b2,
+            make=lambda: _p23_net("bfloat16"))
+        dist.barrier()
+        if rank == 0:
+            # single-process fit of each global batch, from the same
+            # params (the same seed), after the parallel runs
+            for names, batches, make in (
+                    (("dp", "dp fault", "fsdp"), b4, _p23_net),
+                    (("tp", "tp fault", "ulysses"), b2, _p23_net),
+                    (("ep",), b2, _p23_moe_net),
+                    (("dp bf16",), b4, lambda: _p23_net("bfloat16")),
+                    (("tp bf16",), b2, lambda: _p23_net("bfloat16"))):
+                base = make()
+                losses, s = _p23_fit(base, batches)
+                for name in names:
+                    out[name]["base"], out[name]["base_s"] = losses, s
+                    out[name]["diff"] = _p23_diff(
+                        out[name]["losses"], losses, gathered[name],
+                        base.params)
+                del base
+        queue.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        import traceback
+
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        from deeplearning4j_tpu_torch.parallel.multihost import (
+            shutdown_multihost,
+        )
+
+        shutdown_multihost()
+
+
+def _p23_spawn(targets, timeout, on_checkpoint=None) -> dict:
+    """Start one process per (target, args) with a shared queue, wait
+    for every answer (or ``timeout``), and reap them all on every way
+    out. Returns {rank: result}; raises on a failed or silent rank. A
+    ``"checkpoint"`` message runs ``on_checkpoint()`` in this process
+    while the children go on."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    shared = {name: globals()[name] for name in P23_SHARED}
+    procs = [ctx.Process(target=fn, args=args + (shared, queue))
+             for fn, args in targets]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.perf_counter() + timeout
+        while len(got) < len(procs):
+            rank, ok, res = queue.get(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            if rank == "checkpoint":
+                on_checkpoint()
+                continue
+            if not ok:
+                raise SystemExit(f"chip_smoke: phase 23 rank {rank} "
+                                 f"failed:\n{res}")
+            got[rank] = res
+    except queue_mod.Empty:
+        raise SystemExit(f"chip_smoke: phase 23: {len(procs) - len(got)} "
+                         f"of {len(procs)} children silent after "
+                         f"{timeout} s (answered: {sorted(map(str, got))})")
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got
+
+
+def _p23_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(card: str) -> dict:
+    """Phase 23 (see the module docstring). Returns K1's f32 launches
+    (forward, backward) of the trainer runs in every rank."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.checkpoint.orbax_io import (
+        OrbaxCheckpointer,
+    )
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model,
+        write_model,
+    )
+
+    t0 = time.perf_counter()
+    fails = []
+    want = N_LAYERS * P23_STEPS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p23_")
+    d = {}
+
+    def checkpoint_check():
+        """23d, while the ranks run on: tp=2's DCP step into
+        single-device nets on the card and on the CPU, and the card
+        net's ``write_model`` zip read back."""
+        td = time.perf_counter()
+        ck = OrbaxCheckpointer(tmp)
+        gathered = torch.load(os.path.join(tmp, "gathered.pt"))
+        same, secs = {}, {}
+        for dev in (DEVICE, "cpu"):
+            t = time.perf_counter()
+            net = ck.restore(device=dev)
+            secs[f"restore {dev}"] = time.perf_counter() - t
+            same[dev] = all(torch.equal(net.params[k][n].cpu(), p)
+                            for k, sub in gathered.items()
+                            for n, p in sub.items())
+            if dev == DEVICE:
+                path = os.path.join(tmp, "restored.zip")
+                t = time.perf_counter()
+                write_model(net, path)
+                secs["write_model"] = time.perf_counter() - t
+                t = time.perf_counter()
+                back = restore_model(path, device=DEVICE)
+                secs["restore_model"] = time.perf_counter() - t
+                same["zip"] = all(torch.equal(back.params[k][n],
+                                              net.params[k][n])
+                                  for k, sub in net.params.items()
+                                  for n in sub)
+                del back
+            del net
+        d["secs"] = time.perf_counter() - td
+        log(f"23d OrbaxCheckpointer (DCP) step {ck.latest_step()} written by"
+            f" tp=2's ranks: restored into a single-device net on the card"
+            f" and on the CPU, params equal to the gathered ones {same}; "
+            f"its write_model zip reads back equal; seconds "
+            f"{ {k: round(v, 2) for k, v in secs.items()} } (while the "
+            f"ranks ran on) [{card}]")
+        if not all(same.values()):
+            fails.append(f"23d checkpoint {same}")
+
+    try:
+        port = _p23_free_port()
+        # 23a's NCCL child runs beside the two gloo ranks (they share the
+        # card and the host: their step times are reports of this check)
+        got = _p23_spawn(
+            [(p23_world1_child, (_p23_free_port(),))]
+            + [(p23_gloo_rank, (r, port, tmp)) for r in range(2)],
+            P23_TIMEOUT_S, on_checkpoint=checkpoint_check)
+        a, r0, r1 = got["nccl"], got[0], got[1]
+        rel, pdiff = a["a"]["diff"]
+        log(f"23a [NCCL, world 1, {{dp: 1, tp: 1}}, B={TRAIN_B}, "
+            f"T={PARITY_T}]: losses "
+            f"{[f'{x:.6f}' for x in a['a']['losses']]} vs fit "
+            f"{[f'{x:.6f}' for x in a['a']['base']]}: max rel {rel:.3e} (tol "
+            f"{P23_LOSS_RTOL}), max |param diff| {pdiff:.3e} (tol "
+            f"{P23_PARAM_ATOL}); K1 launches fwd/bwd {a['a']['k1']} (want "
+            f"{want} each) on heads {a['a']['heads']}; s/step "
+            f"{a['a']['s']:.4f} (fit {a['a']['base_s']:.4f}); peak "
+            f"{a['a']['peak_gb']:.2f} GiB "
+            f"[{card}]")
+        if not (rel <= P23_LOSS_RTOL and pdiff <= P23_PARAM_ATOL
+                and a["a"]["k1"] == (want, want)):
+            fails.append("23a trainer vs fit")
+        sc = a["scan"]
+        log(f"23a fit_scan: {P23_SCAN_WINDOWS} windows of {P23_SCAN_K} "
+            f"steps replayed from the captured step (NCCL all-reduce inside)"
+            f" against the same trainer eagerly: params, updater state and "
+            f"scores "
+            f"bit-identical {sc['same']} (start, after each window); graphs "
+            f"{sc['graphs']}, captures {sc['captures']}; K1 launches per "
+            f"window {sc['k1']} (the first with the capture's warm-up step); "
+            f"s/step per window "
+            f"{[round(x, 4) for x in sc['s']]} [{card}]")
+        # the first window's capture runs the step once more on copies
+        # (its warm-up) before the graph replays it
+        scan_want = [(N_LAYERS * (P23_SCAN_K + 1),) * 2] + [
+            (N_LAYERS * P23_SCAN_K,) * 2] * (P23_SCAN_WINDOWS - 1)
+        if not (all(sc["same"]) and sc["graphs"] == 1
+                and sc["captures"] == 1
+                and [tuple(k) for k in sc["k1"]] == scan_want):
+            fails.append("23a fit_scan")
+        rg = a["ring"]
+        rrel, rpdiff = rg["diff"]
+        log(f"23c ring sp [NCCL, world 1: gloo cannot send/recv CUDA "
+            f"tensors (probe)], T_local={PARITY_T}: losses "
+            f"{[f'{x:.6f}' for x in rg['losses']]}: max rel {rrel:.3e}, max "
+            f"|param diff| {rpdiff:.3e}; K1 launches fwd/bwd {rg['k1']} on "
+            f"heads {rg['heads']}; s/step {rg['s']:.4f} [{card}]")
+        if not (rrel <= P23_LOSS_RTOL and rpdiff <= P23_PARAM_ATOL
+                and rg["k1"] == (want, want)):
+            fails.append("23c ring")
+        launches = [a["a"]["k1"][0] + rg["k1"][0] + sum(
+            k[0] for k in sc["k1"]), a["a"]["k1"][1] + rg["k1"][1] + sum(
+            k[1] for k in sc["k1"])]
+        for name in ("dp", "tp", "fsdp", "ulysses", "ep", "tp fault",
+                     "dp fault", "dp bf16", "tp bf16"):
+            res = r0[name]
+            rel, pdiff = res["diff"]
+            bf16 = "bf16" in name
+            fault = "fault" in name
+            held = rel <= (P23_BF16_RTOL if bf16 else P23_LOSS_RTOL) and (
+                bf16 or pdiff <= P23_PARAM_ATOL)
+            k1 = [res["k1"], r1[name]["k1"]]
+            part = "b" if name in ("dp", "tp") or fault or bf16 else "c"
+            log(f"23{part}"
+                f" {name} [gloo, 2 ranks on card 0]: losses "
+                f"{[f'{x:.6f}' for x in res['losses']]} vs fit "
+                f"{[f'{x:.6f}' for x in res['base']]}: max rel {rel:.3e}, "
+                f"max |param diff| {pdiff:.3e}: "
+                f"{'within' if held else 'outside'} the limits"
+                f"{' (report)' if bf16 else ''}; K1 fwd/bwd per rank {k1} "
+                f"on heads {res['heads']}; s/step {res['s']:.4f} (single "
+                f"fit {res['base_s']:.4f}; gloo's collectives go through "
+                f"the host); peak GiB per rank "
+                f"[{res['peak_gb']:.2f}, {r1[name]['peak_gb']:.2f}]; "
+                f"params+updater bytes per rank "
+                f"[{res['state_bytes']}, {r1[name]['state_bytes']}] "
+                f"[{card}]")
+            if fault and held:
+                fails.append(f"planted fault {name} passed")
+            if not fault and not bf16 and not held:
+                fails.append(f"23 {name}")
+            k1_want = (P23_MOE_BLOCKS if name == "ep" else N_LAYERS) \
+                * P23_STEPS
+            if not fault and not bf16 and k1 != [(k1_want, k1_want)] * 2:
+                fails.append(f"23 {name} K1 launches {k1}")
+        if r0["tp"]["heads"] != [N_HEADS // 2] or r0["ulysses"]["heads"] != [
+                N_HEADS // 2]:
+            fails.append(f"K1 heads under tp/ulysses {r0['tp']['heads']}, "
+                         f"{r0['ulysses']['heads']}")
+        ratio = r0["fsdp"]["state_bytes"] / r0["dp"]["state_bytes"]
+        log(f"23c fsdp=2: params + Adam state per rank {ratio:.4f} of dp=2's"
+            f" rank [{card}]")
+        if not 0.45 <= ratio <= 0.55:
+            fails.append(f"fsdp state ratio {ratio}")
+        for name in ("dp", "tp", "fsdp", "ulysses", "ep"):
+            for r in (r0, r1):
+                launches[0] += r[name]["k1"][0]
+                launches[1] += r[name]["k1"][1]
+        if not d:
+            fails.append("23d never ran: no checkpoint message")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log(f"phase 23: {secs:.1f} s (one NCCL child beside two gloo "
+        f"children; runs over gloo: {list(P23_GLOO_RUNS)}, at world size 1 "
+        f"under NCCL: {list(P23_NCCL_WORLD1_RUNS)})")
+    if fails:
+        raise SystemExit(f"chip_smoke: phase 23 failed: {fails}")
+    return {"flash_attention_f32": launches[0],
+            "flash_attention_f32_bwd": launches[1]}
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -8470,6 +9086,8 @@ def main() -> int:
     for name, n in hostfed_phase(card).items():
         launches[name] += n
     embedding_phase(card)
+    for name, n in parallel_phase(card).items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(card)

@@ -27,9 +27,14 @@ without a card).
 The parsers are JAX's: ``--tenant`` (repeatable, ``TenantSpec.parse``'s
 spelling) turns on the weighted-fair scheduler, ``--kv-host-tier-bytes``,
 ``--kv-disk-tier-path`` and ``--kv-disk-tier-bytes`` the KV spill tiers.
-The flags of the knobs the port does not carry yet (``serve --tp``,
-``train --mesh`` and ``--pp-interleave``) are parsed, and a value
-exits with a message naming the ROADMAP item that brings them.
+``train --mesh 'dp=2,tp=2'`` trains through ``ParallelTrainer`` under a
+launcher (``torchrun --nproc-per-node N -m deeplearning4j_tpu_torch.cli
+train ...``, or ``python -m torch.distributed.run``): every rank trains,
+rank 0 writes the model. Without a launcher's environment only a mesh
+of size 1 runs; a larger one exits saying how to launch. The flags of
+the knobs the port does not carry yet (``serve --tp``, a ``pp`` mesh
+axis and ``--pp-interleave``) are parsed, and a value exits with a
+message naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -47,9 +52,8 @@ FLASH_PAGED_MODES = {"auto": None, "on": True, "off": False}
 
 #: flags of knobs the port refuses: (attribute, default, ROADMAP item)
 UNPORTED_FLAGS = (
-    ("tp", 1, "11 (tensor parallelism)"),
-    ("mesh", None, "11 (data, tensor and pipeline parallel training)"),
-    ("pp_interleave", None, "11 (pipeline parallel training)"),
+    ("tp", 1, "11c (tensor-parallel serving)"),
+    ("pp_interleave", None, "11b (pipeline parallel training)"),
 )
 
 
@@ -190,11 +194,104 @@ def _cmd_train(args) -> int:
     batch = args.batch_size or len(feats)
     sets = [DataSet(feats[i:i + batch], labels[i:i + batch])
             for i in range(0, len(feats), batch)]
+    if args.mesh:
+        return _train_on_mesh(args, net, sets, feats, labels, batch)
     for _ in range(args.epochs):
         net.fit(ListDataSetIterator(sets))
     write_model(net, args.output)
     score = net.score(DataSet(feats[:batch], labels[:batch]))
     print(f"saved model to {args.output} (final score {score:.6f})")
+    return 0
+
+
+def parse_mesh(text: str) -> dict:
+    """``'dp=2,tp=2'`` -> {"dp": 2, "tp": 2}; exits on a bad spec, on
+    a mesh without a dp axis, and on a pp axis (not ported)."""
+    try:
+        spec = {k.strip(): int(v) for k, v in
+                (part.split("=") for part in text.split(","))}
+    except ValueError:
+        raise SystemExit(
+            f"--mesh {text!r}: expected 'axis=N[,axis=N...]'")
+    if "pp" in spec:
+        raise SystemExit(
+            f"--mesh {text!r}: pipeline parallelism (a pp axis) is not "
+            "ported to the torch package yet (ROADMAP item 11b)")
+    if "dp" not in spec:
+        raise SystemExit(
+            "--mesh must include a dp axis (the batch shards over it), "
+            "e.g. 'dp=8' or 'dp=2,tp=4'")
+    return spec
+
+
+def _train_on_mesh(args, net, sets, feats, labels, batch) -> int:
+    """``train --mesh``: every rank of the launcher's world trains the
+    same net through ``ParallelTrainer`` on the same global batches
+    (ragged tails trimmed so every data rank gets an equal slice); rank
+    0 gathers the shards and writes the model."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        ParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+        shutdown_multihost,
+    )
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    import torch.distributed as dist
+
+    spec = parse_mesh(args.mesh)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    sizes = MeshSpec(spec).resolve(world)
+    total = int(np.prod(list(sizes.values())))
+    if world == 1 and total != 1:
+        raise SystemExit(
+            f"--mesh {args.mesh!r} needs {total} ranks, one process per "
+            f"device: launch it as `torchrun --nproc-per-node {total} -m "
+            "deeplearning4j_tpu_torch.cli train ... --mesh "
+            f"{args.mesh}` (or `python -m torch.distributed.run ...`)")
+    if world == 1:
+        from deeplearning4j_tpu_torch.serving.replica_proc import free_port
+
+        initialize_multihost(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                             device=args.device)
+    else:
+        initialize_multihost(device=args.device)
+    try:
+        trainer = ParallelTrainer(
+            net, make_mesh(MeshSpec(spec), device_type=net.device.type),
+            tp_axis="tp" if "tp" in spec else None,
+            fsdp_axis="fsdp" if "fsdp" in spec else None,
+            ep_axis="ep" if "ep" in spec else None,
+            sp_axis="sp" if "sp" in spec else None)
+        div = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+        trimmed = [DataSet(ds.features[:len(ds.features) // div * div],
+                           ds.labels[:len(ds.features) // div * div])
+                   for ds in sets]
+        trimmed = [ds for ds in trimmed if ds.features.shape[0] > 0]
+        if not trimmed:
+            raise SystemExit(
+                f"--mesh {args.mesh!r}: every batch is smaller than the "
+                f"{div} data shards; raise --batch-size")
+        dropped = len(feats) - sum(ds.features.shape[0] for ds in trimmed)
+        rank0 = dist.get_rank() == 0
+        if dropped and rank0:
+            print(f"note: dropped {dropped} ragged-tail examples so "
+                  f"batches divide the {div} data shards")
+        for _ in range(args.epochs):
+            trainer.fit(ListDataSetIterator(trimmed))
+        whole = trainer.unsharded_net()
+        if rank0:
+            write_model(whole, args.output)
+            score = whole.score(DataSet(feats[:batch], labels[:batch]))
+            print(f"saved model to {args.output} (final score "
+                  f"{score:.6f}, mesh {sizes})")
+    finally:
+        shutdown_multihost()
     return 0
 
 
@@ -624,8 +721,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--batch-size", type=int, default=None)
     t.add_argument("--verbose", action="store_true")
     t.add_argument("--mesh", default=None,
-                   help="device mesh, e.g. 'dp=8' (not ported: any "
-                        "value exits)")
+                   help="device mesh, e.g. 'dp=8' or 'dp=2,tp=2': one rank "
+                        "per device under torchrun (a pp axis is not "
+                        "ported and exits)")
     t.add_argument("--pp-interleave", type=int, default=None,
                    help="pipeline virtual-stage interleave depth (not "
                         "ported: any value exits)")

@@ -180,15 +180,34 @@ class EarlyStoppingTrainer:
 
 class ParallelEarlyStoppingTrainer(EarlyStoppingTrainer):
     """Early stopping over the data-parallel trainer (JAX's
-    ``ParallelEarlyStoppingTrainer``): waits for the parallel trainers
-    (ROADMAP Queue 1 item 11)."""
+    ``ParallelEarlyStoppingTrainer``): each epoch's batches run through
+    ``ParallelTrainer.fit`` (one synchronous step over the mesh per
+    batch, the global batch on every rank) while the same config,
+    saver, termination and listener machinery decides when to stop.
+    Every rank runs it; the score calculator runs on each rank's net
+    (whose sharded layers hold local shards: give tp/ep/fsdp trainers a
+    calculator that reads ``parallel_trainer.unsharded_net()``)."""
 
     def __init__(self, config, parallel_trainer, train_iterator,
                  listener=None, tracer=None):
-        raise NotImplementedError(
-            "ParallelEarlyStoppingTrainer needs the data-parallel trainer, "
-            "which is not ported to the torch package yet (ROADMAP Queue 1 "
-            "item 11); use EarlyStoppingTrainer")
+        super().__init__(config, parallel_trainer.net, train_iterator,
+                         listener=listener,
+                         tracer=tracer or getattr(parallel_trainer,
+                                                  "tracer", None))
+        self.trainer = parallel_trainer
+        self._has_fit = False
+        self._last_fit_score = float("nan")
+
+    def _fit_batch(self, ds) -> None:
+        self._last_fit_score = float(self.trainer.fit(ds))
+        self._has_fit = True
+
+    def _train_score(self) -> float:
+        # NaN from a diverged fit must pass through so
+        # InvalidScoreIterationTerminationCondition can fire on it
+        if not self._has_fit:
+            return float(self.net.score_value)
+        return self._last_fit_score
 
 
 # Reference-name aliases: the Java API needs a separate graph trainer

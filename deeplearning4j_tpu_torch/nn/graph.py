@@ -399,18 +399,7 @@ class ComputationGraph(BaseNetwork):
         n_iter = max(1, first_conf.num_iterations)
         examples, tokens = batch_counts(next(iter(inputs.values())))
         for _ in range(n_iter):
-            t0 = time.perf_counter()
-            (self.params, self.state, self.updater_state,
-             score, health) = self._step_body(
-                self.params, self.state, self.updater_state,
-                self.iteration, self._gen, inputs, labels, masks, lmasks)
-            self.params_version += 1
-            self.train_telemetry.record_step(
-                dispatch_s=time.perf_counter() - t0, examples=examples,
-                tokens=tokens, health=health)
-            self.score_value = score
-            self.iteration += 1
-            self._fire_listeners()
+            self._sgd_step(inputs, labels, masks, lmasks, examples, tokens)
 
     def _fit_tbptt(self, data) -> None:
         """Truncated BPTT (reference ComputationGraph.doTruncatedBPTT

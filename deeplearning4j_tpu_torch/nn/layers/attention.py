@@ -7,8 +7,14 @@ attention of training and long prefill, the prefill KV cache, the
 dense-slot streaming attend of ``rnn_time_step``/``generate`` and the
 dense engine, and the paged block-pool attend), ``guard_streamable`` and
 ``TransformerBlockImpl``, over the same ``[N, C, T]`` activations and
-``[B, H, T, dh]`` heads. Ring/Ulysses sequence parallelism and tensor
-parallel head sharding belong to later slices.
+``[B, H, T, dh]`` heads, with the mesh routes of a ``ParallelTrainer``
+step (``parallel/collectives.py:ParallelScope``): under tensor
+parallelism each rank holds ``n_heads/T`` whole heads (the Wq/Wk/Wv
+columns and the Wo rows of ``tp_param_specs``), so the core, and K1,
+runs on [B, H/T, T, dh]; Megatron's *f* goes before the q/k/v (and
+W1) projections and *g* after Wo (and W2). A layer with ``ring_axis``
+runs ring or Ulysses attention over that axis
+(``parallel/sequence_parallel.py``).
 
 Two hand-written CUDA kernels, each with its plain PyTorch version:
 
@@ -39,6 +45,13 @@ from deeplearning4j_tpu_torch.nn.layers.base import LayerImplBase
 from deeplearning4j_tpu_torch.nn.layers.normalization import layer_norm
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import activation
+from deeplearning4j_tpu_torch.parallel.collectives import (
+    copy_to_group,
+    current_scope,
+    reduce_from_group,
+    ring_axis_group,
+    tp_local,
+)
 
 
 @register_bean("MultiHeadSelfAttention")
@@ -103,6 +116,25 @@ def _merge_heads(o):
     return o.permute(0, 2, 1, 3).reshape(n, t, h * dh)
 
 
+def _tp_axis():
+    """The live tensor-parallel axis of this step, or None."""
+    scope = current_scope()
+    return None if scope is None else scope.tp_axis
+
+
+def _tp_in(x, tp):
+    """Megatron's *f* before a column-parallel projection."""
+    return x if tp is None else copy_to_group(x, tp.group)
+
+
+def _tp_out(y, tp):
+    """Megatron's *g* after a row-parallel projection: the partial sums
+    add up in float32 and round to the compute dtype once."""
+    if tp is None:
+        return y
+    return reduce_from_group(y.float(), tp.group).to(y.dtype)
+
+
 def _check_streamable(lc):
     if not lc.causal:
         raise ValueError(
@@ -131,13 +163,15 @@ class AttentionImpl(LayerImplBase):
         if d % h:
             raise ValueError(f"n_out {d} not divisible by n_heads {h}")
         dh = d // h
+        tp = _tp_axis()
+        h = tp_local(h, tp)
         x = cls.maybe_dropout(conf, x, train, rng)
-        xt = x.transpose(1, 2)  # [N, T, C]
+        xt = _tp_in(x.transpose(1, 2), tp)  # [N, T, C]
         q = _split_heads(_mm(xt, params["Wq"]), h, dh)
         k = _split_heads(_mm(xt, params["Wk"]), h, dh)
         v = _split_heads(_mm(xt, params["Wv"]), h, dh)
         o, state = cls._attend_core(lc, q, k, v, state, train, mask)
-        out = _mm(_merge_heads(o), params["Wo"]) + params["b"]
+        out = _tp_out(_mm(_merge_heads(o), params["Wo"]), tp) + params["b"]
         out = cls.activation_of(conf)(out).transpose(1, 2)  # [N, D, T]
         if mask is not None:
             out = out * mask[:, None, :]
@@ -155,9 +189,30 @@ class AttentionImpl(LayerImplBase):
                 return cls._paged_attend(lc, q, k, v, state, mask)
             return cls._stream_attend(lc, q, k, v, state, mask)
         if lc.ring_axis:
-            raise NotImplementedError(
-                f"ring_axis={lc.ring_axis!r}: sequence-parallel attention "
-                "is not ported to the torch package yet")
+            from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+                ring_attention,
+                ulysses_attention,
+            )
+
+            axis = ring_axis_group(lc.ring_axis)
+            if lc.sp_mode == "ulysses":
+                if lc.ring_block_size:
+                    raise ValueError(
+                        "ring_block_size bounds the RING schedule's score "
+                        "memory; ulysses materializes the full [T, T] "
+                        "scores of its local heads — unset ring_block_size "
+                        "or use sp_mode='ring'")
+                o = ulysses_attention(q, k, v, axis, causal=lc.causal,
+                                      key_mask=mask, use_flash=lc.use_flash)
+            elif lc.sp_mode == "ring":
+                o = ring_attention(q, k, v, axis, causal=lc.causal,
+                                   key_mask=mask,
+                                   block_size=lc.ring_block_size,
+                                   use_flash=lc.use_flash)
+            else:
+                raise ValueError(
+                    f"sp_mode {lc.sp_mode!r}: expected 'ring' or 'ulysses'")
+            return o, None
         if _should_use_flash(lc.use_flash, q, mask):
             o = flash_attention(q, k, v, lc.causal)
         else:
@@ -396,22 +451,24 @@ class TransformerBlockImpl(LayerImplBase):
         if d % h:
             raise ValueError(f"n_out {d} not divisible by n_heads {h}")
         dh = d // h
+        tp = _tp_axis()
+        h = tp_local(h, tp)
         x = cls.maybe_dropout(conf, x, train, rng)
         xt = x.transpose(1, 2)  # [N, T, C]
         if "Wi" in params:
             xt = _mm(xt, params["Wi"])
-        hn = layer_norm(xt, params["ln1_g"], params["ln1_b"])
+        hn = _tp_in(layer_norm(xt, params["ln1_g"], params["ln1_b"]), tp)
         q = _split_heads(_mm(hn, params["Wq"]), h, dh)
         k = _split_heads(_mm(hn, params["Wk"]), h, dh)
         v = _split_heads(_mm(hn, params["Wv"]), h, dh)
         o, state = AttentionImpl._attend_core(lc, q, k, v, state, train,
                                               mask)
-        attn = _mm(_merge_heads(o), params["Wo"])
+        attn = _tp_out(_mm(_merge_heads(o), params["Wo"]), tp)
         xt = xt + (attn + params["bo"])
-        h2 = layer_norm(xt, params["ln2_g"], params["ln2_b"])
+        h2 = _tp_in(layer_norm(xt, params["ln2_g"], params["ln2_b"]), tp)
         ffn = activation(lc.ffn_activation)(_mm(h2, params["W1"])
                                             + params["b1"])
-        xt = xt + (_mm(ffn, params["W2"]) + params["b2"])
+        xt = xt + (_tp_out(_mm(ffn, params["W2"]), tp) + params["b2"])
         out = xt.transpose(1, 2)  # [N, D, T]
         if mask is not None:
             out = out * mask[:, None, :]

@@ -11,8 +11,14 @@ contract:
 - the load-balancing loss leaves through the layer-state channel
   (``{"aux_loss": ...}``) and ``MultiLayerNetwork._aux_score`` adds it
   to the training score weighted by ``aux_weight``;
-- ``ep_axis`` (all-to-all expert parallelism) raises until ROADMAP
-  Queue 1 item 11.
+- ``ep_axis`` names a live mesh axis of the step: this rank's tokens
+  and its slice of the experts, exchanged with two all-to-alls
+  (``parallel/expert_parallel.py:moe_apply``);
+- under ``ParallelTrainer(ep_axis=...)`` (the bean's ``ep_axis``
+  unset) the batch is the same on every rank of the ep axis and each
+  rank holds ``n_experts / ep`` experts: routing runs over every token
+  and each rank runs its own experts
+  (``moe_apply_expert_sharded``), as JAX's ep shardings do under GSPMD.
 """
 
 from __future__ import annotations
@@ -26,7 +32,11 @@ from deeplearning4j_tpu_torch.nn.conf.layers import FeedForwardLayer
 from deeplearning4j_tpu_torch.nn.conf.serde import register_bean
 from deeplearning4j_tpu_torch.nn.layers.base import LayerImplBase
 from deeplearning4j_tpu_torch.nn.weights import init_weights
-from deeplearning4j_tpu_torch.parallel.expert_parallel import moe_apply
+from deeplearning4j_tpu_torch.parallel.collectives import current_scope
+from deeplearning4j_tpu_torch.parallel.expert_parallel import (
+    moe_apply,
+    moe_apply_expert_sharded,
+)
 
 
 @register_bean("MoeDense")
@@ -80,9 +90,15 @@ class MoeDenseImpl(LayerImplBase):
             tokens = x.permute(0, 2, 1).reshape(n * t, c)
         else:
             tokens = x
-        y, aux = moe_apply(params, tokens,
-                           capacity_factor=lc.capacity_factor,
-                           top_k=lc.top_k, ep_axis=lc.ep_axis)
+        scope = current_scope()
+        if lc.ep_axis is None and scope is not None and scope.ep:
+            y, aux = moe_apply_expert_sharded(
+                params, tokens, lc.capacity_factor, lc.top_k,
+                scope.ep_axis)
+        else:
+            y, aux = moe_apply(params, tokens,
+                               capacity_factor=lc.capacity_factor,
+                               top_k=lc.top_k, ep_axis=lc.ep_axis)
         if lc.residual:
             y = y + tokens
         y = cls.activation_of(conf)(y)

@@ -19,8 +19,10 @@ The peepholes: i and f read ``c_prev``, o reads the new ``c``. A masked
 step keeps ``(h, c)``. Activations are [N, C, T]; the carried state is
 batch-major (``(h, c)`` for the LSTMs, ``h`` for the GRU), the
 streaming contract of ``nn/streaming.py``, and a zeroed row is the
-initial carry. ``ring_axis`` (sequence parallelism over a device mesh)
-raises: the mesh is ROADMAP Queue 1 item 11.
+initial carry. With ``ring_axis`` (sequence parallelism inside a
+``ParallelTrainer(sp_axis=...)`` step) GravesLSTM and GRU run their
+recurrence as ``parallel/sequence_parallel.py:sp_scan``: this rank's
+time chunk from the carry of the rank before it, exact full BPTT.
 """
 
 from __future__ import annotations
@@ -36,13 +38,28 @@ def _gates(z, n: int):
     return z[..., :n], z[..., n:2 * n], z[..., 2 * n:3 * n], z[..., 3 * n:]
 
 
-def _no_ring(conf) -> None:
+def _scan_maybe_sp(conf, step, carry, n_steps: int):
+    """The time recurrence ``step(carry, t) -> (carry, y_t)`` over
+    ``n_steps``: a loop, or, when the bean carries ``ring_axis``, a
+    distributed ``sp_scan`` over that live axis (this call holds the
+    rank's time chunk). Returns (stacked ys, final carry)."""
     ring = getattr(conf.layer, "ring_axis", None)
     if ring:
-        raise NotImplementedError(
-            f"ring_axis={ring!r}: a recurrence split over a device mesh "
-            "(sp_scan) is not ported to the torch package (ROADMAP Queue "
-            "1 item 11); clear ring_axis to run the layer on one device")
+        from deeplearning4j_tpu_torch.parallel.collectives import (
+            ring_axis_group,
+        )
+        from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+            sp_scan,
+        )
+
+        carry, ys = sp_scan(step, carry, list(range(n_steps)),
+                            ring_axis_group(ring))
+        return ys, carry
+    ys = []
+    for t in range(n_steps):
+        carry, y = step(carry, t)
+        ys.append(y)
+    return torch.stack(ys), carry
 
 
 def _keep(mask_t, new, old):
@@ -101,14 +118,12 @@ class LSTMImpl(LayerImplBase):
     def scan_sequence(cls, conf, params, x_tnc, carry, mask_tn=None):
         """Run the sequence [T, N, C]; returns ([T, N, H] outputs, the
         final carry)."""
-        _no_ring(conf)
         xw = x_tnc @ params["W"]                     # every step at once
-        hs = []
-        for t in range(x_tnc.shape[0]):
-            carry, h = cls._step(conf, params, carry, xw[t],
-                                 None if mask_tn is None else mask_tn[t])
-            hs.append(h)
-        return torch.stack(hs), carry
+        return _scan_maybe_sp(
+            conf, lambda c, t: cls._step(
+                conf, params, c, xw[t],
+                None if mask_tn is None else mask_tn[t]),
+            carry, x_tnc.shape[0])
 
     @classmethod
     def apply(cls, conf, params, x, state=None, train=False, rng=None,
@@ -200,19 +215,20 @@ class GRUImpl(LayerImplBase):
     @classmethod
     def apply(cls, conf, params, x, state=None, train=False, rng=None,
               mask=None):
-        _no_ring(conf)
         x = cls.maybe_dropout(conf, x, train, rng)
         x_tnc = x.permute(2, 0, 1)
         h = state if state is not None else cls.initial_carry(
             conf, x.shape[0], x.dtype, x.device)
         mask_tn = None if mask is None else mask.transpose(0, 1)
         zx = x_tnc @ params["W"] + params["b"]
-        hs = []
-        for t in range(x_tnc.shape[0]):
-            h = cls._step(conf, params, h, zx[t],
-                          None if mask_tn is None else mask_tn[t])
-            hs.append(h)
-        return torch.stack(hs).permute(1, 2, 0), h
+
+        def step(h_prev, t):
+            h_new = cls._step(conf, params, h_prev, zx[t],
+                              None if mask_tn is None else mask_tn[t])
+            return h_new, h_new
+
+        hs, h = _scan_maybe_sp(conf, step, h, x_tnc.shape[0])
+        return hs.permute(1, 2, 0), h
 
 
 class RnnOutputImpl(LayerImplBase):

@@ -255,6 +255,11 @@ class BaseNetwork:
     ``updater_state``, ``iteration``, ``listeners``, ``train_graphs``,
     ``params_version``, ``device`` and the host generator ``_gen``."""
 
+    #: a ``ParallelTrainer`` during its steps: its ``value_and_grad``
+    #: (the mesh's collectives around the loss and gradient) takes the
+    #: place of :meth:`_value_and_grad`; the update is the network's own
+    _parallel = None
+
     def _units(self) -> list:
         """[(params key, conf, updater)] in updater order."""
         raise NotImplementedError
@@ -327,13 +332,38 @@ class BaseNetwork:
         """One SGD step; returns (new_params, new_state, new_upd_state,
         score, health): the gradient-health scalars come out of every
         step (:func:`grad_health`), fetched only by a consumer."""
-        score, grads, new_state = self._value_and_grad(
+        vg = (self._value_and_grad if self._parallel is None
+              else self._parallel.value_and_grad)
+        score, grads, new_state = vg(
             params, state, rng, features, labels, feature_mask, label_mask)
         new_params, new_upd = self._apply_updates(
             params, upd_state, grads, iteration, grad_scale, scalars)
         with torch.no_grad():
             health = grad_health(grads, params, new_params)
         return new_params, new_state, new_upd, score, health
+
+    def _sgd_step(self, features, labels, feature_mask, label_mask,
+                  examples, tokens, grad_scale=1.0) -> float:
+        """One eager SGD step on the net's own params, with its
+        bookkeeping (params version, telemetry, score, iteration,
+        listeners); returns the step's dispatch seconds. ``examples`` /
+        ``tokens`` are what the telemetry counts: a data-parallel
+        trainer passes the global batch's."""
+        t0 = time.perf_counter()
+        (self.params, self.state, self.updater_state,
+         score, health) = self._step_body(
+            self.params, self.state, self.updater_state, self.iteration,
+            self._gen, features, labels, feature_mask, label_mask,
+            grad_scale)
+        dispatch_s = time.perf_counter() - t0
+        self.params_version += 1
+        self.train_telemetry.record_step(
+            dispatch_s=dispatch_s, examples=examples, tokens=tokens,
+            health=health)
+        self.score_value = score
+        self.iteration += 1
+        self._fire_listeners()
+        return dispatch_s
 
     def _tensor(self, a, dtype=None):
         if a is None:
@@ -838,18 +868,7 @@ class MultiLayerNetwork(BaseNetwork):
         lm = self._tensor(ds.labels_mask)
         examples, tokens = batch_counts(feats)
         for _ in range(n_iter):
-            t0 = time.perf_counter()
-            (self.params, self.state, self.updater_state,
-             score, health) = self._step_body(
-                self.params, self.state, self.updater_state,
-                self.iteration, self._gen, feats, labels, fm, lm)
-            self.params_version += 1
-            self.train_telemetry.record_step(
-                dispatch_s=time.perf_counter() - t0, examples=examples,
-                tokens=tokens, health=health)
-            self.score_value = score
-            self.iteration += 1
-            self._fire_listeners()
+            self._sgd_step(feats, labels, fm, lm, examples, tokens)
 
     def _fit_tbptt(self, ds) -> None:
         """Truncated BPTT (reference doTruncatedBPTT :1262-1320): the

@@ -1,13 +1,15 @@
 """Training telemetry: the per-step phase clock every fit path stamps,
 the gradient-health scalars, and the headless JSONL metrics sink.
 
-Port of ``deeplearning4j_tpu/optimize/telemetry.py`` (less the parallel
-trainers' span helpers, which wait for ROADMAP Queue 1 item 11):
+Port of ``deeplearning4j_tpu/optimize/telemetry.py``:
 :class:`TrainTelemetry` (the host-side phase accumulator every network
 owns), the batch/window counters, the gradient-health scalars every
 train step returns (:func:`grad_health`; :func:`host_grad_health` for
 the solvers' host loop), :func:`fetch_health` for the tracing listener,
-the training histogram tracks, and :class:`MetricsLog`.
+the training histogram tracks, the parallel trainers' step spans
+(:func:`emit_step_span`, :func:`mesh_args`: every ``ParallelTrainer``
+step emits ``train.parallel_step`` with the mesh's axes) and
+:class:`MetricsLog`.
 """
 
 from __future__ import annotations
@@ -242,6 +244,34 @@ def window_counts(shape) -> tuple:
     tokens = (examples * int(shape[3]) if len(shape) == 4
               else examples)
     return k, examples, tokens
+
+
+def emit_step_span(tracer, dispatch_s: float,
+                   args: Dict[str, Any]) -> None:
+    """One ``train.parallel_step`` complete span ending now, carrying
+    the trainer's mesh-config ``args``: the shared emitter behind every
+    parallel trainer's per-step track."""
+    if tracer is None:
+        return
+    dur_us = dispatch_s * 1e6
+    tracer.complete("train.parallel_step", tracer.now_us() - dur_us,
+                    dur_us, **args)
+
+
+def mesh_args(mesh, trainer: str, **extra) -> Dict[str, Any]:
+    """JSON-safe span annotation for a parallel trainer's step spans:
+    the mesh's shape by axis name (a ``DeviceMesh``), the trainer kind
+    and any active-axis assignments."""
+    names = tuple(mesh.mesh_dim_names)
+    args: Dict[str, Any] = {
+        "trainer": trainer,
+        "mesh": {str(n): int(s) for n, s in zip(names, mesh.mesh.shape)},
+        "devices": int(mesh.mesh.numel()),
+    }
+    for key, value in extra.items():
+        if value is not None:
+            args[key] = value
+    return args
 
 
 class MetricsLog:

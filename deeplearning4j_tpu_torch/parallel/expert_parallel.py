@@ -1,9 +1,10 @@
-"""Capacity-factored mixture-of-experts, single device.
+"""Capacity-factored mixture-of-experts, and expert parallelism.
 
-Port of the single-device half of
-``deeplearning4j_tpu/parallel/expert_parallel.py``: ``init_moe_params``,
-``expert_capacity``, ``route_top_k``, ``_expert_ffn``, ``moe_apply`` and
-the dense reference ``moe_apply_dense``. Routing builds dispatch and
+Port of ``deeplearning4j_tpu/parallel/expert_parallel.py``:
+``init_moe_params``, ``expert_capacity``, ``route_top_k``,
+``_expert_ffn``, ``moe_apply`` (with ``ep_axis``, the explicit
+two-all-to-all schedule), the dense reference ``moe_apply_dense``,
+``make_ep_moe`` and ``ep_param_shardings``. Routing builds dispatch and
 combine tensors [B, E, C] with C = ceil(capacity_factor · B · k / E);
 the dispatch einsum gathers tokens into per-expert buffers [E, C, D],
 the expert FFN runs batched over the expert axis, and the combine
@@ -19,16 +20,33 @@ a captured CUDA graph (a decode round, a ``fit_scan`` step) cannot
 hold. A position at or past the capacity matches no slot, as
 ``jax.nn.one_hot`` gives a zero row there.
 
-``ep_axis`` (explicit all-to-all over a mesh axis) raises: the device
-mesh is ROADMAP Queue 1 item 11.
+With ``ep_axis`` (a live mesh axis: :func:`make_ep_moe`, or a layer's
+``ep_axis`` inside a ``ParallelTrainer`` step) each rank holds its own
+tokens and its ``E / n_ep`` experts: after local routing, one
+``all_to_all`` sends expert block j's capacity buffers to rank j, the
+rank runs its experts, and a second returns the results (GShard's
+schedule; capacity is per rank). :func:`moe_apply_expert_sharded` is the
+``ParallelTrainer(ep_axis=...)`` route, where every rank of the axis
+sees the same tokens (JAX's GSPMD ep shardings): routing over all of
+them, each rank's experts on its slice, and the expert outputs
+all-gathered.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+from deeplearning4j_tpu_torch.parallel.collectives import (
+    AxisGroup,
+    all_reduce_sum,
+    all_to_all,
+    copy_to_group,
+    current_scope,
+    gather_replicas,
+)
 
 
 def init_moe_params(gen: torch.Generator, n_experts: int, d_in: int,
@@ -119,12 +137,12 @@ def moe_apply(params, x: torch.Tensor, capacity_factor: float = 1.25,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-dispatched MoE: x [B, D] -> (y [B, D], aux scalar).
     The dispatch and combine einsums cost capacity_factor·k·B²·D each,
-    the expert FFN capacity_factor·k·B·D·H: neither grows with E."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            f"ep_axis={ep_axis!r}: expert parallelism over a device mesh "
-            "is not ported to the torch package (ROADMAP Queue 1 item "
-            "11); clear ep_axis to run the experts on one device")
+    the expert FFN capacity_factor·k·B·D·H: neither grows with E.
+
+    With ``ep_axis`` (a live axis name or an :class:`AxisGroup`) x and
+    the router are this rank's, W_up/W_down its local expert slice, and
+    the dispatch buffers travel by two ``all_to_all``s."""
+    axis = _ep_axis(ep_axis)
     b = x.shape[0]
     e = params["router"].shape[1]
     capacity = expert_capacity(b, e, capacity_factor, top_k)
@@ -132,7 +150,54 @@ def moe_apply(params, x: torch.Tensor, capacity_factor: float = 1.25,
     logits = x.to(rdt) @ params["router"].to(rdt)
     dispatch, combine, aux = route_top_k(logits, capacity, top_k)
     xe = torch.einsum("bec,bd->ecd", dispatch.to(x.dtype), x)
+    if axis is not None:
+        # [E, C, D] -> [E/n_ep, n_ep·C, D]: rank j receives expert block
+        # j's tokens from every peer
+        xe = all_to_all(xe, axis.group, 0, 1)
     ye = _expert_ffn(xe, params["W_up"], params["W_down"])
+    if axis is not None:
+        # back to [E, C, D] on the tokens' home ranks, in expert order
+        ye = all_to_all(ye, axis.group, 1, 0)
+    y = torch.einsum("bec,ecd->bd", combine.to(ye.dtype), ye)
+    return y, aux
+
+
+def _ep_axis(ep_axis) -> Optional[AxisGroup]:
+    if ep_axis is None or isinstance(ep_axis, AxisGroup):
+        return ep_axis
+    scope = current_scope()
+    if scope is None:
+        raise ValueError(
+            f"ep_axis={ep_axis!r} runs only over a live mesh axis "
+            "(make_ep_moe, or a ParallelTrainer step); clear ep_axis to "
+            "run the experts on one device")
+    return scope.axis(ep_axis)
+
+
+def moe_apply_expert_sharded(params, x: torch.Tensor,
+                             capacity_factor: float, top_k: int,
+                             axis: AxisGroup
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` with the experts split over ``axis`` and the tokens
+    the same on every rank of it: routing and capacity over all tokens
+    (exact single-device semantics), this rank's experts (its W_up /
+    W_down slice, experts ``index·E/n .. (index+1)·E/n``) on their
+    buffers, and the expert outputs all-gathered. The dispatch input
+    takes Megatron's *f* (the experts of the other ranks add their part
+    of x's gradient)."""
+    b = x.shape[0]
+    e = params["router"].shape[1]
+    e_local = params["W_up"].shape[0]
+    capacity = expert_capacity(b, e, capacity_factor, top_k)
+    rdt = torch.promote_types(x.dtype, torch.float32)
+    logits = x.to(rdt) @ params["router"].to(rdt)
+    dispatch, combine, aux = route_top_k(logits, capacity, top_k)
+    lo = axis.index * e_local
+    xe = torch.einsum("bec,bd->ecd",
+                      dispatch[:, lo:lo + e_local].to(x.dtype),
+                      copy_to_group(x, axis.group))
+    ye = gather_replicas(_expert_ffn(xe, params["W_up"], params["W_down"]),
+                         axis.group, 0)
     y = torch.einsum("bec,ecd->bd", combine.to(ye.dtype), ye)
     return y, aux
 
@@ -157,3 +222,46 @@ def moe_apply_dense(params, x: torch.Tensor
     p = probs.mean(dim=0)
     aux = e * (f * p).sum()
     return y, aux
+
+
+def make_ep_moe(mesh, ep_axis: str = "ep",
+                token_axes: Optional[Sequence[str]] = None,
+                capacity_factor: float = 1.25, top_k: int = 1):
+    """Explicit expert-parallel MoE over ``mesh``: returns ``fn(params,
+    x) -> (y, aux)`` taking this rank's tokens [B_local, D] and its
+    params (the whole router, its ``E / n_ep`` experts of W_up/W_down:
+    :func:`ep_param_shardings`), returning its outputs and the aux loss
+    averaged over the token axes (default: ``ep_axis`` alone; pass
+    ``("dp", "ep")`` for a dp x ep mesh)."""
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        axes_size,
+        axis_group,
+        axis_of,
+    )
+
+    if ep_axis not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh has no axis {ep_axis!r}")
+    axes = tuple(token_axes) if token_axes else (ep_axis,)
+    axis = axis_of(mesh, ep_axis)
+    n_ep = axis.size
+    token_group = axis_group(mesh, axes)
+    n_tok = axes_size(mesh, axes)
+
+    def fn(params, x):
+        e = params["router"].shape[1]
+        if e % n_ep:
+            raise ValueError(f"n_experts {e} not divisible by ep={n_ep}")
+        y, aux = moe_apply(params, x, capacity_factor, top_k, ep_axis=axis)
+        return y, all_reduce_sum(aux, token_group) / n_tok
+
+    return fn
+
+
+def ep_param_shardings(mesh, ep_axis: str = "ep"):
+    """The placements of a MoE param dict: the expert axis of W_up and
+    W_down on ``ep_axis``, the router replicated."""
+    from deeplearning4j_tpu_torch.parallel.mesh import P, Sharding
+
+    return {"router": Sharding(mesh, P()),
+            "W_up": Sharding(mesh, P(ep_axis, None, None)),
+            "W_down": Sharding(mesh, P(ep_axis, None, None))}

@@ -10,7 +10,8 @@ properties and built-in inputs, on the CPU (``--device cpu``).
   without CUDA it raises).
 - ``predict --raw`` on a JAX-written zip within 1e-4 of JAX's, and the
   argmax classes identical.
-- ``--mesh`` and ``--pp-interleave`` exit naming ROADMAP item 11.
+- ``--mesh dp=2`` without a launcher exits saying how to launch it; a
+  pp axis and ``--pp-interleave`` exit naming ROADMAP item 11b.
 - ``client`` against a port gateway on the CPU, blocking and
   ``--stream``: the same lines as JAX's ``client`` against it."""
 
@@ -164,12 +165,21 @@ class TestEndToEnd:
         np.testing.assert_allclose(port, ref, atol=RAW_TOL, rtol=0)
         np.testing.assert_array_equal(port.argmax(1), ref.argmax(1))
 
-    @pytest.mark.parametrize("flag,value", [("--mesh", "dp=2"),
-                                            ("--mesh", "pp=2"),
-                                            ("--pp-interleave", "1"),
-                                            ("--pp-interleave", "2")])
-    def test_parallel_flags_exit_naming_item_11(self, files, flag, value):
-        with pytest.raises(SystemExit, match="ROADMAP item 11"):
+    @pytest.mark.parametrize("flag,value,says", [
+        pytest.param("--mesh", "dp=2", "torchrun --nproc-per-node 2",
+                     id="--mesh-dp=2"),
+        pytest.param("--mesh", "pp=2", "ROADMAP item 11b", id="--mesh-pp=2"),
+        pytest.param("--pp-interleave", "1", "ROADMAP item 11b",
+                     id="--pp-interleave-1"),
+        pytest.param("--pp-interleave", "2", "ROADMAP item 11b",
+                     id="--pp-interleave-2")])
+    def test_parallel_flags_exit_naming_item_11(self, files, flag, value,
+                                                says):
+        """Without a launcher's environment a dp=2 mesh exits saying how
+        to launch it (``train --mesh`` under ``torch.distributed.run``:
+        ``test_torch_port_parallel.py``); a pp axis and
+        ``--pp-interleave`` exit naming pipeline parallelism's item."""
+        with pytest.raises(SystemExit, match=says):
             tcli.main(["train", "--conf", files["conf"], "--input",
                        files["csv"], "--output",
                        str(files["dir"] / "m.zip"), "--device", "cpu",

@@ -10,7 +10,7 @@ sums in another order) agree. ``LocalFileModelSaver`` and
 ``InMemoryModelSaver`` keep the best model (restored with its score,
 its outputs equal to the saved net's; a port-saved zip restores in
 JAX); a ComputationGraph early-stops too; ``ParallelEarlyStoppingTrainer``
-raises naming its ROADMAP item.
+over a one-rank mesh stops where JAX's over one device does.
 
 ``CheckpointManager``: atomic ``step_N`` commits (no ``.tmp`` left),
 keep-last-n plus best retention, the iterator's position saved and
@@ -214,14 +214,59 @@ def test_a_graph_early_stops(tmp_path):
                                    rtol=SCORE_RTOL)
 
 
+def _run_parallel(pkg, zips):
+    """``ParallelEarlyStoppingTrainer`` over a one-device mesh: JAX's on
+    one virtual CPU device, the port's over a gloo group of one rank
+    (several ranks: ``test_torch_port_parallel.py``)."""
+    m = jes if pkg == "jax" else tes
+    train, test = _iters(pkg)
+    cfg = (m.EarlyStoppingConfiguration.Builder()
+           .score_calculator(m.DataSetLossCalculator(test))
+           .epoch_termination_conditions(m.MaxEpochsTerminationCondition(4))
+           .model_saver(m.InMemoryModelSaver()).build())
+    if pkg == "jax":
+        import jax
+        from deeplearning4j_tpu.parallel.data_parallel import (
+            ParallelTrainer as JPT,
+        )
+        from deeplearning4j_tpu.parallel.mesh import MeshSpec, make_mesh
+
+        trainer = JPT(jrestore(zips["mlp"]), make_mesh(
+            MeshSpec({"dp": 1}), devices=jax.devices()[:1]))
+        return jes.ParallelEarlyStoppingTrainer(cfg, trainer, train).fit()
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        ParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+        shutdown_multihost,
+    )
+    from torch_port_ranks import free_port
+
+    initialize_multihost(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                         backend="gloo", device="cpu")
+    try:
+        trainer = ParallelTrainer(restore_model(zips["mlp"], device="cpu"),
+                                  make_mesh({"dp": 1}))
+        return tes.ParallelEarlyStoppingTrainer(cfg, trainer, train).fit()
+    finally:
+        shutdown_multihost()
+
+
 def test_trace_and_parallel_trainer(zips):
     tracer = Tracer()
     result, _ = _run("port", zips, "max_score", tracer=tracer)
     assert result.termination_reason == (
         tes.config.TerminationReason.ITERATION_TERMINATION_CONDITION)
     assert tracer.counter_values("train_early_stop")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tes.ParallelEarlyStoppingTrainer(None, None, None)
+    want, got = _run_parallel("jax", zips), _run_parallel("port", zips)
+    assert got.termination_reason.value == want.termination_reason.value
+    assert got.total_epochs == want.total_epochs == 4
+    assert got.best_model_epoch == want.best_model_epoch
+    for e, score in want.score_vs_epoch.items():
+        np.testing.assert_allclose(got.score_vs_epoch[e], score,
+                                   rtol=SCORE_RTOL)
 
 
 # ---------------------------------------------------- checkpoint manager

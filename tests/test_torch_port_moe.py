@@ -148,9 +148,23 @@ def test_moe_apply_equals_the_dense_reference_when_nothing_drops(
 
 
 def test_ep_axis_raises_naming_the_mesh_item(moe_params):
+    """``ep_axis`` names a live mesh axis: outside a step (no
+    ``make_ep_moe``, no ``ParallelTrainer``) it raises; over an axis of
+    one rank the all-to-all schedule is ``moe_apply`` itself. Two ranks
+    are held against JAX's ``make_ep_moe`` in
+    ``test_torch_port_parallel_sp.py``."""
+    from deeplearning4j_tpu_torch.parallel.collectives import AxisGroup
+
     tp = {n: torch.as_tensor(a) for n, a in moe_params.items()}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tep.moe_apply(tp, torch.zeros(4, 8), ep_axis="ep")
+    x = torch.as_tensor(
+        np.random.default_rng(6).normal(size=(12, 8)).astype(np.float32))
+    with pytest.raises(ValueError, match="live mesh axis"):
+        tep.moe_apply(tp, x, ep_axis="ep")
+    one = AxisGroup("ep", None, 1, 0)
+    y, aux = tep.moe_apply(tp, x, ep_axis=one)
+    yp, auxp = tep.moe_apply(tp, x)
+    torch.testing.assert_close(y, yp, rtol=0, atol=0)
+    torch.testing.assert_close(aux, auxp, rtol=0, atol=0)
 
 
 def test_init_moe_params_shapes_and_scales():

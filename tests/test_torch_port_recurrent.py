@@ -237,11 +237,27 @@ def test_image_lstm_drops_the_image_step_and_has_no_first_forget(zips):
 
 
 def test_ring_axis_raises_naming_the_mesh_item(zips):
+    """``ring_axis`` runs the recurrence as ``sp_scan`` over a live mesh
+    axis: outside a sequence-parallel step it raises naming
+    ``ParallelTrainer(sp_axis=...)``; over an axis of one rank it is the
+    plain scan (two ranks are held against JAX's ``sp_scan`` in
+    ``test_torch_port_parallel_sp.py``)."""
+    from deeplearning4j_tpu_torch.parallel.collectives import (
+        AxisGroup,
+        ParallelScope,
+        parallel_scope,
+    )
+
     _, tnet = _pair(zips, "GRU")
-    tnet.conf.confs[0].layer.ring_axis = "sp"
     x, _, _, _ = _data("GRU")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    plain = tnet.output(x)
+    tnet.conf.confs[0].layer.ring_axis = "sp"
+    with pytest.raises(ValueError, match="sp_axis"):
         tnet.output(x)
+    scope = ParallelScope(axes={"sp": AxisGroup("sp", None, 1, 0)})
+    with parallel_scope(scope):
+        ring = tnet.output(x)
+    torch.testing.assert_close(ring, plain, rtol=0, atol=0)
 
 
 # -------------------------------------------------------------- training
